@@ -1,0 +1,76 @@
+"""The port stands alone: no module of jrr_tpu_torch, no line of
+chip_smoke.py and no port tool (tools/torch_*.py) imports JAX or the JAX
+package, and entry points that create
+state refuse to fall back to the CPU when no card is present."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "jrr_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "optax", "flax", "jrr_tpu")
+
+
+def _imported_roots(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+def _port_modules():
+    return (
+        sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+        + sorted((ROOT / "tools").glob("torch_*.py"))
+    )
+
+
+@pytest.mark.parametrize("path", _port_modules(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_imports(path):
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_importing_every_module_loads_no_jax():
+    mods = [
+        ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+        for p in sorted(PKG.rglob("*.py"))
+    ]
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+        "print(len(sys.modules))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_state_entry_points_need_a_card_or_cpu(monkeypatch):
+    from jrr_tpu_torch import problem
+    from jrr_tpu_torch.models import discriminator, smpl
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (
+        lambda **kw: smpl.synthetic_smpl_model(num_verts=96, num_faces=160, **kw),
+        lambda **kw: discriminator.PoseDiscriminator(**kw),
+        lambda **kw: discriminator.ShapeDiscriminator(**kw),
+        lambda **kw: problem.synthetic_problem(batch=1, num_verts=96, image_size=32, **kw),
+    ):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+        make(device="cpu")
