@@ -4,9 +4,10 @@
 
 1. builds the CUDA kernels from jrr_tpu_torch/csrc with nvcc (sm_90a);
 2. holds each kernel against its plain PyTorch version on the card, on the
-   main path's inputs (full-width body, batch 256) at both geometries the
-   path uses (224²/tile 8 and 112²/tile 4) plus an all-empty-tiles case,
-   and times both;
+   main paths' inputs (full-width body, batch 256) at both geometries the
+   paths use (224²/tile 8 and 112²/tile 4) plus an all-empty-tiles case,
+   and times both: the fused kernels on the fused bins, the round-1 tile
+   kernels on the round-1 bins;
 3. drives the main path once: `refine_batch` at batch 256, 1000 + 100
    steps, shipped defaults, live discriminators (one warm-up, then three
    timed runs, the median reported), with every kernel's launch count set to
@@ -16,8 +17,18 @@
    them in float64, and compares the parameters (kernel vs plain ≤ 5e-4);
 5. holds the silhouette term's gradient at the first stage-B step through
    the kernels against the plain versions, full width, both geometries,
-   problem seeds 1-12;
-6. prints the kernels line, the card's name and power limit, and the
+   problem seeds 1-12, for the fused and the round-1 backend;
+6. drives the training path: three `outer_step`s at batch 256, 1000 + 100
+   steps (three batches of one synthetic problem whose mask is rendered
+   through the round-1 tile kernel) and a profiled repeat of the last,
+   then the closed-form regressor fit over those batches at V = 6890;
+7. drives the round-1 configuration (`silhouette.backend="pallas"`):
+   `refine_batch` at batch 256, full width and depth (warm-up, one timed
+   run, one profiled run), and two short kernel refinements that must
+   agree bit for bit;
+8. holds the gradient of Σ w·`silhouette_tiles_fused` (the α VJP kernel)
+   against the plain version at batch 256, both geometries;
+9. prints the kernels line, the card's name and power limit, and the
    contract line `{"ok": true, "device": {...}}` last.
 
 Any failed check raises (non-zero exit, no result line). Needs one CUDA card
@@ -30,6 +41,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -59,6 +71,7 @@ GRAD_SEEDS = range(1, 13)  # problem seeds of the stage-B gradient check
 BATCH = 256
 MAIN_RUNS = 3  # timed main-path runs after the warm-up
 PLAIN_FRAMES = 8  # plain versions run in frame chunks (their (B, G², T², 128) intermediates)
+TRAIN_STEPS = 3  # outer_step calls of the training path, one batch of BATCH frames each
 
 
 def _emit(obj) -> None:
@@ -135,39 +148,56 @@ def _kernel_inputs(problem, geometry):
     )
 
 
+def _active_pairs(tri, origin, tile, inv_sigma, blur_px2, lane_ok=None):
+    """(pixel, lane) pairs with 0 < p < 1 of tiles tri (N, 6, K), origin
+    (N, 2), counting only lanes where `lane_ok` (N, K) is set."""
+    import torch
+
+    from jrr_tpu_torch.render import coverage
+
+    i = torch.arange(tile * tile, device=tri.device)
+    px_x = origin[:, 0:1, None] + (i % tile).float()[None, :, None]
+    px_y = origin[:, 1:2, None] + (i // tile).float()[None, :, None]
+    rows = tuple(tri[:, j, None, :] for j in range(6))
+    p = coverage.coverage_rows(px_x, px_y, rows, inv_sigma=inv_sigma, blur_px2=blur_px2)[0]
+    active = (p > 0) & (p < 1)
+    if lane_ok is not None:
+        active &= lane_ok[:, None, :]
+    return int(active.sum())
+
+
 def _pair_counts(x):
     """(pixel, candidate) pairs these bins need: (pairs of a real candidate
     face, those with 0 < p < 1, occupied tiles). A lane is a real candidate
     when its corners do not index page slot P̂−1: binning points the lanes
     past a tile's face count, the pad from K to 128 and the faces dropped by
     page overflow there, at the dump triangle (p ≡ 0, no work needed)."""
-    import torch
-
-    from jrr_tpu_torch.render import coverage
     from jrr_tpu_torch.render import silhouette_fused as sf
 
     occupied = x["pages"][:, :, 0] != x["dump"]
-    t2 = x["tile"] ** 2
     real = (x["idx"][:, :, 0, :] >> 7) != x["pages"].shape[2] - 1
-    pairs = int((real & occupied[..., None]).sum()) * t2
+    pairs = int((real & occupied[..., None]).sum()) * x["tile"] ** 2
     active = 0
-    i = torch.arange(t2, device=x["tx"].device)
     for lo in range(0, x["tx"].shape[0], PLAIN_FRAMES):
         sl = slice(lo, lo + PLAIN_FRAMES)
         tri = sf._gather_tri(x["tx"][sl], x["ty"][sl], x["pages"][sl], x["idx"][sl])[occupied[sl]]
-        org = x["origin"][sl][occupied[sl]]
-        px_x = org[:, 0:1, None] + (i % x["tile"]).float()[None, :, None]
-        px_y = org[:, 1:2, None] + (i // x["tile"]).float()[None, :, None]
-        rows = tuple(tri[:, j, None, :] for j in range(6))
-        p = coverage.coverage_rows(px_x, px_y, rows, inv_sigma=x["inv_sigma"], blur_px2=x["blur_px2"])[0]
-        active += int(((p > 0) & (p < 1)).sum())
+        active += _active_pairs(tri, x["origin"][sl][occupied[sl]], x["tile"], x["inv_sigma"],
+                                x["blur_px2"])
     return pairs, active, int(occupied.sum())
 
 
-def _bound_ms(x, ops, with_mask_and_grads):
-    """Least time for these inputs: max(bytes / HBM rate, ops / f32 rate).
-    Bytes: tables and pages read once, idx/origin(/mask) of occupied tiles
-    read once, outputs written once."""
+def _max_bound(byte_count, ops):
+    """(max(bytes / HBM rate, ops / f32 rate) in ms, which of the two bounds)."""
+    byte_ms = 1e3 * byte_count / HBM_BYTES_PER_S
+    op_ms = 1e3 * ops / F32_OPS_PER_S
+    return max(byte_ms, op_ms), ("bytes" if byte_ms >= op_ms else "operations")
+
+
+def _bound_ms(x, ops, with_mask_and_grads, err_out=True):
+    """Least time for these inputs of a fused kernel. Bytes: tables and
+    pages read once, idx/origin(/mask or g) of occupied tiles read once,
+    outputs (α, or the per-tile err if `err_out` and the gradient tables)
+    written once."""
     b, pg, lanes = x["tx"].shape
     g2, p_hat = x["pages"].shape[1:]
     t2 = x["tile"] ** 2
@@ -175,12 +205,10 @@ def _bound_ms(x, ops, with_mask_and_grads):
     read = 2 * b * pg * lanes * 4 + b * g2 * p_hat * 4 + occ * (3 * lanes * 4 + 2 * 4)
     if with_mask_and_grads:
         read += occ * t2 * 4
-        written = b * g2 * 4 + 2 * b * pg * lanes * 4
+        written = (b * g2 * 4 if err_out else 0) + 2 * b * pg * lanes * 4
     else:
         written = b * g2 * t2 * 4
-    byte_ms = 1e3 * (read + written) / HBM_BYTES_PER_S
-    op_ms = 1e3 * ops / F32_OPS_PER_S
-    return max(byte_ms, op_ms), ("bytes" if byte_ms >= op_ms else "operations")
+    return _max_bound(read + written, ops)
 
 
 def _max_rel_violation(got, want, atol, rtol):
@@ -190,8 +218,41 @@ def _max_rel_violation(got, want, atol, rtol):
     return float(torch.max((got - want).abs() / (atol + rtol * want.abs())))
 
 
+def _grad_check(got, want):
+    """Tensors against their plain versions at the kernel test's criterion
+    (atol 3e-4·max|plain| + rtol 2e-4, one scale over all of them):
+    (share of the tolerance used, max |Δ|, scale)."""
+    scale = max(max(float(w.abs().max()) for w in want), 1e-30)
+    viol = max(_max_rel_violation(a, b, GRAD_ATOL_REL * scale, GRAD_RTOL) for a, b in zip(got, want))
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    return viol, err, scale
+
+
+def _seeded_uniform(shape, seed):
+    """U(−1, 1) on the card from a seeded generator: the cotangents the
+    checks feed the backward kernels."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.rand(shape, generator=gen, device="cuda") * 2.0 - 1.0
+
+
+def _fused_alpha_vjp_plain(tx, ty, pages, idx, origin, g, tile, inv_sigma, blur_px2):
+    """Plain version of the α VJP kernel: (dtx, dty) by autograd through
+    the plain α with cotangent g."""
+    import torch
+
+    from jrr_tpu_torch.render import silhouette_fused as sf
+
+    with torch.enable_grad():
+        tx_, ty_ = tx.detach().requires_grad_(True), ty.detach().requires_grad_(True)
+        alpha = sf.fused_tiles_alpha_plain(tx_, ty_, pages, idx, origin, tile, inv_sigma, blur_px2)
+        return torch.autograd.grad(alpha, (tx_, ty_), g)
+
+
 def check_kernels(problem):
-    """Each kernel against its plain version at both geometries + all-empty."""
+    """Each fused kernel against its plain version at both geometries +
+    all-empty."""
     import torch
 
     from jrr_tpu_torch import kernels
@@ -219,18 +280,21 @@ def check_kernels(problem):
         torch.cuda.synchronize()
         e_viol = _max_rel_violation(err, err_p, 1e-30, ERR_RTOL)
         _check(e_viol <= 1.0, f"{geometry}: fused_lossgrad err beyond rtol {ERR_RTOL} ({e_viol})")
-        g_scale = max(float(dtx_p.abs().max()), float(dty_p.abs().max()), 1e-30)
-        g_viol = max(
-            _max_rel_violation(dtx, dtx_p, GRAD_ATOL_REL * g_scale, GRAD_RTOL),
-            _max_rel_violation(dty, dty_p, GRAD_ATOL_REL * g_scale, GRAD_RTOL),
-        )
+        g_viol, g_err, g_scale = _grad_check((dtx, dty), (dtx_p, dty_p))
         _check(g_viol <= 1.0, f"{geometry}: fused_lossgrad grads beyond tolerance ({g_viol})")
-        g_err = max(float((dtx - dtx_p).abs().max()), float((dty - dty_p).abs().max()))
+
+        g = _seeded_uniform(tuple(x["mask"].shape), seed=3)
+        bwd = kernels.fused_alpha_bwd(*bins, g, *consts, x["dump"])
+        bwd_p = _chunked(_fused_alpha_vjp_plain, bins + (g,), consts)
+        torch.cuda.synchronize()
+        b_viol, b_err, b_scale = _grad_check(bwd, bwd_p)
+        _check(b_viol <= 1.0, f"{geometry}: fused_alpha_bwd beyond tolerance ({b_viol})")
 
         row = dict(
             alpha_max_abs_err=a_err,
             err_max_rel_err=float(((err - err_p).abs() / err_p.abs().clamp_min(1e-30)).max()),
             grad_max_abs_err=g_err, grad_scale=g_scale, grad_tolerance_use=g_viol,
+            bwd_max_abs_err=b_err, bwd_scale=b_scale, bwd_tolerance_use=b_viol,
         )
         if geometry != "empty":
             pairs, active, occ = _pair_counts(x)
@@ -243,12 +307,148 @@ def check_kernels(problem):
             row["lossgrad_plain_ms"] = _time_ms(
                 lambda: _chunked(sf.fused_lossgrad_plain, bins + (x["mask"],), consts), 1
             )
+            row["bwd_ms"] = _time_ms(
+                lambda: kernels.fused_alpha_bwd(*bins, g, *consts, x["dump"]), 20
+            )
+            row["bwd_plain_ms"] = _time_ms(
+                lambda: _chunked(_fused_alpha_vjp_plain, bins + (g,), consts), 1
+            )
+            grad_ops = pairs * OPS_COVERAGE + active * (OPS_COVERAGE + OPS_GRADIENT)
             row["fwd_bound_ms"], row["fwd_bound_by"] = _bound_ms(x, pairs * OPS_COVERAGE, False)
-            row["lossgrad_bound_ms"], row["lossgrad_bound_by"] = _bound_ms(
-                x, pairs * OPS_COVERAGE + active * (OPS_COVERAGE + OPS_GRADIENT), True
+            row["lossgrad_bound_ms"], row["lossgrad_bound_by"] = _bound_ms(x, grad_ops, True)
+            row["bwd_bound_ms"], row["bwd_bound_by"] = _bound_ms(x, grad_ops, True, err_out=False)
+        report[geometry] = row
+    return report
+
+
+def _tile_inputs(problem, geometry):
+    """The packed tiles (origin, tri, valid) the round-1 path hands the tile
+    kernels at its first rebin of one c2f phase: round-1 bins of the
+    synthetic problem at its initial parameters."""
+    import torch
+
+    from jrr_tpu_torch.refine import losses
+    from jrr_tpu_torch.render import camera
+    from jrr_tpu_torch.render import silhouette as sil
+
+    model, _, cfg, init, data = problem
+    cfg, _ = _geometry(cfg, data.mask, geometry)
+    spec = losses.rasterizer_spec(cfg)
+    with torch.no_grad():
+        verts = losses.forward_frame(model, init).vertices
+        bins = sil.compute_bins(verts, model.faces, init.cam_t, spec)
+        screen = camera.project_points_screen(verts, init.cam_t, spec.image_size, spec.focal_length)
+        origin, tri, valid = sil.packed_tiles(screen, model.faces, spec, bins)
+    inv_sigma, blur_px2 = sil.tile_constants(spec)
+    return dict(origin=origin, tri=tri, valid=valid, tile=spec.tile_size, inv_sigma=inv_sigma,
+                blur_px2=blur_px2, tiles_per_frame=bins.origin.shape[1])
+
+
+def _tiles_alpha_vjp_plain(origin, tri, valid, g, tile, inv_sigma, blur_px2):
+    """Plain version of the tile backward kernel: d tri by autograd."""
+    import torch
+
+    from jrr_tpu_torch.render import silhouette_pallas as sp
+
+    with torch.enable_grad():
+        t = tri.detach().requires_grad_(True)
+        alpha = sp.tiles_alpha_plain(origin, t, valid, tile, inv_sigma, blur_px2)
+        return torch.autograd.grad(alpha, (t,), g)[0]
+
+
+def _tile_pair_counts(t):
+    """(pixel, valid lane) pairs of these tiles, those with 0 < p < 1, the
+    occupied tiles (any valid lane) and the valid lanes."""
+    valid = t["valid"][:, 0, :] > 0
+    occupied = valid.any(dim=-1)
+    lanes = int(valid.sum())
+    active = 0
+    step = PLAIN_FRAMES * t["tiles_per_frame"]
+    for lo in range(0, valid.shape[0], step):
+        occ = occupied[lo:lo + step]
+        active += _active_pairs(t["tri"][lo:lo + step][occ], t["origin"][lo:lo + step][occ],
+                                t["tile"], t["inv_sigma"], t["blur_px2"], valid[lo:lo + step][occ])
+    return lanes * t["tile"] ** 2, active, int(occupied.sum()), lanes
+
+
+def _tile_bound_ms(t, ops, backward, occ, lanes):
+    """Least time of a tile kernel for these inputs. Bytes: the valid rows
+    of every tile, origin of occupied tiles and the six corner values of
+    each valid lane read once (and g of occupied tiles for the backward);
+    α (N, T²), or d tri (N, 6, 128) for the backward, written once."""
+    n = t["valid"].shape[0]
+    t2 = t["tile"] ** 2
+    read = n * 128 * 4 + occ * 2 * 4 + lanes * 6 * 4
+    if backward:
+        read += occ * t2 * 4
+        written = n * 6 * 128 * 4
+    else:
+        written = n * t2 * 4
+    return _max_bound(read + written, ops)
+
+
+def check_tile_kernels(problem):
+    """The round-1 tile kernels (forward and backward) against their plain
+    versions on the round-1 bins at both geometries + all-empty."""
+    import torch
+
+    from jrr_tpu_torch import kernels
+    from jrr_tpu_torch.render import silhouette_pallas as sp
+
+    report = {}
+    for geometry in ("fine", "coarse", "empty"):
+        t = _tile_inputs(problem, "fine" if geometry == "empty" else geometry)
+        if geometry == "empty":
+            t["valid"] = torch.zeros_like(t["valid"])
+        args = (t["origin"], t["tri"], t["valid"])
+        consts = (t["tile"], t["inv_sigma"], t["blur_px2"])
+        per = PLAIN_FRAMES * t["tiles_per_frame"]  # plain versions: 8 frames of tiles at a time
+        g = _seeded_uniform((t["origin"].shape[0], t["tile"] ** 2), seed=5)
+
+        alpha = kernels.tiles_alpha_fwd(*args, *consts)
+        alpha_p = _chunked(sp.tiles_alpha_plain, args, consts, per)
+        dtri = kernels.tiles_alpha_bwd(*args, g, *consts)
+        dtri_p = _chunked(_tiles_alpha_vjp_plain, args + (g,), consts, per)
+        torch.cuda.synchronize()
+        a_err = float((alpha - alpha_p).abs().max())
+        _check(a_err <= ALPHA_ATOL, f"{geometry}: tiles_alpha_fwd max|Δα| {a_err} > {ALPHA_ATOL}")
+        viol, err, scale = _grad_check((dtri,), (dtri_p,))
+        _check(viol <= 1.0, f"{geometry}: tiles_alpha_bwd beyond tolerance ({viol})")
+        if geometry == "empty":
+            _check(not alpha.any() and not dtri.any(), "empty tiles: α and d tri must be zero")
+        row = dict(alpha_max_abs_err=a_err, bwd_max_abs_err=err, bwd_scale=scale,
+                   bwd_tolerance_use=viol)
+        if geometry != "empty":
+            pairs, active, occ, lanes = _tile_pair_counts(t)
+            row.update(tiles=t["origin"].shape[0], occupied_tiles=occ, valid_lanes=lanes,
+                       pairs=pairs, active_pairs=active)
+            row["fwd_ms"] = _time_ms(lambda: kernels.tiles_alpha_fwd(*args, *consts), 20)
+            row["bwd_ms"] = _time_ms(lambda: kernels.tiles_alpha_bwd(*args, g, *consts), 20)
+            row["fwd_plain_ms"] = _time_ms(lambda: _chunked(sp.tiles_alpha_plain, args, consts, per), 1)
+            row["bwd_plain_ms"] = _time_ms(
+                lambda: _chunked(_tiles_alpha_vjp_plain, args + (g,), consts, per), 1
+            )
+            row["fwd_bound_ms"], row["fwd_bound_by"] = _tile_bound_ms(
+                t, pairs * OPS_COVERAGE, False, occ, lanes
+            )
+            row["bwd_bound_ms"], row["bwd_bound_by"] = _tile_bound_ms(
+                t, pairs * OPS_COVERAGE + active * (OPS_COVERAGE + OPS_GRADIENT), True, occ, lanes
             )
         report[geometry] = row
     return report
+
+
+def _read_launches():
+    from jrr_tpu_torch import kernels
+
+    return {w.__name__: w.launches for w in kernels.WRAPPERS}
+
+
+def _launches(**counts):
+    """Every wrapper's expected launch count: those given, 0 for the rest."""
+    from jrr_tpu_torch import kernels
+
+    return {w.__name__: counts.get(w.__name__, 0) for w in kernels.WRAPPERS}
 
 
 def _card() -> str:
@@ -280,8 +480,8 @@ def run_main_path(problem, pose_disc, shape_disc):
         res = engine.refine_batch(model, j_reg, init, data, cfg, pose_disc, shape_disc)
         torch.cuda.synchronize()
         runs.append(time.perf_counter() - t0)
-        launches = {w.__name__: w.launches for w in kernels.WRAPPERS}
-        _check(launches == {"fused_lossgrad": 38, "fused_alpha_fwd": 2},
+        launches = _read_launches()
+        _check(launches == _launches(fused_lossgrad=38, fused_alpha_fwd=2),
                f"main path launches {launches}, expected 38 fused_lossgrad + 2 fused_alpha_fwd")
     seconds = sorted(runs)[len(runs) // 2]
 
@@ -310,37 +510,48 @@ def run_main_path(problem, pose_disc, shape_disc):
 
 
 def profile_main_path(problem, pose_disc, shape_disc, timed_seconds):
-    """One more refine_batch under torch.profiler: device time by kernel
-    (chiprun_out/profile.txt) and the device-idle share of the timed run
-    (1 − device-busy seconds / the unprofiled call's seconds)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    """One more refine_batch under torch.profiler (chiprun_out/profile.txt)."""
     from jrr_tpu_torch.refine import engine
 
     model, j_reg, cfg, init, data = problem
     cfg = dataclasses.replace(cfg, stage_a_steps=1000, stage_b_steps=100)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    return _profile(
+        "profile.txt", timed_seconds,
+        lambda: engine.refine_batch(model, j_reg, init, data, cfg, pose_disc, shape_disc),
+    )
+
+
+def _profile(filename, timed_seconds, fn):
+    """`fn()` once under torch.profiler: device time by kernel (written to
+    chiprun_out/`filename`) and the device-idle share of the timed,
+    unprofiled run of the same work (1 − device-busy s / `timed_seconds`)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    # Device activity only: nothing here reads the host's operator trace.
+    start = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine.refine_batch(model, j_reg, init, data, cfg, pose_disc, shape_disc)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    # Device-side events only (kernels, copies, fills): operator rows would
-    # count their kernels a second time.
+    # Device-side events only (kernels, copies, fills).
     rows = sorted(
         ((e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
          if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
         reverse=True,
     )
     busy_s = sum(r[0] for r in rows) / 1e6
+    overhead_s = time.perf_counter() - start - wall  # profiler set-up and aggregation
     os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, "profile.txt"), "w") as f:
+    with open(os.path.join(OUT_DIR, filename), "w") as f:
         f.write(f"profiled_wall_s {wall:.6f} device_busy_s {busy_s:.6f}\n")
         for us, n, key in rows[:60]:
             f.write(f"{us / 1e3:12.3f} ms {n:8d}  {key[:160]}\n")
     return dict(
-        profiled_wall_s=wall, device_busy_s=busy_s, timed_run_s=timed_seconds,
+        profiled_wall_s=wall, profiler_overhead_s=overhead_s, device_busy_s=busy_s,
+        timed_run_s=timed_seconds,
         device_idle_share=max(0.0, 1.0 - busy_s / timed_seconds),
         kernel_launches=sum(r[1] for r in rows),
         top=[{"ms": us / 1e3, "count": n, "kernel": key[:80]} for us, n, key in rows[:8]],
@@ -349,18 +560,24 @@ def profile_main_path(problem, pose_disc, shape_disc, timed_seconds):
 
 @contextlib.contextmanager
 def _plain_versions():
-    """Route the rasterizer's two kernel wrappers to their plain versions on
-    any device, for the reference run only (the wrappers themselves never
-    fall back)."""
+    """Route the rasterizers' kernel wrappers to their plain versions on any
+    device, for the reference runs only (the wrappers themselves never fall
+    back)."""
     from jrr_tpu_torch.render import silhouette_fused as sf
+    from jrr_tpu_torch.render import silhouette_pallas as sp
 
-    saved = sf.fused_tiles_alpha, sf.fused_lossgrad
+    saved = sf.fused_tiles_alpha, sf.fused_lossgrad, sp.tiles_alpha
     sf.fused_tiles_alpha = lambda *args: sf.fused_tiles_alpha_plain(*args[:-1])  # drops dump_page
     sf.fused_lossgrad = lambda *args: sf.fused_lossgrad_plain(*args[:-1])
+    sp.tiles_alpha = sp.tiles_alpha_plain
     try:
         yield
     finally:
-        sf.fused_tiles_alpha, sf.fused_lossgrad = saved
+        sf.fused_tiles_alpha, sf.fused_lossgrad, sp.tiles_alpha = saved
+
+
+def _with_backend(cfg, backend):
+    return dataclasses.replace(cfg, silhouette=dataclasses.replace(cfg.silhouette, backend=backend))
 
 
 def _max_param_diff(a, b) -> float:
@@ -390,11 +607,12 @@ def short_problem(seed):
     return problem_lib.synthetic_problem(batch=2, seed=seed, device="cuda")
 
 
-def short_refine(problem, pose_disc, shape_disc, plain=False, float64=False):
-    """refine_batch on `problem` (a `short_problem`) with 20 + 10 steps:
-    through the kernels, or (plain=True) through the plain versions with
-    PyTorch's deterministic algorithms on (their gather backward otherwise
-    adds with float atomics), in float32 or float64."""
+def short_refine(problem, pose_disc, shape_disc, plain=False, float64=False, backend="auto"):
+    """refine_batch on `problem` (a `short_problem`) with 20 + 10 steps and
+    the silhouette `backend`: through the kernels, or (plain=True) through
+    the plain versions with PyTorch's deterministic algorithms on (their
+    gather backward otherwise adds with float atomics), in float32 or
+    float64."""
     import torch
 
     from jrr_tpu_torch.refine import engine
@@ -402,7 +620,7 @@ def short_refine(problem, pose_disc, shape_disc, plain=False, float64=False):
     if float64:
         problem, pose_disc, shape_disc = _float64(problem, pose_disc, shape_disc)
     model, j_reg, cfg, init, data = problem
-    cfg = dataclasses.replace(cfg, stage_a_steps=20, stage_b_steps=10)
+    cfg = dataclasses.replace(_with_backend(cfg, backend), stage_a_steps=20, stage_b_steps=10)
     if not plain:
         return engine.refine_batch(model, j_reg, init, data, cfg, pose_disc, shape_disc)
     torch.use_deterministic_algorithms(True)
@@ -449,7 +667,8 @@ def compare_kernel_and_plain_refine(pose_disc, shape_disc, seed=1):
 def compare_silhouette_gradients(seeds=GRAD_SEEDS):
     """The silhouette term's gradient w.r.t. the frame parameters at the
     first stage-B step, through the kernels and through the plain versions
-    at the same inputs: full width, batch 2, both c2f geometries, every seed.
+    at the same inputs: full width, batch 2, both c2f geometries, both
+    backends (fused: loss kernel; pallas: round-1 tile kernels), every seed.
     The kernel test's criterion (atol 3e-4·max|plain| + rtol 2e-4) per
     parameter tensor. Unlike the refinement, no optimizer amplifies the
     last bits here."""
@@ -457,42 +676,240 @@ def compare_silhouette_gradients(seeds=GRAD_SEEDS):
 
     from jrr_tpu_torch import problem as problem_lib
     from jrr_tpu_torch.refine import engine, losses
+    from jrr_tpu_torch.render import silhouette as sil
     from jrr_tpu_torch.render import silhouette_fused as sf
 
-    worst = {"fine": 0.0, "coarse": 0.0}
+    worst = {b: {"fine": 0.0, "coarse": 0.0} for b in ("fused", "pallas")}
     for seed in seeds:
         model, j_reg, cfg, init, data = problem_lib.synthetic_problem(batch=2, seed=seed, device="cuda")
         # Stage A alone (20 camera steps) gives stage B's starting point.
         start = engine.refine_batch(
             model, j_reg, init, data, dataclasses.replace(cfg, stage_a_steps=20, stage_b_steps=0)
         ).params
-        for geometry in worst:
-            gcfg, mask = _geometry(cfg, data.mask, geometry)
-            spec = losses.rasterizer_spec(gcfg)
-            with torch.no_grad():
-                verts = losses.forward_frame(model, start).vertices
-                bins = sf.compute_fused_bins(verts, model, start.cam_t, spec)
-                bins = sf.apply_interior_skip(bins, verts, model, start.cam_t, spec)
+        for backend in worst:
+            for geometry in worst[backend]:
+                gcfg, mask = _geometry(_with_backend(cfg, backend), data.mask, geometry)
+                spec = losses.rasterizer_spec(gcfg)
+                with torch.no_grad():
+                    verts = losses.forward_frame(model, start).vertices
+                    if backend == "fused":
+                        bins = sf.compute_fused_bins(verts, model, start.cam_t, spec)
+                        bins = sf.apply_interior_skip(bins, verts, model, start.cam_t, spec)
+                    else:
+                        bins = sil.compute_bins(verts, model.faces, start.cam_t, spec)
 
-            def grads():
-                leaves = [x.detach().clone().requires_grad_(True) for x in start]
-                p = type(start)(*leaves)
-                v = losses.forward_frame(model, p).vertices
-                loss = losses.silhouette_loss(model, v, p.cam_t, mask, gcfg, bins=bins).sum()
-                return torch.autograd.grad(loss, leaves)
+                def grads():
+                    leaves = [x.detach().clone().requires_grad_(True) for x in start]
+                    p = type(start)(*leaves)
+                    v = losses.forward_frame(model, p).vertices
+                    loss = losses.silhouette_loss(model, v, p.cam_t, mask, gcfg, bins=bins).sum()
+                    return torch.autograd.grad(loss, leaves)
 
-            got = grads()
-            with _plain_versions():
-                want = grads()
-            viol = max(
-                _max_rel_violation(a, b, GRAD_ATOL_REL * float(b.abs().max()) + 1e-30, GRAD_RTOL)
-                for a, b in zip(got, want)
-            )
-            worst[geometry] = max(worst[geometry], viol)
-            _check(viol <= 1.0, f"seed {seed} {geometry}: silhouette gradient beyond tolerance ({viol})")
+                got = grads()
+                with _plain_versions():
+                    want = grads()
+                viol = max(
+                    _max_rel_violation(a, b, GRAD_ATOL_REL * float(b.abs().max()) + 1e-30, GRAD_RTOL)
+                    for a, b in zip(got, want)
+                )
+                worst[backend][geometry] = max(worst[backend][geometry], viol)
+                _check(viol <= 1.0,
+                       f"seed {seed} {backend} {geometry}: silhouette gradient beyond tolerance ({viol})")
     return dict(seeds=list(seeds), batch=2, stage_a_steps=20,
                 tolerance=f"atol {GRAD_ATOL_REL}*max|plain| + rtol {GRAD_RTOL} per parameter",
                 max_tolerance_use=worst)
+
+
+def run_round1_path(problem, pose_disc, shape_disc):
+    """refine_batch with silhouette.backend="pallas" at full width and
+    depth: a warm-up, then one timed run with the launch counts set to 0
+    just before it and read just after; then two short kernel refinements
+    (seed 1) that must agree bit for bit."""
+    import torch
+
+    from jrr_tpu_torch import kernels
+    from jrr_tpu_torch.refine import engine
+
+    model, j_reg, cfg, init, data = problem
+    cfg = dataclasses.replace(_with_backend(cfg, "pallas"), stage_a_steps=1000, stage_b_steps=100)
+    engine.refine_batch(model, j_reg, init, data, cfg, pose_disc, shape_disc)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = engine.refine_batch(model, j_reg, init, data, cfg, pose_disc, shape_disc)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _read_launches()
+    _check(launches == _launches(tiles_alpha_fwd=38, tiles_alpha_bwd=38),
+           f"round-1 path launches {launches}, expected 38 tiles_alpha_fwd + 38 tiles_alpha_bwd")
+    total = res.stage_b_terms.total
+    first, last = float(total[0]), float(total[-1])
+    _check(last < first, f"round-1 stage-B total did not decrease: {first} -> {last}")
+    _check(all(bool(torch.isfinite(p).all()) for p in res.params), "round-1: non-finite params")
+    _check(res.bin_stats is None, "round-1 bins carry no capacity counters")
+    prof = _profile(
+        "profile_round1.txt", seconds,
+        lambda: engine.refine_batch(model, j_reg, init, data, cfg, pose_disc, shape_disc),
+    )
+
+    short = short_problem(1)
+    k1 = short_refine(short, pose_disc, shape_disc, backend="pallas")
+    k2 = short_refine(short, pose_disc, shape_disc, backend="pallas")
+    repeat = _max_param_diff(k1, k2)
+    _check(repeat == 0.0, f"two round-1 kernel refinements differ by {repeat}")
+    _check(int((k1.stage_b_terms.silhouette != 0).sum()) > 0, "the short round-1 run had no silhouette")
+    return dict(
+        batch=BATCH, stage_a_steps=1000, stage_b_steps=100, seconds=seconds,
+        frames_per_s=BATCH / seconds, launches=launches,
+        stage_b_total_first_last=[first, last], short_repeat_diff=repeat, profile=prof,
+        card=_card(),
+    ), launches
+
+
+def _perturbed_regressor(j_reg, seed=0):
+    """The true regressor perturbed as the pipeline's demo does
+    (jrr_tpu/pipeline.py:540-546): sparse |N(0, 0.15)| on 5% of its zeros,
+    N(0, 0.08) on its nonzeros; numpy-seeded."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    j = j_reg.cpu().numpy()
+    return j + np.abs(rng.normal(scale=0.15, size=j.shape)).astype(np.float32) * (j == 0) * (
+        rng.uniform(size=j.shape) < 0.05
+    ) + rng.normal(scale=0.08, size=j.shape).astype(np.float32) * (j > 0)
+
+
+def run_training():
+    """The training path: one synthetic problem of TRAIN_STEPS·BATCH frames
+    (full width; its mask rendered through the round-1 tile kernel), cut
+    into TRAIN_STEPS batches; `outer_step` on each at 1000 + 100 steps and
+    shipped defaults, from the perturbed true regressor; then the
+    closed-form regressor fit over the three batches at V = 6890."""
+    import torch
+
+    from jrr_tpu_torch import config, kernels
+    from jrr_tpu_torch import problem as problem_lib
+    from jrr_tpu_torch.evals import metrics
+    from jrr_tpu_torch.ops import jreg as jreg_lib
+    from jrr_tpu_torch.refine import trainer
+
+    kernels.reset_launches()
+    model, j_true, cfg, init, data = problem_lib.synthetic_problem(
+        batch=TRAIN_STEPS * BATCH, seed=0, device="cuda"
+    )
+    torch.cuda.synchronize()
+    problem_launches = _read_launches()
+    _check(problem_launches == _launches(tiles_alpha_fwd=1),
+           f"problem mask launches {problem_launches}, expected 1 tiles_alpha_fwd")
+    pcfg = config.PipelineConfig(
+        refiner=dataclasses.replace(cfg, stage_a_steps=1000, stage_b_steps=100)
+    )
+    j_init = torch.as_tensor(_perturbed_regressor(j_true), device="cuda")
+    state0 = trainer.init_train_state(j_init, pcfg, seed=7)
+    state, steps, kept = state0, [], []
+    for i in range(TRAIN_STEPS):
+        sl = slice(i * BATCH, (i + 1) * BATCH)
+        init_i = type(init)(*(x[sl] for x in init))
+        data_i = type(data)(*(x[sl] for x in data))
+        kernels.reset_launches()
+        state_prev = state
+        t0 = time.perf_counter()
+        state, m, res = trainer.outer_step(state, model, init_i, data_i, pcfg)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = _read_launches()
+        _check(launches == _launches(fused_lossgrad=38, fused_alpha_fwd=2),
+               f"outer step {i} launches {launches}, expected 38 fused_lossgrad + 2 fused_alpha_fwd")
+        values = {k: float(v) for k, v in m._asdict().items()}
+        _check(all(math.isfinite(v) for v in values.values()), f"outer step {i}: non-finite metrics")
+        steps.append(dict(seconds=seconds, frames_per_s=BATCH / seconds, launches=launches,
+                          metrics=values))
+        kept.append((res.vertices, res.joints3d[:, :1], data_i.gt_j3d))
+    _check(state.step == TRAIN_STEPS, f"state.step {state.step} != {TRAIN_STEPS}")
+    _check(bool((state.j_reg_raw != state0.j_reg_raw).any()), "the regressor did not change")
+    for name in ("pose_disc", "shape_disc"):
+        changed = any(bool((a != b).any()) for a, b in zip(
+            getattr(state, name).parameters(), getattr(state0, name).parameters()))
+        _check(changed, f"the {name} did not change")
+    # outer_step leaves its input state as it was: profile the last step again.
+    prof = _profile("profile_outer_step.txt", steps[-1]["seconds"],
+                    lambda: trainer.outer_step(state_prev, model, init_i, data_i, pcfg))
+
+    t0 = time.perf_counter()
+    acc = trainer.JRegLstsqAccumulator.zero(model.num_verts, device="cuda")
+    for verts, pelvis, gt in kept:
+        acc = trainer.jreg_lstsq_accumulate(acc, verts, gt, pelvis)
+    w = trainer.jreg_lstsq_solve(acc, pcfg.jreg.lstsq_ridge)
+    torch.cuda.synchronize()
+    lstsq_seconds = time.perf_counter() - t0
+    verts_all = torch.cat([k[0] for k in kept])
+    gt_all = torch.cat([k[2] for k in kept])
+
+    def mpjpe(j_raw):
+        joints = jreg_lib.apply_jreg(jreg_lib.normalize_jreg(j_raw), verts_all)
+        return float(metrics.evaluate(joints, gt_all).mpjpe)
+
+    fit, initial, adam = mpjpe(w), mpjpe(j_init), mpjpe(state.j_reg_raw)
+    _check(math.isfinite(fit) and fit < initial,
+           f"lstsq fit MPJPE {fit} not below the perturbed initial regressor's {initial}")
+    return dict(
+        batch=BATCH, outer_steps=TRAIN_STEPS, stage_a_steps=1000, stage_b_steps=100,
+        problem_launches=problem_launches, steps=steps,
+        seconds_per_step=[st["seconds"] for st in steps], state_step=state.step, profile=prof,
+        lstsq=dict(frames=int(acc.count), num_verts=model.num_verts, seconds=lstsq_seconds,
+                   mpjpe_fit_mm=fit, mpjpe_initial_mm=initial, mpjpe_adam_mm=adam),
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, card=_card(),
+    )
+
+
+def _slice_fused_bins(bins, sl):
+    return bins._replace(**{
+        f: getattr(bins, f)[sl] for f in ("origin", "pages", "idx", "sat_tiles", "core_count")
+        if getattr(bins, f) is not None
+    })
+
+
+def check_fused_alpha_vjp_api(problem):
+    """Row 3 through the public API: the gradient w.r.t. the vertices of
+    Σ w·silhouette_tiles_fused (w ~ U(−1, 1), seeded) at batch 256, full
+    width, both geometries, against the plain versions (8 frames at a
+    time; frames are independent). Counts the launches of each kernel run."""
+    import torch
+
+    from jrr_tpu_torch import kernels
+    from jrr_tpu_torch.refine import losses
+    from jrr_tpu_torch.render import silhouette_fused as sf
+
+    model, _, cfg, init, data = problem
+    report, total = {}, _launches()
+    for geometry in ("fine", "coarse"):
+        gcfg, _ = _geometry(cfg, data.mask, geometry)
+        spec = losses.rasterizer_spec(gcfg)
+        with torch.no_grad():
+            verts = losses.forward_frame(model, init).vertices
+            bins = sf.compute_fused_bins(verts, model, init.cam_t, spec)
+            bins = sf.apply_interior_skip(bins, verts, model, init.cam_t, spec)
+        w = _seeded_uniform(tuple(bins.pages.shape[:2]) + (spec.tile_size**2,), seed=11)
+
+        def grad(sl):
+            v = verts[sl].detach().requires_grad_(True)
+            tiles = sf.silhouette_tiles_fused(v, model, init.cam_t[sl], spec,
+                                              bins=_slice_fused_bins(bins, sl))
+            return torch.autograd.grad(torch.sum(tiles * w[sl]), [v])[0]
+
+        kernels.reset_launches()
+        got = grad(slice(None))
+        torch.cuda.synchronize()
+        launches = _read_launches()
+        _check(launches == _launches(fused_alpha_fwd=1, fused_alpha_bwd=1),
+               f"{geometry}: α VJP path launches {launches}")
+        total = {k: total[k] + launches[k] for k in total}
+        with _plain_versions():
+            want = torch.cat([grad(slice(lo, lo + PLAIN_FRAMES)) for lo in range(0, BATCH, PLAIN_FRAMES)])
+        viol, err, scale = _grad_check((got,), (want,))
+        _check(viol <= 1.0, f"{geometry}: Σ w·silhouette_tiles_fused gradient beyond tolerance ({viol})")
+        report[geometry] = dict(max_abs_err=err, scale=scale, tolerance_use=viol, launches=launches)
+    return report, total
 
 
 def main() -> int:
@@ -515,6 +932,13 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    phases, last = {}, [time.perf_counter()]
+
+    def done(phase):
+        """Record the wall seconds since the previous phase ended."""
+        now = time.perf_counter()
+        phases[phase], last[0] = now - last[0], now
+
     t0 = time.perf_counter()
     kernels.build()
     build_s = time.perf_counter() - t0
@@ -529,44 +953,61 @@ def main() -> int:
     pose_disc = discriminator.PoseDiscriminator(seed=7, device="cuda")
     shape_disc = discriminator.ShapeDiscriminator(seed=8, device="cuda")
 
+    done("build_and_problem")
     checks = check_kernels(problem)
+    done("fused_kernel_checks")
+    tile_checks = check_tile_kernels(problem)
+    done("tile_kernel_checks")
     main_path, launches = run_main_path(problem, pose_disc, shape_disc)
     _emit({"main_path": main_path})
     _emit({"profile": profile_main_path(problem, pose_disc, shape_disc, main_path["seconds"])})
+    done("main_path")
     refine = compare_kernel_and_plain_refine(pose_disc, shape_disc)
     _emit({"kernel_vs_plain_refine": refine})
     _check(refine["max_param_abs_diff"] <= REFINE_PARAM_ATOL,
            f"kernel vs plain refine params differ by {refine['max_param_abs_diff']}")
+    done("kernel_vs_plain_refine")
     _emit({"kernel_vs_plain_silhouette_gradient": compare_silhouette_gradients()})
+    done("silhouette_gradients")
+    _emit({"training_path": run_training()})
+    done("training_path")
+    round1, round1_launches = run_round1_path(problem, pose_disc, shape_disc)
+    _emit({"round1_path": round1})
+    done("round1_path")
+    vjp, vjp_launches = check_fused_alpha_vjp_api(problem)
+    _emit({"fused_alpha_vjp_api": vjp})
+    done("fused_alpha_vjp_api")
     _emit({"kernel_checks": checks})
+    _emit({"tile_kernel_checks": tile_checks})
+    _emit({"phase_seconds": phases})
 
-    fine = checks["fine"]
-    source = "jrr_tpu_torch/csrc/silhouette_fused.cu"
+    def entry(name, source, replaces, n, checks, key, tolerance):
+        fine, coarse = checks["fine"], checks["coarse"]
+        err_key = "alpha_max_abs_err" if key == "fwd" else (
+            "grad_max_abs_err" if key == "lossgrad" else "bwd_max_abs_err")
+        return {
+            "name": name, "route": "cuda", "source": f"jrr_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": n,
+            "max_abs_err": max(checks[g][err_key] for g in checks),
+            "ms": fine[f"{key}_ms"], "plain_ms": fine[f"{key}_plain_ms"],
+            "bound_ms": fine[f"{key}_bound_ms"], "bound_by": fine[f"{key}_bound_by"],
+            "library_ms": None, "tolerance": tolerance,
+            "coarse_ms": coarse[f"{key}_ms"], "coarse_plain_ms": coarse[f"{key}_plain_ms"],
+            "coarse_bound_ms": coarse[f"{key}_bound_ms"],
+        }
+
+    grad_tol = f"atol {GRAD_ATOL_REL}*max|plain| + rtol {GRAD_RTOL}"
     _emit({"kernels": [
-        {
-            "name": "fused_lossgrad", "route": "cuda", "source": source,
-            "replaces": "jrr_tpu/render/silhouette_fused.py:994",
-            "launches": launches["fused_lossgrad"],
-            "max_abs_err": max(checks[g]["grad_max_abs_err"] for g in checks),
-            "ms": fine["lossgrad_ms"], "plain_ms": fine["lossgrad_plain_ms"],
-            "bound_ms": fine["lossgrad_bound_ms"], "bound_by": fine["lossgrad_bound_by"],
-            "library_ms": None,
-            "tolerance": f"err rtol {ERR_RTOL}; grads atol {GRAD_ATOL_REL}*max|plain| + rtol {GRAD_RTOL}",
-            "coarse_ms": checks["coarse"]["lossgrad_ms"],
-            "coarse_bound_ms": checks["coarse"]["lossgrad_bound_ms"],
-        },
-        {
-            "name": "fused_alpha_fwd", "route": "cuda", "source": source,
-            "replaces": "jrr_tpu/render/silhouette_fused.py:719",
-            "launches": launches["fused_alpha_fwd"],
-            "max_abs_err": max(checks[g]["alpha_max_abs_err"] for g in checks),
-            "ms": fine["fwd_ms"], "plain_ms": fine["fwd_plain_ms"],
-            "bound_ms": fine["fwd_bound_ms"], "bound_by": fine["fwd_bound_by"],
-            "library_ms": None,
-            "tolerance": f"atol {ALPHA_ATOL}",
-            "coarse_ms": checks["coarse"]["fwd_ms"],
-            "coarse_bound_ms": checks["coarse"]["fwd_bound_ms"],
-        },
+        entry("fused_lossgrad", "silhouette_fused.cu", "jrr_tpu/render/silhouette_fused.py:994",
+              launches["fused_lossgrad"], checks, "lossgrad", f"err rtol {ERR_RTOL}; grads {grad_tol}"),
+        entry("fused_alpha_fwd", "silhouette_fused.cu", "jrr_tpu/render/silhouette_fused.py:719",
+              launches["fused_alpha_fwd"], checks, "fwd", f"atol {ALPHA_ATOL}"),
+        entry("fused_alpha_bwd", "silhouette_fused.cu", "jrr_tpu/render/silhouette_fused.py:814",
+              vjp_launches["fused_alpha_bwd"], checks, "bwd", grad_tol),
+        entry("tiles_alpha_fwd", "silhouette_tiles.cu", "jrr_tpu/render/silhouette_pallas.py:169",
+              round1_launches["tiles_alpha_fwd"], tile_checks, "fwd", f"atol {ALPHA_ATOL}"),
+        entry("tiles_alpha_bwd", "silhouette_tiles.cu", "jrr_tpu/render/silhouette_pallas.py:182",
+              round1_launches["tiles_alpha_bwd"], tile_checks, "bwd", grad_tol),
     ]})
     print(_card(), flush=True)
     _emit({"ok": True, "device": {

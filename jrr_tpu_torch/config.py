@@ -1,8 +1,11 @@
 """Frozen dataclass configuration of the refinement path.
 
-Copies of `CameraConfig`, `SilhouetteConfig`, `LossWeights` and
-`RefinerConfig` from jrr_tpu/config.py with the same defaults; the reasons for
-each default (and the measurements behind them) are documented there.
+Copies of `CameraConfig`, `SilhouetteConfig`, `LossWeights`,
+`RefinerConfig`, `DiscriminatorConfig`, `JRegConfig` and `PipelineConfig`
+from jrr_tpu/config.py with the same defaults; the reasons for each default
+(and the measurements behind them) are documented there. Fields that only
+the product loop reads (`JRegConfig.snapshot_interval`, the data and mesh
+settings) are not copied yet.
 """
 
 from __future__ import annotations
@@ -33,8 +36,9 @@ class SilhouetteConfig:
     bin_margin_px: float = 8.0
     max_tiles_per_face: int = 4
     pages_per_tile: int = 16
-    # "auto"/"fused": fused page-gather path (CUDA kernels for CUDA tensors,
-    # plain versions for CPU tensors). Other values raise.
+    # "auto"/"fused": fused page-gather path; "pallas": round-1 tile path
+    # (CUDA kernels for CUDA tensors, plain versions for CPU tensors).
+    # "xla" is not ported and raises.
     backend: str = "auto"
     step_stride: int = 2
     coarse_step_stride: Optional[int] = 4
@@ -72,3 +76,26 @@ class RefinerConfig:
     silhouette: SilhouetteConfig = dataclasses.field(default_factory=SilhouetteConfig)
     use_silhouette: bool = True
     use_discriminators: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class DiscriminatorConfig:
+    """Adversarial prior training (reference: scripts/optimize.py:276-293, scripts/args.py:13)."""
+
+    lr: float = 1e-3
+
+
+@dataclasses.dataclass(frozen=True)
+class JRegConfig:
+    """Joint-regressor training (reference: scripts/optimize.py:300-312, scripts/args.py:15)."""
+
+    lr: float = 1e-2
+    lstsq_ridge: float = 1e-4  # ridge of the least-squares fit path
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineConfig:
+    refiner: RefinerConfig = dataclasses.field(default_factory=RefinerConfig)
+    discriminator: DiscriminatorConfig = dataclasses.field(default_factory=DiscriminatorConfig)
+    jreg: JRegConfig = dataclasses.field(default_factory=JRegConfig)
+    seed: int = 0

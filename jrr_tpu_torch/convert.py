@@ -16,6 +16,8 @@ from jrr_tpu_torch import config as config_lib
 from jrr_tpu_torch import resolve_device
 from jrr_tpu_torch.models import discriminator as disc_lib
 from jrr_tpu_torch.models import smpl as smpl_lib
+from jrr_tpu_torch.refine import engine
+from jrr_tpu_torch.refine import trainer
 from jrr_tpu_torch.refine.losses import FrameBatch, FrameParams
 
 
@@ -33,6 +35,16 @@ def refiner_config(src) -> config_lib.RefinerConfig:
         loss_weights=copy(config_lib.LossWeights, src.loss_weights),
         camera=copy(config_lib.CameraConfig, src.camera),
         silhouette=copy(config_lib.SilhouetteConfig, src.silhouette),
+    )
+
+
+def pipeline_config(src) -> config_lib.PipelineConfig:
+    """A JAX `PipelineConfig` → the port's (the fields the port has)."""
+    return config_lib.PipelineConfig(
+        refiner=refiner_config(src.refiner),
+        discriminator=config_lib.DiscriminatorConfig(lr=src.discriminator.lr),
+        jreg=config_lib.JRegConfig(lr=src.jreg.lr, lstsq_ridge=src.jreg.lstsq_ridge),
+        seed=src.seed,
     )
 
 
@@ -92,3 +104,49 @@ def frame_batch(src, device="cuda") -> FrameBatch:
     """An object with gt_j2d/gt_j3d/mask fields → `FrameBatch`."""
     dev = resolve_device(device)
     return FrameBatch(*(_t(getattr(src, f, None), dev) for f in FrameBatch._fields))
+
+
+def _adam_moments(opt_state):
+    """The (count, mu, nu) node of an optax adam state: `optax.adam` chains
+    scale_by_adam with a learning-rate scale, so its state is a tuple whose
+    first entry carries the moments."""
+    node = opt_state
+    while not hasattr(node, "mu"):
+        node = node[0]
+    return node
+
+
+def _adam(params, lr: float, moments, to_params) -> engine._Adam:
+    """An `_Adam` over `params` whose moments are the JAX moments laid out
+    like the parameters (`to_params` maps a JAX tree to a list)."""
+    opt = engine._Adam(params, lr)
+    opt.count = int(np.array(moments.count))
+    opt.m = [t.detach().clone() for t in to_params(moments.mu)]
+    opt.v = [t.detach().clone() for t in to_params(moments.nu)]
+    return opt
+
+
+def train_state(src, cfg: config_lib.PipelineConfig, device="cuda") -> trainer.TrainState:
+    """A JAX `TrainState` (j_reg_raw, the optax adam states of all three
+    optimizers, both discriminators' param dicts, step; arrays as numpy or
+    anything `np.asarray` takes) → the port's, with the learning rates of
+    `cfg`. Discriminator moments are converted like their parameters (the
+    same transposes), in `module.parameters()` order."""
+    dev = resolve_device(device)
+    j_reg = _t(src.j_reg_raw, dev)
+    pose = pose_discriminator(src.pose_disc, device=dev)
+    shape = shape_discriminator(src.shape_disc, device=dev)
+    as_pose = lambda tree: list(pose_discriminator(tree, device=dev).parameters())  # noqa: E731
+    as_shape = lambda tree: list(shape_discriminator(tree, device=dev).parameters())  # noqa: E731
+    lr_d = cfg.discriminator.lr
+    return trainer.TrainState(
+        j_reg_raw=j_reg,
+        jreg_opt=_adam([j_reg], cfg.jreg.lr, _adam_moments(src.jreg_opt),
+                       lambda x: [_t(x, dev)]),
+        pose_disc=pose,
+        pose_disc_opt=_adam(list(pose.parameters()), lr_d, _adam_moments(src.pose_disc_opt), as_pose),
+        shape_disc=shape,
+        shape_disc_opt=_adam(list(shape.parameters()), lr_d, _adam_moments(src.shape_disc_opt),
+                             as_shape),
+        step=int(np.array(src.step)),
+    )

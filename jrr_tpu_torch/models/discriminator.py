@@ -81,3 +81,8 @@ class ShapeDiscriminator(nn.Module):
         h = torch.relu(self.fc1(betas))
         h = torch.relu(self.fc2(h))
         return torch.sigmoid(self.fc3(h))
+
+
+def discriminator_loss(real_scores: torch.Tensor, fake_scores: torch.Tensor) -> torch.Tensor:
+    """LSGAN: MSE(D(fake), 0) + MSE(D(real), 1) (reference: scripts/optimize.py:279-281)."""
+    return torch.mean(fake_scores**2) + torch.mean((real_scores - 1.0) ** 2)

@@ -3,10 +3,12 @@
 rest, a constant init offset, camera depths of real SPIN crops (36-60 m, a
 body spanning ~140-240 px of the 224² crop). Everything is numpy-seeded.
 
-The global orientation is drawn from numpy (the JAX version draws it with
-jax.random), and the mask is rendered by this package's own fused forward
-at the ground-truth params with bin margin 0 (the JAX version uses its
-round-1 path, equal when no capacity counter fires).
+The mask is rendered at the ground-truth params through
+`render_mesh_silhouette` with the default spec (the round-1 tile path, the
+tile kernel on the card), as `__graft_entry__.py:111-115` does. One
+divergence stays: the global orientation is drawn from numpy (the JAX
+version draws it with jax.random), so frames differ from the JAX version's
+at the same seed; tests that compare the two pass arrays across.
 """
 
 from __future__ import annotations
@@ -23,7 +25,6 @@ from jrr_tpu_torch.ops import jreg as jreg_lib
 from jrr_tpu_torch.ops import rotations
 from jrr_tpu_torch.refine import losses
 from jrr_tpu_torch.render import silhouette as sil_lib
-from jrr_tpu_torch.render import silhouette_fused as sf
 
 
 # Constant init offsets of (pose6d, orient6d, betas, cam_t) from the truth.
@@ -80,8 +81,7 @@ def synthetic_problem(
             image_size=image_size, tile_size=8,
             faces_per_tile=cfg.silhouette.faces_per_tile,
         )
-        tiles = sf.silhouette_tiles_fused(out.vertices, model, params.cam_t, spec)
-        mask = sf.tiles_to_image(tiles, image_size, spec.tile_size)
+        mask = sil_lib.render_mesh_silhouette(out.vertices, model.faces, params.cam_t, spec)
         data = losses.FrameBatch(
             gt_j2d=losses.reproject_joints(joints, params.cam_t, cfg),
             gt_j3d=joints * 1000.0,

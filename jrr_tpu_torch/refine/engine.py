@@ -7,8 +7,9 @@ SMPL forward hoisted out of the loop (the loss depends on the camera only);
 five-term loss, with fresh Adam state per stage and per coarse-to-fine phase.
 
 Stage B rebins every `rebin_interval` steps (candidate lists with
-`bin_margin_px` of slack), marks α-saturated tiles kernel-empty (interior
-skip), strides the silhouette term (a Python `if` replaces `lax.cond`) and,
+`bin_margin_px` of slack: fused bins, or round-1 `BinState`s under
+`silhouette.backend="pallas"`), marks α-saturated tiles kernel-empty
+(interior skip, fused path only), strides the silhouette term (a Python `if` replaces `lax.cond`) and,
 with `coarse_frac > 0`, runs its first steps at image_size/coarse_factor.
 
 Adam is written by hand with optax's formula, elementwise:
@@ -28,6 +29,7 @@ from jrr_tpu_torch.config import RefinerConfig
 from jrr_tpu_torch.ops import jreg as jreg_lib
 from jrr_tpu_torch.refine import losses
 from jrr_tpu_torch.refine.losses import FrameBatch, FrameParams, LossTerms
+from jrr_tpu_torch.render import silhouette as sil_lib
 from jrr_tpu_torch.render import silhouette_fused as sf
 
 
@@ -37,7 +39,7 @@ class RefineResult(NamedTuple):
     stage_b_terms: LossTerms  # each (stage_b_steps,)
     joints3d: torch.Tensor  # (B, 17, 3) final regressed joints (meters)
     vertices: torch.Tensor  # (B, V, 3) final vertices
-    # Rasterizer capacity counters, worst rebin chunk (None without bins).
+    # Rasterizer capacity counters, worst rebin chunk (None without fused bins).
     bin_stats: Optional[sf.BinStats] = None
 
 
@@ -171,17 +173,18 @@ def refine_batch(
         inner -= 1
     use_bins = cfg.use_silhouette and data.mask is not None and inner > 1
     spec = losses.rasterizer_spec(cfg)
-    if use_bins:
-        losses.resolve_silhouette_backend(spec)
-    # interior_skip: None = auto (on with amortized bins), True = require, False = off.
-    interior_skip = use_bins if sil.interior_skip is None else sil.interior_skip
+    # interior_skip exists on the fused amortized-bins path only. None = auto
+    # (on exactly there), True = require (raises elsewhere), False = off.
+    skip_path = use_bins and losses.resolve_silhouette_backend(spec) == "fused"
+    interior_skip = skip_path if sil.interior_skip is None else sil.interior_skip
     if (
         interior_skip and cfg.use_silhouette and data.mask is not None
-        and cfg.stage_b_steps > 0 and not use_bins
+        and cfg.stage_b_steps > 0 and not skip_path
     ):
         raise ValueError(
-            "interior_skip=True requires rebin amortization (rebin_interval > 1); "
-            f"got rebin_interval={sil.rebin_interval}"
+            "interior_skip=True requires the fused silhouette backend and rebin "
+            f"amortization (rebin_interval > 1); got backend={sil.backend!r}, "
+            f"rebin_interval={sil.rebin_interval}"
         )
 
     terms_b: List[LossTerms] = []
@@ -191,10 +194,13 @@ def refine_batch(
             with torch.no_grad():
                 p_now = FrameParams(*(x.detach() for x in leaves))
                 verts_now = losses.forward_frame(model, p_now).vertices
-                bins = sf.compute_fused_bins(verts_now, model, p_now.cam_t, spec)
-                if interior_skip:
-                    bins = sf.apply_interior_skip(bins, verts_now, model, p_now.cam_t, spec)
-            chunk_stats.append(bins.stats)
+                if skip_path:
+                    bins = sf.compute_fused_bins(verts_now, model, p_now.cam_t, spec)
+                    if interior_skip:
+                        bins = sf.apply_interior_skip(bins, verts_now, model, p_now.cam_t, spec)
+                    chunk_stats.append(bins.stats)
+                else:  # round-1 bins carry no capacity counters (jrr_tpu :302-306)
+                    bins = sil_lib.compute_bins(verts_now, model.faces, p_now.cam_t, spec)
             for s in range(inner):
                 terms_b.append(step_b(chunk * inner + s, bins))
     else:

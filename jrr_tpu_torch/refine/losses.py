@@ -96,23 +96,30 @@ def rasterizer_spec(cfg: RefinerConfig) -> sil_lib.RasterizerSpec:
 
 
 def resolve_silhouette_backend(spec: sil_lib.RasterizerSpec) -> str:
-    """"auto" → the fused page-gather path; the JAX package's round-1
-    backends ("pallas"/"xla") are not ported."""
+    """"auto"/"fused" → the fused page-gather path; "pallas" → the round-1
+    tile path (jrr_tpu :114-117). "xla" is not ported."""
     if spec.backend in ("auto", "fused"):
         return "fused"
+    if spec.backend == "pallas":
+        return "pallas"
     raise NotImplementedError(
-        f"silhouette backend {spec.backend!r} is not ported (only auto/fused)"
+        f"silhouette backend {spec.backend!r} is not ported (auto/fused, pallas)"
     )
 
 
 def silhouette_loss(model, vertices, cam_t, mask, cfg: RefinerConfig, bins=None) -> torch.Tensor:
-    """Per-frame MSE between the soft silhouette and the GT mask, compared in
-    tile space (reference: scripts/optimize.py:234-247). The mask is
-    supervision: its gradient is stopped."""
+    """Per-frame MSE between the soft silhouette and the GT mask
+    (reference: scripts/optimize.py:234-247): in tile space on the fused
+    path, in image space on the round-1 path (`bins` is then a
+    `silhouette.BinState`). The mask is supervision: its gradient is
+    stopped."""
+    mask = mask.detach()
     spec = rasterizer_spec(cfg)
-    resolve_silhouette_backend(spec)
-    mask_tiles = sf.image_to_tiles(mask.detach(), spec.tile_size)
-    return sf.silhouette_sq_err_fused(vertices, model, cam_t, mask_tiles, spec, bins=bins)
+    if resolve_silhouette_backend(spec) == "fused":
+        mask_tiles = sf.image_to_tiles(mask, spec.tile_size)
+        return sf.silhouette_sq_err_fused(vertices, model, cam_t, mask_tiles, spec, bins=bins)
+    render = sil_lib.render_mesh_silhouette(vertices, model.faces, cam_t, spec, bins=bins)
+    return torch.mean((render - mask) ** 2, dim=(-1, -2))  # (B,)
 
 
 def stage_b_loss(

@@ -9,8 +9,8 @@ jrr_tpu/render/silhouette_fused.py, the refinement path's silhouette).
   index page_slot·128 + lane.
 - The CUDA kernels (csrc/silhouette_fused.cu through `kernels.py`) gather
   each tile's corners through those indices and run signed distance, sigmoid
-  coverage and the union α per tile; the loss kernel also routes dL/dcorner
-  back onto the per-frame tables. Invalid slots index a reserved DUMP page
+  coverage and the union α per tile; the loss kernel and the α VJP kernel
+  also route dL/dcorner back onto the per-frame tables. Invalid slots index a reserved DUMP page
   whose first three lanes form a far-off-screen triangle (zero coverage).
 - The plain versions (`fused_tiles_alpha_plain`, `fused_lossgrad_plain`)
   compute the same functions with tensor ops and autograd; the kernel
@@ -19,7 +19,7 @@ jrr_tpu/render/silhouette_fused.py, the refinement path's silhouette).
 The bins contract (`pages`, `idx`, `origin`, the dump page) equals the JAX
 package's exactly. Binning capacity limits are never silent: `BinStats`
 counts span-clipped faces, truncated tiles and page-overflow drops.
-Not ported: lane packing (`pack_bins`) and the α VJP kernel.
+Not ported: lane packing (`pack_bins`).
 """
 
 from __future__ import annotations
@@ -434,17 +434,32 @@ def fused_lossgrad_plain(tx, ty, pages, idx, origin, mask_tiles, tile, inv_sigma
 # ---------------------------------------------------------------------------
 
 
+class _FusedTilesAlpha(torch.autograd.Function):
+    """α tiles through `kernels.fused_alpha_fwd`; the backward launches the
+    α VJP kernel `kernels.fused_alpha_bwd` (dL/dα → dtx, dty; jrr_tpu
+    `fused_tiles_alpha.defvjp` :978). The bins are integer inputs and the
+    origin gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, tx, ty, pages, idx, origin, tile, inv_sigma, blur_px2, dump_page):
+        ctx.save_for_backward(tx, ty, pages, idx, origin)
+        ctx.consts = (tile, inv_sigma, blur_px2, dump_page)
+        return kernels.fused_alpha_fwd(tx, ty, pages, idx, origin, *ctx.consts)
+
+    @staticmethod
+    def backward(ctx, g):
+        tx, ty, pages, idx, origin = ctx.saved_tensors
+        dtx, dty = kernels.fused_alpha_bwd(tx, ty, pages, idx, origin, g.contiguous(), *ctx.consts)
+        return (dtx, dty) + (None,) * 7
+
+
 def fused_tiles_alpha(tx, ty, pages, idx, origin, tile, inv_sigma, blur_px2, dump_page):
-    """α tiles (B, G², T²); CUDA tensors launch `kernels.fused_alpha_fwd`
-    (forward only: the α VJP kernel is not ported)."""
+    """α tiles (B, G², T²), differentiable in the tables; CUDA tensors
+    launch the forward kernel (and, under autograd, the α VJP kernel), CPU
+    tensors take the plain version."""
     if tx.device.type == "cpu":
         return fused_tiles_alpha_plain(tx, ty, pages, idx, origin, tile, inv_sigma, blur_px2)
-    if torch.is_grad_enabled() and (tx.requires_grad or ty.requires_grad):
-        raise NotImplementedError(
-            "gradient of fused_tiles_alpha on CUDA needs the α VJP kernel "
-            "(jrr_tpu silhouette_fused._fused_bwd_kernel), not ported yet"
-        )
-    return kernels.fused_alpha_fwd(tx, ty, pages, idx, origin, tile, inv_sigma, blur_px2, dump_page)
+    return _FusedTilesAlpha.apply(tx, ty, pages, idx, origin, tile, inv_sigma, blur_px2, dump_page)
 
 
 def fused_lossgrad(tx, ty, pages, idx, origin, mask_tiles, tile, inv_sigma, blur_px2, dump_page):
@@ -505,10 +520,7 @@ def _prep_kernel_inputs(vertices_smpl, model, cam_t, spec, bins):
     if perm is None:
         perm = torch.arange(model.num_verts, device=vertices_smpl.device)
     tx, ty = build_tables(verts_screen, perm)
-    px_to_ndc2 = (2.0 / spec.image_size) ** 2
-    inv_sigma = px_to_ndc2 / spec.sigma
-    blur_px2 = spec.blur_radius / px_to_ndc2 if spec.blur_radius > 0 else 0.0
-    return bins, tx, ty, inv_sigma, blur_px2
+    return (bins, tx, ty) + sil.tile_constants(spec)
 
 
 def silhouette_sq_err_fused(vertices_smpl, model, cam_t, mask_tiles, spec,
