@@ -7,7 +7,9 @@
    main paths' inputs (full-width body, batch 256) at both geometries the
    paths use (224²/tile 8 and 112²/tile 4) plus an all-empty-tiles case,
    and times both: the fused kernels on the fused bins, the round-1 tile
-   kernels on the round-1 bins;
+   kernels on the round-1 bins, and the lane-packed loss kernel on the
+   fused bins after `pack_bins` (also against the unpacked kernel and
+   against its own repeat);
 3. drives the main path once: `refine_batch` at batch 256, 1000 + 100
    steps, shipped defaults, live discriminators (one warm-up, then three
    timed runs, the median reported), with every kernel's launch count set to
@@ -17,7 +19,8 @@
    them in float64, and compares the parameters (kernel vs plain ≤ 5e-4);
 5. holds the silhouette term's gradient at the first stage-B step through
    the kernels against the plain versions, full width, both geometries,
-   problem seeds 1-12, for the fused and the round-1 backend;
+   problem seeds 1-12, for the fused path, the lane-packed fused path and
+   the round-1 backend;
 6. drives the training path: three `outer_step`s at batch 256, 1000 + 100
    steps (three batches of one synthetic problem whose mask is rendered
    through the round-1 tile kernel) and a profiled repeat of the last,
@@ -28,12 +31,21 @@
    agree bit for bit;
 8. holds the gradient of Σ w·`silhouette_tiles_fused` (the α VJP kernel)
    against the plain version at batch 256, both geometries;
-9. prints the kernels line, the card's name and power limit, and the
+9. drives the lane-packed configuration (`silhouette.lane_pack=True`):
+   `refine_batch` at batch 256, full width and depth (warm-up, two timed
+   runs with every active silhouette step through the packed kernel, in
+   turns A B B A with two unpacked runs to compare with), and two short
+   kernel refinements that must agree bit for bit;
+10. runs the primitive probes (jrr_tpu_torch/probes/): each probe kernel
+   against its plain version at the probe tools' shapes, timed beside one
+   PyTorch call for the same function;
+11. prints the kernels line, the card's name and power limit, and the
    contract line `{"ok": true, "device": {...}}` last.
 
 Any failed check raises (non-zero exit, no result line). Needs one CUDA card
 and the repository around this file; TF32 is off for the whole run.
-Details too long for stdout (ptxas report, profile) go to chiprun_out/.
+Details too long for stdout (ptxas report, profiles, every JSON line in
+chip_smoke.jsonl) go to chiprun_out/.
 """
 
 from __future__ import annotations
@@ -72,10 +84,17 @@ BATCH = 256
 MAIN_RUNS = 3  # timed main-path runs after the warm-up
 PLAIN_FRAMES = 8  # plain versions run in frame chunks (their (B, G², T², 128) intermediates)
 TRAIN_STEPS = 3  # outer_step calls of the training path, one batch of BATCH frames each
+LANE_PACK_PAIRS = 2  # timed (lane-packed, unpacked) pairs, in turns A B B A
 
 
 def _emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    """Print one JSON line, and keep it in chiprun_out/chip_smoke.jsonl
+    (stdout's head can be cut where only its end is kept)."""
+    line = json.dumps(obj)
+    print(line, flush=True)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke.jsonl"), "a") as f:
+        f.write(line + "\n")
 
 
 def _check(ok: bool, what: str) -> None:
@@ -144,8 +163,20 @@ def _kernel_inputs(problem, geometry):
     return dict(
         tx=tx, ty=ty, pages=bins.pages, idx=bins.idx, origin=bins.origin, mask=mask_tiles,
         tile=spec.tile_size, inv_sigma=inv_sigma, blur_px2=blur_px2,
-        dump=sf.dump_page_id(model.num_verts),
+        dump=sf.dump_page_id(model.num_verts), bins=bins, num_verts=model.num_verts,
     )
+
+
+def _empty_tiles(x):
+    """`_kernel_inputs` with every tile kernel-empty (binning's dump pattern)."""
+    import torch
+
+    p_hat = x["pages"].shape[2]
+    x["pages"] = torch.full_like(x["pages"], x["dump"])
+    corner = torch.arange(3, dtype=torch.int32, device=x["idx"].device).reshape(1, 1, 3, 1)
+    x["idx"] = ((p_hat - 1) * 128 + corner).expand_as(x["idx"]).contiguous()
+    x["bins"] = x["bins"]._replace(pages=x["pages"], idx=x["idx"])
+    return x
 
 
 def _active_pairs(tri, origin, tile, inv_sigma, blur_px2, lane_ok=None):
@@ -262,10 +293,7 @@ def check_kernels(problem):
     for geometry in ("fine", "coarse", "empty"):
         x = _kernel_inputs(problem, "fine" if geometry == "empty" else geometry)
         if geometry == "empty":
-            p_hat = x["pages"].shape[2]
-            x["pages"] = torch.full_like(x["pages"], x["dump"])
-            corner = torch.arange(3, dtype=torch.int32, device=x["idx"].device).reshape(1, 1, 3, 1)
-            x["idx"] = ((p_hat - 1) * 128 + corner).expand_as(x["idx"]).contiguous()
+            x = _empty_tiles(x)
         bins = (x["tx"], x["ty"], x["pages"], x["idx"], x["origin"])
         consts = (x["tile"], x["inv_sigma"], x["blur_px2"])
 
@@ -317,6 +345,111 @@ def check_kernels(problem):
             row["fwd_bound_ms"], row["fwd_bound_by"] = _bound_ms(x, pairs * OPS_COVERAGE, False)
             row["lossgrad_bound_ms"], row["lossgrad_bound_by"] = _bound_ms(x, grad_ops, True)
             row["bwd_bound_ms"], row["bwd_bound_by"] = _bound_ms(x, grad_ops, True, err_out=False)
+        report[geometry] = row
+    return report
+
+
+def _packed_pair_counts(x, packed):
+    """`_pair_counts` of the lane-packed layout: (pairs of a real candidate
+    lane in an occupied row, those with 0 < p < 1 with each lane at its own
+    half's origin, occupied rows)."""
+    from jrr_tpu_torch.render import silhouette_fused as sf
+
+    half = sf.K_HALF
+    occupied = packed.p_pages[:, :, 0] != x["dump"]
+    real = (packed.p_idx[:, :, 0, :] >> 7) != packed.p_pages.shape[2] - 1
+    pairs = int((real & occupied[..., None]).sum()) * x["tile"] ** 2
+    active = 0
+    for lo in range(0, x["tx"].shape[0], PLAIN_FRAMES):
+        sl = slice(lo, lo + PLAIN_FRAMES)
+        occ = occupied[sl]
+        tri = sf._gather_tri(x["tx"][sl], x["ty"][sl], packed.p_pages[sl], packed.p_idx[sl])[occ]
+        for lanes, origin in ((slice(0, half), x["origin"]), (slice(half, None), packed.p_origin_b)):
+            active += _active_pairs(tri[..., lanes], origin[sl][occ], x["tile"], x["inv_sigma"],
+                                    x["blur_px2"])
+    return pairs, active, int(occupied.sum())
+
+
+def _packed_bound_ms(x, packed, ops):
+    """Least time of the packed loss kernel for these inputs. Bytes: tables
+    and page lists read once; per occupied row its idx, both origins, flag
+    and buddy id; each occupied tile's mask row once (a pair reads two);
+    err per row and the gradient tables written once."""
+    b, pg, lanes = x["tx"].shape
+    g2, p_hat = packed.p_pages.shape[1:]
+    rows = int((packed.p_pages[:, :, 0] != x["dump"]).sum())
+    tiles = int((x["pages"][:, :, 0] != x["dump"]).sum())
+    read = (2 * b * pg * lanes * 4 + b * g2 * p_hat * 4 + rows * (3 * lanes * 4 + 4 * 4 + 2 * 4)
+            + tiles * x["tile"] ** 2 * 4)
+    written = b * g2 * 4 + 2 * b * pg * lanes * 4
+    return _max_bound(read + written, ops)
+
+
+def check_packed_kernel(problem):
+    """The lane-packed loss kernel on the main path's fused bins after the
+    interior skip and `pack_bins`, at the first rebin of each c2f phase
+    (224²/tile 8, 112²/tile 4) plus all-empty, held against its plain
+    version (err rtol ERR_RTOL, gradients at the kernel test's criterion),
+    against the unpacked kernel on the same bins (at bin time the two are
+    one function: err rtol 2e-5, gradients atol 5e-5·max, the contract of
+    tests/test_lane_pack.py) and against its own repeat (bit for bit)."""
+    import torch
+
+    from jrr_tpu_torch import kernels
+    from jrr_tpu_torch.render import silhouette_fused as sf
+
+    report = {}
+    for geometry in ("fine", "coarse", "empty"):
+        x = _kernel_inputs(problem, "fine" if geometry == "empty" else geometry)
+        if geometry == "empty":
+            x = _empty_tiles(x)
+        packed = sf.pack_bins(x["bins"], x["num_verts"])
+        args = (x["tx"], x["ty"], packed.p_pages, packed.p_idx, x["origin"], packed.p_origin_b,
+                packed.p_flags, packed.p_buddy, x["mask"])
+        unpacked_args = (x["tx"], x["ty"], x["pages"], x["idx"], x["origin"], x["mask"])
+        consts = (x["tile"], x["inv_sigma"], x["blur_px2"])
+
+        got = sf.fused_lossgrad_packed(*args, *consts, x["dump"])
+        again = sf.fused_lossgrad_packed(*args, *consts, x["dump"])
+        plain = _chunked(sf.fused_lossgrad_packed_plain, args, consts)
+        unpacked = sf.fused_lossgrad(*unpacked_args, *consts, x["dump"])
+        torch.cuda.synchronize()
+        _check(all(torch.equal(a, b) for a, b in zip(got, again)),
+               f"{geometry}: two packed kernel runs differ")
+        e_viol = _max_rel_violation(got[0], plain[0], 1e-30, ERR_RTOL)
+        _check(e_viol <= 1.0, f"{geometry}: packed err beyond rtol {ERR_RTOL} of plain ({e_viol})")
+        g_viol, g_err, g_scale = _grad_check(got[1:], plain[1:])
+        _check(g_viol <= 1.0, f"{geometry}: packed grads beyond tolerance of plain ({g_viol})")
+        u_err_viol = _max_rel_violation(got[0], unpacked[0], 1e-30, 2e-5)
+        u_scale = max(float(u.abs().max()) for u in unpacked[1:])
+        u_grad = max(float((a - b).abs().max()) for a, b in zip(got[1:], unpacked[1:]))
+        _check(u_err_viol <= 1.0 and u_grad <= 5e-5 * u_scale,
+               f"{geometry}: packed vs unpacked kernel err {u_err_viol}, grads {u_grad} (scale {u_scale})")
+        pairs_per_frame = packed.p_num_pairs.float()
+        row = dict(
+            err_max_rel_err=float(((got[0] - plain[0]).abs() / plain[0].abs().clamp_min(1e-30)).max()),
+            grad_max_abs_err=g_err, grad_scale=g_scale, grad_tolerance_use=g_viol,
+            vs_unpacked_err_tolerance_use=u_err_viol, vs_unpacked_grad_max_abs=u_grad,
+            vs_unpacked_grad_tolerance_use=u_grad / (5e-5 * max(u_scale, 1e-30)),
+            entries=int(packed.p_pages.shape[0] * packed.p_pages.shape[1]),
+            pairs_per_frame=[float(pairs_per_frame.mean()), int(packed.p_num_pairs.min()),
+                             int(packed.p_num_pairs.max())],
+        )
+        if geometry != "empty":
+            pairs, active, rows = _packed_pair_counts(x, packed)
+            u_pairs, u_active, occ = _pair_counts(x)
+            row.update(occupied_tiles=occ, occupied_rows=rows, pairs=pairs, active_pairs=active,
+                       unpacked_pairs=u_pairs, unpacked_active_pairs=u_active)
+            row["ms"] = _time_ms(lambda: kernels.fused_lossgrad_packed(*args, *consts, x["dump"]), 20)
+            row["unpacked_ms"] = _time_ms(lambda: kernels.fused_lossgrad(*unpacked_args, *consts, x["dump"]), 20)
+            row["plain_ms"] = _time_ms(lambda: _chunked(sf.fused_lossgrad_packed_plain, args, consts), 1)
+            row["pack_ms"] = _time_ms(lambda: sf.pack_bins(x["bins"], x["num_verts"]), 3)
+            row["pack_device_ms"] = 1e3 * _profile(
+                f"profile_pack_{geometry}.txt", row["pack_ms"] / 1e3,
+                lambda: sf.pack_bins(x["bins"], x["num_verts"]),
+            )["device_busy_s"]
+            ops = pairs * OPS_COVERAGE + active * (OPS_COVERAGE + OPS_GRADIENT)
+            row["bound_ms"], row["bound_by"] = _packed_bound_ms(x, packed, ops)
         report[geometry] = row
     return report
 
@@ -566,18 +699,20 @@ def _plain_versions():
     from jrr_tpu_torch.render import silhouette_fused as sf
     from jrr_tpu_torch.render import silhouette_pallas as sp
 
-    saved = sf.fused_tiles_alpha, sf.fused_lossgrad, sp.tiles_alpha
+    saved = sf.fused_tiles_alpha, sf.fused_lossgrad, sf.fused_lossgrad_packed, sp.tiles_alpha
     sf.fused_tiles_alpha = lambda *args: sf.fused_tiles_alpha_plain(*args[:-1])  # drops dump_page
     sf.fused_lossgrad = lambda *args: sf.fused_lossgrad_plain(*args[:-1])
+    sf.fused_lossgrad_packed = lambda *args: sf.fused_lossgrad_packed_plain(*args[:-1])
     sp.tiles_alpha = sp.tiles_alpha_plain
     try:
         yield
     finally:
-        sf.fused_tiles_alpha, sf.fused_lossgrad, sp.tiles_alpha = saved
+        sf.fused_tiles_alpha, sf.fused_lossgrad, sf.fused_lossgrad_packed, sp.tiles_alpha = saved
 
 
-def _with_backend(cfg, backend):
-    return dataclasses.replace(cfg, silhouette=dataclasses.replace(cfg.silhouette, backend=backend))
+def _with_backend(cfg, backend, lane_pack=False):
+    return dataclasses.replace(cfg, silhouette=dataclasses.replace(
+        cfg.silhouette, backend=backend, lane_pack=lane_pack))
 
 
 def _max_param_diff(a, b) -> float:
@@ -607,9 +742,10 @@ def short_problem(seed):
     return problem_lib.synthetic_problem(batch=2, seed=seed, device="cuda")
 
 
-def short_refine(problem, pose_disc, shape_disc, plain=False, float64=False, backend="auto"):
-    """refine_batch on `problem` (a `short_problem`) with 20 + 10 steps and
-    the silhouette `backend`: through the kernels, or (plain=True) through
+def short_refine(problem, pose_disc, shape_disc, plain=False, float64=False, backend="auto",
+                 lane_pack=False):
+    """refine_batch on `problem` (a `short_problem`) with 20 + 10 steps, the
+    silhouette `backend` and `lane_pack`: through the kernels, or (plain=True) through
     the plain versions with PyTorch's deterministic algorithms on (their
     gather backward otherwise adds with float atomics), in float32 or
     float64."""
@@ -620,7 +756,8 @@ def short_refine(problem, pose_disc, shape_disc, plain=False, float64=False, bac
     if float64:
         problem, pose_disc, shape_disc = _float64(problem, pose_disc, shape_disc)
     model, j_reg, cfg, init, data = problem
-    cfg = dataclasses.replace(_with_backend(cfg, backend), stage_a_steps=20, stage_b_steps=10)
+    cfg = dataclasses.replace(_with_backend(cfg, backend, lane_pack), stage_a_steps=20,
+                              stage_b_steps=10)
     if not plain:
         return engine.refine_batch(model, j_reg, init, data, cfg, pose_disc, shape_disc)
     torch.use_deterministic_algorithms(True)
@@ -667,8 +804,9 @@ def compare_kernel_and_plain_refine(pose_disc, shape_disc, seed=1):
 def compare_silhouette_gradients(seeds=GRAD_SEEDS):
     """The silhouette term's gradient w.r.t. the frame parameters at the
     first stage-B step, through the kernels and through the plain versions
-    at the same inputs: full width, batch 2, both c2f geometries, both
-    backends (fused: loss kernel; pallas: round-1 tile kernels), every seed.
+    at the same inputs: full width, batch 2, both c2f geometries, three
+    configurations (fused: loss kernel; fused_lane_pack: the packed loss
+    kernel on `pack_bins`; pallas: round-1 tile kernels), every seed.
     The kernel test's criterion (atol 3e-4·max|plain| + rtol 2e-4) per
     parameter tensor. Unlike the refinement, no optimizer amplifies the
     last bits here."""
@@ -679,7 +817,7 @@ def compare_silhouette_gradients(seeds=GRAD_SEEDS):
     from jrr_tpu_torch.render import silhouette as sil
     from jrr_tpu_torch.render import silhouette_fused as sf
 
-    worst = {b: {"fine": 0.0, "coarse": 0.0} for b in ("fused", "pallas")}
+    worst = {b: {"fine": 0.0, "coarse": 0.0} for b in ("fused", "fused_lane_pack", "pallas")}
     for seed in seeds:
         model, j_reg, cfg, init, data = problem_lib.synthetic_problem(batch=2, seed=seed, device="cuda")
         # Stage A alone (20 camera steps) gives stage B's starting point.
@@ -688,13 +826,15 @@ def compare_silhouette_gradients(seeds=GRAD_SEEDS):
         ).params
         for backend in worst:
             for geometry in worst[backend]:
-                gcfg, mask = _geometry(_with_backend(cfg, backend), data.mask, geometry)
+                gcfg, mask = _geometry(_with_backend(cfg, backend.split("_")[0]), data.mask, geometry)
                 spec = losses.rasterizer_spec(gcfg)
                 with torch.no_grad():
                     verts = losses.forward_frame(model, start).vertices
-                    if backend == "fused":
+                    if backend.startswith("fused"):
                         bins = sf.compute_fused_bins(verts, model, start.cam_t, spec)
                         bins = sf.apply_interior_skip(bins, verts, model, start.cam_t, spec)
+                        if backend == "fused_lane_pack":
+                            bins = sf.pack_bins(bins, model.num_verts)
                     else:
                         bins = sil.compute_bins(verts, model.faces, start.cam_t, spec)
 
@@ -764,6 +904,95 @@ def run_round1_path(problem, pose_disc, shape_disc):
         stage_b_total_first_last=[first, last], short_repeat_diff=repeat, profile=prof,
         card=_card(),
     ), launches
+
+
+def _active_steps(steps: int, stride: int) -> int:
+    return len(range(0, steps, max(1, stride)))
+
+
+def run_lane_pack_path(problem, pose_disc, shape_disc, packed_checks, fused_checks, fused_busy_s):
+    """refine_batch with silhouette.lane_pack=True at full width and depth,
+    otherwise shipped defaults: a warm-up, then LANE_PACK_PAIRS pairs of
+    timed runs with the unpacked configuration, in turns A B B A (the call
+    is host-bound, so only turns in one phase compare), each with the launch
+    counts set to 0 just before it and read just after (every active
+    silhouette step of a packed run through the packed kernel, none through
+    the unpacked one); then two short kernel refinements (seed 1) that must
+    agree bit for bit. Not profiled (a profile costs 25-30 s): the
+    device-busy seconds are derived from the fused cell's profile in this
+    run, with each loss launch's time swapped from the unpacked kernel's to
+    the packed kernel's at its phase's geometry, plus one pack pass (its
+    profiled device time) per rebin."""
+    import torch
+
+    from jrr_tpu_torch import kernels
+    from jrr_tpu_torch.refine import engine
+
+    model, j_reg, cfg, init, data = problem
+    cfg = dataclasses.replace(cfg, stage_a_steps=1000, stage_b_steps=100)
+    packed_cfg = _with_backend(cfg, "auto", lane_pack=True)
+    sil = cfg.silhouette
+    coarse_steps = int(sil.coarse_frac * cfg.stage_b_steps)
+    phase_steps = {"coarse": _active_steps(coarse_steps, sil.coarse_step_stride or sil.step_stride),
+                   "fine": _active_steps(cfg.stage_b_steps - coarse_steps, sil.step_stride)}
+    active = sum(phase_steps.values())
+    engine.refine_batch(model, j_reg, init, data, packed_cfg, pose_disc, shape_disc)
+    torch.cuda.synchronize()
+    seconds = {"lane_pack": [], "unpacked": []}
+    runs = {"lane_pack": (packed_cfg, _launches(fused_lossgrad_packed=active, fused_alpha_fwd=2)),
+            "unpacked": (cfg, _launches(fused_lossgrad=active, fused_alpha_fwd=2))}
+    for pair in range(LANE_PACK_PAIRS):
+        order = ("lane_pack", "unpacked") if pair % 2 == 0 else ("unpacked", "lane_pack")
+        for name in order:
+            run_cfg, want = runs[name]
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            res = engine.refine_batch(model, j_reg, init, data, run_cfg, pose_disc, shape_disc)
+            torch.cuda.synchronize()
+            seconds[name].append(time.perf_counter() - t0)
+            launches = _read_launches()
+            _check(launches == want, f"{name} run launches {launches}, expected {want}")
+            if name == "lane_pack":
+                packed_res, packed_launches = res, launches
+    total = packed_res.stage_b_terms.total
+    first, last = float(total[0]), float(total[-1])
+    _check(last < first, f"lane-pack stage-B total did not decrease: {first} -> {last}")
+    _check(all(bool(torch.isfinite(p).all()) for p in packed_res.params), "lane-pack: non-finite params")
+
+    short = short_problem(1)
+    k1 = short_refine(short, pose_disc, shape_disc, lane_pack=True)
+    k2 = short_refine(short, pose_disc, shape_disc, lane_pack=True)
+    repeat = _max_param_diff(k1, k2)
+    _check(repeat == 0.0, f"two lane-packed kernel refinements differ by {repeat}")
+    _check(int((k1.stage_b_terms.silhouette != 0).sum()) > 0, "the short lane-pack run had no silhouette")
+
+    swap_s = sum(
+        n * (packed_checks[g]["ms"] - fused_checks[g]["lossgrad_ms"]) + packed_checks[g]["pack_device_ms"]
+        for g, n in phase_steps.items()
+    ) / 1e3
+    mean = lambda xs: sum(xs) / len(xs)  # noqa: E731
+    return dict(
+        batch=BATCH, stage_a_steps=1000, stage_b_steps=100, seconds_runs=seconds["lane_pack"],
+        unpacked_seconds_runs=seconds["unpacked"], frames_per_s=BATCH / mean(seconds["lane_pack"]),
+        unpacked_frames_per_s=BATCH / mean(seconds["unpacked"]),
+        launches=packed_launches, active_silhouette_steps=phase_steps,
+        stage_b_total_first_last=[first, last], short_repeat_diff=repeat,
+        bin_stats={k: int(v) for k, v in packed_res.bin_stats._asdict().items()},
+        device_busy_s_derived=fused_busy_s + swap_s,
+        device_busy_derivation="fused cell's profiled busy s + per active step (packed − unpacked "
+                               "loss kernel ms at its geometry) + one pack pass (device ms) per rebin",
+        card=_card(),
+    ), packed_launches
+
+
+def run_probes():
+    """Rows 7-10: each probe kernel against its plain version at the probe
+    tools' shapes (jrr_tpu_torch/probes/), with its time, the plain
+    version's, the bound and one PyTorch call's for the same function."""
+    from jrr_tpu_torch.probes import bf16_probe, kernel_probe, kernel_probe2
+
+    records = kernel_probe.measure() + kernel_probe2.measure() + bf16_probe.measure()
+    return [r for r in records if "name" in r], [r for r in records if "name" not in r]
 
 
 def _perturbed_regressor(j_reg, seed=0):
@@ -939,6 +1168,8 @@ def main() -> int:
         now = time.perf_counter()
         phases[phase], last[0] = now - last[0], now
 
+    os.makedirs(OUT_DIR, exist_ok=True)
+    open(os.path.join(OUT_DIR, "chip_smoke.jsonl"), "w").close()
     t0 = time.perf_counter()
     kernels.build()
     build_s = time.perf_counter() - t0
@@ -956,11 +1187,15 @@ def main() -> int:
     done("build_and_problem")
     checks = check_kernels(problem)
     done("fused_kernel_checks")
+    packed_checks = check_packed_kernel(problem)
+    _emit({"packed_kernel_checks": packed_checks})
+    done("packed_kernel_checks")
     tile_checks = check_tile_kernels(problem)
     done("tile_kernel_checks")
     main_path, launches = run_main_path(problem, pose_disc, shape_disc)
     _emit({"main_path": main_path})
-    _emit({"profile": profile_main_path(problem, pose_disc, shape_disc, main_path["seconds"])})
+    main_profile = profile_main_path(problem, pose_disc, shape_disc, main_path["seconds"])
+    _emit({"profile": main_profile})
     done("main_path")
     refine = compare_kernel_and_plain_refine(pose_disc, shape_disc)
     _emit({"kernel_vs_plain_refine": refine})
@@ -977,6 +1212,13 @@ def main() -> int:
     vjp, vjp_launches = check_fused_alpha_vjp_api(problem)
     _emit({"fused_alpha_vjp_api": vjp})
     done("fused_alpha_vjp_api")
+    lane_pack, lane_pack_launches = run_lane_pack_path(
+        problem, pose_disc, shape_disc, packed_checks, checks, main_profile["device_busy_s"])
+    _emit({"lane_pack_path": lane_pack})
+    done("lane_pack_path")
+    probe_records, probe_summary = run_probes()
+    _emit({"probes": probe_records + probe_summary})
+    done("probes")
     _emit({"kernel_checks": checks})
     _emit({"tile_kernel_checks": tile_checks})
     _emit({"phase_seconds": phases})
@@ -1008,7 +1250,22 @@ def main() -> int:
               round1_launches["tiles_alpha_fwd"], tile_checks, "fwd", f"atol {ALPHA_ATOL}"),
         entry("tiles_alpha_bwd", "silhouette_tiles.cu", "jrr_tpu/render/silhouette_pallas.py:182",
               round1_launches["tiles_alpha_bwd"], tile_checks, "bwd", grad_tol),
-    ]})
+        {
+            "name": "fused_lossgrad_packed", "route": "cuda",
+            "source": "jrr_tpu_torch/csrc/silhouette_fused.cu",
+            "replaces": "jrr_tpu/render/silhouette_fused.py:1155",
+            "launches": lane_pack_launches["fused_lossgrad_packed"],
+            "max_abs_err": max(packed_checks[g]["grad_max_abs_err"] for g in packed_checks),
+            "ms": packed_checks["fine"]["ms"], "plain_ms": packed_checks["fine"]["plain_ms"],
+            "bound_ms": packed_checks["fine"]["bound_ms"], "bound_by": packed_checks["fine"]["bound_by"],
+            "library_ms": None, "unpacked_ms": packed_checks["fine"]["unpacked_ms"],
+            "tolerance": f"err rtol {ERR_RTOL}; grads {grad_tol}; vs unpacked at bin time: "
+                         "err rtol 2e-5, grads atol 5e-5*max; repeat bit for bit",
+            "coarse_ms": packed_checks["coarse"]["ms"],
+            "coarse_unpacked_ms": packed_checks["coarse"]["unpacked_ms"],
+            "coarse_bound_ms": packed_checks["coarse"]["bound_ms"],
+        },
+    ] + [dict(r, launches=0, note="probe") for r in probe_records]})
     print(_card(), flush=True)
     _emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

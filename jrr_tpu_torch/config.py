@@ -48,7 +48,10 @@ class SilhouetteConfig:
     coarse_factor: int = 2
     # None = auto (on with the fused amortized-bins path), True = require, False = off.
     interior_skip: Optional[bool] = None
-    lane_pack: bool = False  # not ported: True raises
+    # Pair tiles with ≤ 64 core candidates into one 128-lane row of the
+    # loss+grad kernel (`silhouette_fused.pack_bins`, packed after the
+    # interior skip at each fused rebin); no effect with backend="pallas".
+    lane_pack: bool = False
     coarse_min_image: int = 112
 
 

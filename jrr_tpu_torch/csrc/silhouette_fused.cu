@@ -165,6 +165,89 @@ fused_lossgrad_kernel(const float* __restrict__ tx, const float* __restrict__ ty
   add_fixed_point(f, gx, gy, dump_page, dtx, dty);
 }
 
+// Replaces jrr_tpu/render/silhouette_fused.py::_fused_lossgrad_packed_kernel
+// (:1155), the loss kernel on the lane-packed layout (pack_bins): a PRIMARY
+// row (flags 1) carries tile A's candidates in lanes [0, 64) and its buddy
+// tile B's in [64, 128); BUDDY rows (flags 2) are dump-marked and exit with
+// the empty rows; NORMAL rows (flags 0) are fused_lossgrad_kernel's tiles,
+// with the same arithmetic bit for bit. Lanes 0-63 are warps 0-1 and lanes
+// 64-127 warps 2-3, so lane_log_sums' per-warp partials split the halves
+// with no masked reduction: Pi over A = exp(s_part[0] + s_part[1]), over B
+// = exp(s_part[2] + s_part[3]). Each thread evaluates its pixels at its own
+// half's origin and runs corner_grads with its half's dL/dalpha and Pi(1 -
+// p); B's mask row is read in place at mask[b, buddy[b, t]]. err[b, t]
+// holds both tiles' sum for a primary. Bound and design as
+// fused_lossgrad_kernel's; a packed pair costs one CTA where the unpacked
+// layout spends two. The int64 fixed-point bound (kernels._fixed_point_bound)
+// still holds: every lane of a row still covers T2 pixels of one tile with
+// |dL/dalpha| <= 4, buddy rows add nothing, so a frame's G2 rows add at most
+// G2 * 3 * 128 * T2 corner terms, as unpacked.
+__global__ void __launch_bounds__(kLanes)
+fused_lossgrad_packed_kernel(const float* __restrict__ tx, const float* __restrict__ ty,
+                             const int* __restrict__ pages, const int* __restrict__ idx,
+                             const float* __restrict__ origin,
+                             const float* __restrict__ origin_b, const int* __restrict__ flags,
+                             const int* __restrict__ buddy, const float* __restrict__ mask,
+                             float* __restrict__ err, unsigned long long* __restrict__ dtx,
+                             unsigned long long* __restrict__ dty,
+                             int G2, int PG, int P, int tile, float inv_sigma, float blur_px2,
+                             int dump_page) {
+  constexpr int kHalf = kLanes / 2;
+  __shared__ int s_pages[kMaxPages];
+  __shared__ float s_part[kWarps][kMaxT2];
+  __shared__ float s_total[2][kMaxT2];  // Pi(1 - p) per pixel, per half
+  __shared__ float s_g[2][kMaxT2];      // dL/dalpha per pixel, per half
+  __shared__ float s_sq[2][kMaxT2];     // (alpha - mask)^2 per pixel, per half
+  const int t = blockIdx.x, b = blockIdx.y, k = threadIdx.x;
+  const long long bt = (long long)b * G2 + t;
+  const int t2 = tile * tile;
+  const int* pages_t = pages + bt * P;
+  if (pages_t[0] == dump_page) return;  // empty and buddy rows
+  const bool primary = flags[bt] == 1;
+  const int half = (primary && k >= kHalf) ? 1 : 0;
+  const Face f = stage_tile(tx, ty, pages_t, idx, s_pages, bt, b, PG, P, k);
+  const float* org = half ? origin_b : origin;
+  const float ox = org[2 * bt], oy = org[2 * bt + 1];
+  lane_log_sums(f.tri, true, ox, oy, tile, inv_sigma, blur_px2, s_part);
+  __syncthreads();
+  const float* mask_a = mask + bt * t2;
+  const float* mask_b = mask + ((long long)b * G2 + buddy[bt]) * t2;
+  for (int i = k; i < t2; i += kLanes) {
+    if (primary) {
+      const float total_a = expf(s_part[0][i] + s_part[1][i]);
+      const float total_b = expf(s_part[2][i] + s_part[3][i]);
+      const float diff_a = (1.f - total_a) - mask_a[i];
+      const float diff_b = (1.f - total_b) - mask_b[i];
+      s_total[0][i] = total_a;
+      s_total[1][i] = total_b;
+      s_g[0][i] = 2.f * diff_a;
+      s_g[1][i] = 2.f * diff_b;
+      s_sq[0][i] = diff_a * diff_a;
+      s_sq[1][i] = diff_b * diff_b;
+    } else {
+      const float total = expf(log_sum_total(s_part, i));
+      const float diff = (1.f - total) - mask_a[i];
+      s_total[0][i] = total;
+      s_g[0][i] = 2.f * diff;
+      s_sq[0][i] = diff * diff;
+    }
+  }
+  __syncthreads();
+  if (k == 0) {
+    float e = 0.f;
+    for (int i = 0; i < t2; ++i) e += s_sq[0][i];
+    if (primary) {
+      float e_b = 0.f;
+      for (int i = 0; i < t2; ++i) e_b += s_sq[1][i];
+      e += e_b;
+    }
+    err[bt] = e;
+  }
+  float gx[3], gy[3];
+  corner_grads(f.tri, true, ox, oy, tile, inv_sigma, blur_px2, s_g[half], s_total[half], gx, gy);
+  add_fixed_point(f, gx, gy, dump_page, dtx, dty);
+}
+
 // Replaces jrr_tpu/render/silhouette_fused.py::_fused_bwd_kernel (:814),
 // the VJP of fused_alpha_fwd: given g = dL/dalpha (B, G2, T2), adds
 // dL/dcorner into dtx/dty[b, page, lane]. It is the loss kernel with
@@ -229,6 +312,19 @@ int jrr_fused_lossgrad(const float* tx, const float* ty, const int* pages, const
   fused_lossgrad_kernel<<<grid, kLanes, 0, (cudaStream_t)stream>>>(
       tx, ty, pages, idx, origin, mask, err, dtx, dty, G2, PG, P, tile, inv_sigma, blur_px2,
       dump_page);
+  return (int)cudaGetLastError();
+}
+
+int jrr_fused_lossgrad_packed(const float* tx, const float* ty, const int* pages,
+                              const int* idx, const float* origin, const float* origin_b,
+                              const int* flags, const int* buddy, const float* mask, float* err,
+                              unsigned long long* dtx, unsigned long long* dty, int B, int G2,
+                              int PG, int P, int tile, float inv_sigma, float blur_px2,
+                              int dump_page, void* stream) {
+  dim3 grid(G2, B);
+  fused_lossgrad_packed_kernel<<<grid, kLanes, 0, (cudaStream_t)stream>>>(
+      tx, ty, pages, idx, origin, origin_b, flags, buddy, mask, err, dtx, dty, G2, PG, P, tile,
+      inv_sigma, blur_px2, dump_page);
   return (int)cudaGetLastError();
 }
 

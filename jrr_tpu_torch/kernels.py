@@ -3,11 +3,12 @@
 The library is compiled at first use with `nvcc` for sm_90a into `_build/`
 (listed in .gitignore), one file per hash of all sources and headers: one
 `nvcc -c` per source, all started together, then one link. It is loaded
-with ctypes: pointers and the stream as c_void_p, ints as c_int, floats as
-c_float. Each wrapper checks its tensors, allocates its outputs, launches on
-the current stream, raises if the launch reported an error, and counts its
-launches in a plain integer attribute `launches`. Wrappers take CUDA tensors
-only: the plain versions live beside their callers in render/.
+with ctypes: pointers and the stream as c_void_p, ints as c_int (element
+counts as c_longlong), floats as c_float. Each wrapper checks its tensors,
+allocates its outputs, launches on the current stream, raises if the launch
+reported an error, and counts its launches in a plain integer attribute
+`launches`. Wrappers take CUDA tensors only: the plain versions live beside
+their callers in render/ and probes/.
 """
 
 from __future__ import annotations
@@ -101,13 +102,22 @@ def _load():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
         for name, argtypes in (
             ("jrr_fused_alpha_fwd", [p] * 6 + [i] * 5 + [f, f, i, p]),
             ("jrr_fused_lossgrad", [p] * 9 + [i] * 5 + [f, f, i, p]),
+            ("jrr_fused_lossgrad_packed", [p] * 12 + [i] * 5 + [f, f, i, p]),
             ("jrr_fused_alpha_bwd", [p] * 8 + [i] * 5 + [f, f, i, p]),
             ("jrr_tiles_alpha_fwd", [p] * 4 + [i] * 2 + [f, f, p]),
             ("jrr_tiles_alpha_bwd", [p] * 5 + [i] * 2 + [f, f, p]),
+            ("jrr_paged_gather_rmw", [p] * 5 + [i, p]),
+            ("jrr_take_along_axis", [p] * 3 + [i, i, p]),
+            ("jrr_dyn_slice", [p] * 3 + [i, i, p]),
+            ("jrr_onehot_gather", [p] * 3 + [i, p]),
+            ("jrr_select_reduce", [p] * 3 + [i, p]),
+            ("jrr_rmw_rows", [p] * 3 + [i, p]),
+            ("jrr_elementwise", [p, p, ll, p]),
+            ("jrr_fma_chain", [p, p, ll, i, i, p]),
         ):
             getattr(lib, name).argtypes = argtypes
             getattr(lib, name).restype = i
@@ -242,6 +252,49 @@ def fused_lossgrad(tx, ty, pages, idx, origin, mask_tiles, tile, inv_sigma, blur
 fused_lossgrad.launches = 0
 
 
+def fused_lossgrad_packed(tx, ty, pages, idx, origin, origin_b, flags, buddy, mask_tiles, tile,
+                          inv_sigma, blur_px2, dump_page, k_half=64):
+    """(err (B, G²), dtx, dty) on the lane-packed layout (`pack_bins`): per
+    occupied row Σ(α − mask)², both tiles' for a primary row (0 for empty
+    and buddy rows), and dΣerr/d(tx, ty); replaces jrr_tpu
+    silhouette_fused._fused_lossgrad_packed_kernel. The kernel splits a
+    row's 128 lanes on a warp boundary, so `k_half` must be 64. Mask values
+    must lie in [-1, 1] and buddy ids in [0, G²) (device-side asserts)."""
+    if k_half != _LANES // 2:
+        raise ValueError(f"the packed kernel needs k_half == {_LANES // 2}, got {k_half}")
+    b, g2, pg, p_hat = _check_bins(tx, ty, pages, idx, origin, tile)
+    _check_cuda(tx.device, origin_b=(origin_b, torch.float32), flags=(flags, torch.int32),
+                buddy=(buddy, torch.int32), mask_tiles=(mask_tiles, torch.float32))
+    if origin_b.shape != (b, g2, 2) or flags.shape != (b, g2) or buddy.shape != (b, g2):
+        raise ValueError("need origin_b (B, G², 2), flags and buddy (B, G²)")
+    if mask_tiles.shape != (b, g2, tile * tile):
+        raise ValueError("mask_tiles must be (B, G², T²)")
+    if _fixed_point_bound(g2, tile, inv_sigma) >= 2.0**63 / _FIXED_SCALE:
+        raise ValueError(f"gradient sums could overflow int64 fixed point (inv_sigma={inv_sigma})")
+    check_mask_range(mask_tiles)
+    torch._assert_async(torch.all((buddy >= 0) & (buddy < g2)),
+                        "fused_lossgrad_packed: buddy ids must lie in [0, G²)")
+    err = torch.zeros(b, g2, device=tx.device, dtype=torch.float32)
+    dtx = torch.zeros(tx.shape, device=tx.device, dtype=torch.int64)
+    dty = torch.zeros(ty.shape, device=ty.device, dtype=torch.int64)
+    if b * g2 == 0:
+        return err, dtx.float(), dty.float()
+    lib = _load()
+    with torch.cuda.device(tx.device):
+        rc = lib.jrr_fused_lossgrad_packed(
+            tx.data_ptr(), ty.data_ptr(), pages.data_ptr(), idx.data_ptr(), origin.data_ptr(),
+            origin_b.data_ptr(), flags.data_ptr(), buddy.data_ptr(), mask_tiles.data_ptr(),
+            err.data_ptr(), dtx.data_ptr(), dty.data_ptr(), b, g2, pg, p_hat, tile, inv_sigma,
+            blur_px2, dump_page, torch.cuda.current_stream(tx.device).cuda_stream,
+        )
+        fused_lossgrad_packed.launches += 1
+    _raise_on(rc, "fused_lossgrad_packed")
+    return err, dtx.float().mul_(1.0 / _FIXED_SCALE), dty.float().mul_(1.0 / _FIXED_SCALE)
+
+
+fused_lossgrad_packed.launches = 0
+
+
 def fused_alpha_bwd(tx, ty, pages, idx, origin, g, tile, inv_sigma, blur_px2, dump_page):
     """(dtx, dty) (B, PG, 128) — the VJP of `fused_alpha_fwd` for
     g = dL/dα (B, G², T²); replaces jrr_tpu
@@ -333,8 +386,183 @@ def tiles_alpha_bwd(origin, tri, valid, g, tile, inv_sigma, blur_px2):
 
 tiles_alpha_bwd.launches = 0
 
+
+# ---------------------------------------------------------------------------
+# Probe kernels (csrc/probes.cu): the rasterizer's primitives one at a time,
+# on N tile blocks of (8, 128); their plain versions are in probes/.
+# ---------------------------------------------------------------------------
+
+_PROBE_ROWS = 8  # kRows in probes.cu: rows per tile block, page ids per tile
+_MAX_TABLE_ROWS = 64  # kMaxTableRows in probes.cu
+
+
+def _probe_launch(wrapper, dev, entry: str, *args) -> None:
+    """Call C entry `entry` on the current stream of `dev`, count the launch
+    on `wrapper` and raise if the launch failed."""
+    lib = _load()
+    with torch.cuda.device(dev):
+        rc = getattr(lib, entry)(*args, torch.cuda.current_stream(dev).cuda_stream)
+        wrapper.launches += 1
+    _raise_on(rc, entry)
+
+
+def _check_blocks(**tensors) -> int:
+    """Each tensor a contiguous CUDA (N, 8, 128) block array of its dtype,
+    all on one device; returns N."""
+    first = next(iter(tensors.values()))[0]
+    _check_cuda(first.device, **tensors)
+    n = first.shape[0]
+    for name, (t, _) in tensors.items():
+        if t.shape != (n, _PROBE_ROWS, _LANES):
+            raise ValueError(f"{name} must be (N, {_PROBE_ROWS}, {_LANES}), got {tuple(t.shape)}")
+    if not 0 < n < 2**31:
+        raise ValueError(f"need 0 < N < 2³¹ tiles, got {n}")
+    return n
+
+
+def _check_pages(pages, n: int, rows: int) -> None:
+    """(N, 8) int32 page ids in [0, rows) (a device-side assert)."""
+    _check_cuda(pages.device, pages=(pages, torch.int32))
+    if pages.shape != (n, _PROBE_ROWS):
+        raise ValueError(f"pages must be (N, {_PROBE_ROWS}) = {(n, _PROBE_ROWS)}, got {tuple(pages.shape)}")
+    if not 1 <= rows <= _MAX_TABLE_ROWS:
+        raise ValueError(f"need 1 <= table rows <= {_MAX_TABLE_ROWS}, got {rows}")
+    torch._assert_async(torch.all((pages >= 0) & (pages < rows)), "page ids must lie in [0, table rows)")
+
+
+def _check_table(table, pages, n: int) -> int:
+    """A (R, 128) f32 table beside valid (N, 8) page ids; returns R."""
+    _check_cuda(pages.device, table=(table, torch.float32))
+    if table.dim() != 2 or table.shape[1] != _LANES:
+        raise ValueError(f"table must be (R, {_LANES}), got {tuple(table.shape)}")
+    _check_pages(pages, n, table.shape[0])
+    return table.shape[0]
+
+
+def _check_fixed_point(values, terms: int, name: str) -> None:
+    """Device-side assert that `terms` adds of |values| cannot overflow the
+    int64 fixed-point sums (NaN fails it too)."""
+    torch._assert_async(values.abs().max() * terms < 2.0**63 / _FIXED_SCALE,
+                        f"{name}: fixed-point sums could overflow int64")
+
+
+def paged_gather_rmw(pages, idx, table):
+    """(out (N, 8, 128), dtab (R, 128)): out[n, r, k] = table[pages[n, i >> 7],
+    i & 127] for i = idx[n, r, k] (taken modulo 8·128), then dtab[pages[n, p]]
+    += 0.5·out[n, p] over every tile and p, added in int64 fixed point —
+    replaces tools/kernel_probe.py::gather_kernel."""
+    n = _check_blocks(idx=(idx, torch.int32))
+    rows = _check_table(table, pages, n)
+    _check_fixed_point(table, 4 * n, "paged_gather_rmw")
+    out = torch.empty(idx.shape, device=idx.device, dtype=torch.float32)
+    dtab = torch.zeros(rows, _LANES, device=idx.device, dtype=torch.int64)
+    _probe_launch(paged_gather_rmw, idx.device, "jrr_paged_gather_rmw", pages.data_ptr(),
+                  idx.data_ptr(), table.data_ptr(), out.data_ptr(), dtab.data_ptr(), n)
+    return out, dtab.float().mul_(1.0 / _FIXED_SCALE)
+
+
+def take_along_axis(x, index, axis: int):
+    """out = take_along_axis(x, index, axis) on (N, 8, 128) blocks, along
+    lanes (axis 2) or rows (axis 1), indices taken modulo the axis length —
+    replaces tools/kernel_probe.py::taa_kernel."""
+    if axis not in (1, 2):
+        raise ValueError(f"axis must be 1 or 2, got {axis}")
+    n = _check_blocks(x=(x, torch.float32), index=(index, torch.int32))
+    out = torch.empty_like(x)
+    _probe_launch(take_along_axis, x.device, "jrr_take_along_axis", x.data_ptr(),
+                  index.data_ptr(), out.data_ptr(), n, axis)
+    return out
+
+
+def dyn_slice(pages, table):
+    """out[n, p] = table[pages[n, p]] (N, 8, 128), the table resident in
+    shared memory — replaces the A probe (k_dynslice) of tools/kernel_probe2.py."""
+    n = pages.shape[0]
+    rows = _check_table(table, pages, n)
+    if not 0 < n < 2**31:
+        raise ValueError(f"need 0 < N < 2³¹ tiles, got {n}")
+    out = torch.empty(n, _PROBE_ROWS, _LANES, device=pages.device, dtype=torch.float32)
+    _probe_launch(dyn_slice, pages.device, "jrr_dyn_slice", pages.data_ptr(), table.data_ptr(),
+                  out.data_ptr(), n, rows)
+    return out
+
+
+def onehot_gather(x, il):
+    """out[n, r, k] = Σ_l x[n, r, l]·(l == il[n, r, k]) in f32 FMAs (the
+    one-hot product, exact) — replaces the B probe (k_onehot) of
+    tools/kernel_probe2.py."""
+    n = _check_blocks(x=(x, torch.float32), il=(il, torch.int32))
+    out = torch.empty_like(x)
+    _probe_launch(onehot_gather, x.device, "jrr_onehot_gather", x.data_ptr(), il.data_ptr(),
+                  out.data_ptr(), n)
+    return out
+
+
+def select_reduce(x, isub):
+    """out[n, r, k] = Σ_s (s == isub[n, r, k])·x[n, s, k] — replaces the D
+    probe (k_selred) of tools/kernel_probe2.py."""
+    n = _check_blocks(x=(x, torch.float32), isub=(isub, torch.int32))
+    out = torch.empty_like(x)
+    _probe_launch(select_reduce, x.device, "jrr_select_reduce", x.data_ptr(), isub.data_ptr(),
+                  out.data_ptr(), n)
+    return out
+
+
+def rmw_rows(pages, x, rows: int):
+    """(rows, 128): out[pages[n, p]] += x[n, p] over every tile and p, in
+    int64 fixed point — replaces the E probe (k_rmw) of tools/kernel_probe2.py."""
+    n = _check_blocks(x=(x, torch.float32))
+    _check_pages(pages, n, rows)
+    _check_fixed_point(x, _PROBE_ROWS * n, "rmw_rows")
+    out = torch.zeros(rows, _LANES, device=x.device, dtype=torch.int64)
+    _probe_launch(rmw_rows, x.device, "jrr_rmw_rows", pages.data_ptr(), x.data_ptr(),
+                  out.data_ptr(), n)
+    return out.float().mul_(1.0 / _FIXED_SCALE)
+
+
+def elementwise_baseline(x):
+    """2x + 1 — replaces the F probe (k_base) of tools/kernel_probe2.py."""
+    _check_cuda(x.device, x=(x, torch.float32))
+    if x.numel() % 4:
+        raise ValueError("elementwise_baseline takes a multiple of 4 elements")
+    out = torch.empty_like(x)
+    _probe_launch(elementwise_baseline, x.device, "jrr_elementwise", x.data_ptr(), out.data_ptr(),
+                  x.numel())
+    return out
+
+
+def _fma_chain(wrapper, x, reps: int, bf16: bool):
+    _check_cuda(x.device, x=(x, torch.float32))
+    if x.numel() % 2:
+        raise ValueError("the FMA chains take an even number of elements")
+    out = torch.empty_like(x)
+    _probe_launch(wrapper, x.device, "jrr_fma_chain", x.data_ptr(), out.data_ptr(), x.numel(),
+                  reps, int(bf16))
+    return out
+
+
+def fma_chain_f32(x, reps: int):
+    """`reps` steps of acc = fmaf(acc, c1, c2), y = fmaf(y, c2, c1) from
+    acc = y = x, then acc + y — replaces tools/bf16_vpu_probe.py::_kernel
+    in float32."""
+    return _fma_chain(fma_chain_f32, x, reps, False)
+
+
+def fma_chain_bf16(x, reps: int):
+    """`fma_chain_f32` in packed bf16 (`__hfma2`, two elements per
+    instruction; x rounded to bf16 first, acc + y in f32) — the bfloat16
+    case of tools/bf16_vpu_probe.py::_kernel."""
+    return _fma_chain(fma_chain_bf16, x, reps, True)
+
+
+PROBES = (paged_gather_rmw, take_along_axis, dyn_slice, onehot_gather, select_reduce, rmw_rows,
+          elementwise_baseline, fma_chain_f32, fma_chain_bf16)
+for _w in PROBES:
+    _w.launches = 0
+
 # The wrappers whose launches a run can count, in the order they are reported.
-WRAPPERS = (fused_lossgrad, fused_alpha_fwd, fused_alpha_bwd, tiles_alpha_fwd, tiles_alpha_bwd)
+WRAPPERS = (fused_lossgrad, fused_alpha_fwd, fused_alpha_bwd, tiles_alpha_fwd, tiles_alpha_bwd,
+            fused_lossgrad_packed) + PROBES
 
 
 def reset_launches() -> None:

@@ -9,7 +9,8 @@ five-term loss, with fresh Adam state per stage and per coarse-to-fine phase.
 Stage B rebins every `rebin_interval` steps (candidate lists with
 `bin_margin_px` of slack: fused bins, or round-1 `BinState`s under
 `silhouette.backend="pallas"`), marks α-saturated tiles kernel-empty
-(interior skip, fused path only), strides the silhouette term (a Python `if` replaces `lax.cond`) and,
+(interior skip, fused path only) and, with `lane_pack`, packs the bins
+(fused path only), strides the silhouette term (a Python `if` replaces `lax.cond`) and,
 with `coarse_frac > 0`, runs its first steps at image_size/coarse_factor.
 
 Adam is written by hand with optax's formula, elementwise:
@@ -94,8 +95,6 @@ def refine_batch(
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     sil = cfg.silhouette
-    if cfg.use_silhouette and sil.lane_pack:
-        raise NotImplementedError("lane_pack (pack_bins + the packed kernel) is not ported")
     coarse_steps = int(sil.coarse_frac * cfg.stage_b_steps)
     if (
         cfg.use_silhouette
@@ -198,6 +197,9 @@ def refine_batch(
                     bins = sf.compute_fused_bins(verts_now, model, p_now.cam_t, spec)
                     if interior_skip:
                         bins = sf.apply_interior_skip(bins, verts_now, model, p_now.cam_t, spec)
+                    if sil.lane_pack:
+                        # After the skip, so pairs form on the tiles left occupied.
+                        bins = sf.pack_bins(bins, model.num_verts)
                     chunk_stats.append(bins.stats)
                 else:  # round-1 bins carry no capacity counters (jrr_tpu :302-306)
                     bins = sil_lib.compute_bins(verts_now, model.faces, p_now.cam_t, spec)

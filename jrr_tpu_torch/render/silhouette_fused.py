@@ -12,14 +12,17 @@ jrr_tpu/render/silhouette_fused.py, the refinement path's silhouette).
   coverage and the union α per tile; the loss kernel and the α VJP kernel
   also route dL/dcorner back onto the per-frame tables. Invalid slots index a reserved DUMP page
   whose first three lanes form a far-off-screen triangle (zero coverage).
-- The plain versions (`fused_tiles_alpha_plain`, `fused_lossgrad_plain`)
-  compute the same functions with tensor ops and autograd; the kernel
-  wrappers use them for CPU tensors only.
+- Lane packing (`pack_bins`, after the interior skip) pairs sparse tiles so
+  that two of them share one 128-lane candidate row; only the loss+grad
+  path (`fused_lossgrad_packed`) reads the packed fields.
+- The plain versions (`fused_tiles_alpha_plain`, `fused_lossgrad_plain`,
+  `fused_lossgrad_packed_plain`) compute the same functions with tensor ops
+  and autograd; the kernel wrappers use them for CPU tensors only.
 
-The bins contract (`pages`, `idx`, `origin`, the dump page) equals the JAX
-package's exactly. Binning capacity limits are never silent: `BinStats`
-counts span-clipped faces, truncated tiles and page-overflow drops.
-Not ported: lane packing (`pack_bins`).
+The bins contract (`pages`, `idx`, `origin`, the dump page) and the packed
+fields equal the JAX package's exactly. Binning capacity limits are never
+silent: `BinStats` counts span-clipped faces, truncated tiles and
+page-overflow drops.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import torch.nn.functional as F
 
 from jrr_tpu_torch import kernels
 from jrr_tpu_torch.render import camera as camera_lib
+from jrr_tpu_torch.render import coverage
 from jrr_tpu_torch.render import silhouette as sil
 
 _LANES = 128
@@ -78,6 +82,15 @@ class FusedBins(NamedTuple):
     # (B, G²) bool from apply_interior_skip: α≡1 tiles marked kernel-empty.
     sat_tiles: Optional[torch.Tensor] = None
     core_count: Optional[torch.Tensor] = None  # (B, G²) CORE candidate counts
+    # Lane-packed layout (`pack_bins`), read by the loss+grad path only: a
+    # packed pair's PRIMARY entry carries both tiles (64 lanes each), its
+    # BUDDY entry is dump-marked (kernel-empty).
+    p_pages: Optional[torch.Tensor] = None  # (B, G², P̂) pair-union page lists
+    p_idx: Optional[torch.Tensor] = None  # (B, G², 3, K_pad) remapped indices
+    p_origin_b: Optional[torch.Tensor] = None  # (B, G², 2) buddy origin (self when unpacked)
+    p_flags: Optional[torch.Tensor] = None  # (B, G²) i32: 0 normal, 1 primary, 2 buddy
+    p_buddy: Optional[torch.Tensor] = None  # (B, G²) i32 buddy tile id (self when unpacked)
+    p_num_pairs: Optional[torch.Tensor] = None  # (B,) i32 packed pair count
 
 
 def num_pages(num_verts: int) -> int:
@@ -386,6 +399,120 @@ def apply_interior_skip(bins: FusedBins, vertices_smpl, model, cam_t, spec) -> F
 
 
 # ---------------------------------------------------------------------------
+# Lane packing: two sparse tiles share one 128-lane candidate row
+# ---------------------------------------------------------------------------
+
+# Lanes per packed tile: each tile of a pair fills two whole warps of the
+# loss kernel's 128-thread CTA.
+K_HALF = 64
+
+
+def _pack_bins_frames(pages, idx, origin, core_count, *, dump: int, k_half: int):
+    """Lane packing of a few frames (jrr_tpu `_pack_bins_one`, batched).
+    Returns (p_pages, p_idx, p_origin_b, p_flags, p_buddy, num_pairs)."""
+    dev = pages.device
+    b, g2, p_hat = pages.shape
+    k_pad = idx.shape[3]
+    usable = p_hat - 1
+    pg_dim = _round_up(dump + 1, 8)
+    tiles = torch.arange(g2, device=dev).expand(b, g2)
+
+    occupied = pages[:, :, 0] != dump
+    packable = occupied & (core_count <= k_half)
+
+    # Pair packable tiles in tile order (row-major: horizontal neighbours
+    # pair first): rank r pairs with rank r ^ 1.
+    rank = torch.cumsum(packable.long(), dim=1) - 1
+    npack = packable.long().sum(dim=1, keepdim=True)
+    tile_of_rank = torch.sort(torch.where(packable, rank, 2 * g2), dim=1, stable=True).indices
+    buddy_rank = rank ^ 1
+    has_buddy = packable & (buddy_rank < npack) & (buddy_rank >= 0)
+    buddy = torch.where(has_buddy, torch.gather(tile_of_rank, 1, buddy_rank.clamp(0, g2 - 1)), tiles)
+
+    # Pages referenced by each tile's first k_half slots (the half that packs).
+    half = idx[..., :k_half]
+    gpid = torch.gather(pages.long(), 2, (half >> 7).long().reshape(b, g2, -1))
+    real = (half < usable * _LANES).reshape(b, g2, -1)
+    pres = torch.zeros(b, g2, pg_dim, dtype=torch.int32, device=dev)
+    pres = pres.scatter_add_(2, gpid, real.to(torch.int32)) > 0
+
+    union_pres = pres | torch.gather(pres, 1, buddy[..., None].expand(b, g2, pg_dim))
+    union_ok = union_pres.sum(dim=2) <= usable
+    paired = has_buddy & union_ok & torch.gather(union_ok, 1, buddy)
+    odd = rank % 2 == 1
+    primary = paired & ~odd
+    is_buddy_role = paired & odd
+
+    # Pair page list: the distinct union pages in ascending id order,
+    # dump-padded (the score is unique per page, so the order is exact).
+    score = torch.where(union_pres, pg_dim - torch.arange(pg_dim, device=dev), 0)
+    k_top = min(usable, pg_dim)
+    top = torch.topk(score, k_top, dim=2).values
+    union_list = torch.where(top > 0, pg_dim - top, dump)
+    if k_top < usable:
+        union_list = torch.cat([union_list, union_list.new_full((b, g2, usable - k_top), dump)], dim=2)
+    pair_list = torch.where(paired[..., None], union_list, pages[:, :, :usable].long())
+    pair_pages = torch.cat([pair_list, pair_list.new_full((b, g2, 1), dump)], dim=2)
+
+    # Old page slot → new slot in the pair list (identity when unpacked);
+    # the dump slot stays the dump slot.
+    eq = pages[..., None].long() == pair_list[:, :, None, :]  # (b, G², P̂, P̂−1)
+    remap = torch.where(eq.any(dim=3), torch.argmax(eq.to(torch.uint8), dim=3), usable)
+    remap[:, :, p_hat - 1] = usable
+    idx_re = torch.gather(remap, 2, (idx >> 7).long().reshape(b, g2, -1)).reshape(idx.shape)
+    idx_re = idx_re * _LANES + (idx & 127)
+
+    # Primary rows: own first half in lanes [0, k_half), the buddy's in
+    # [k_half, 2·k_half). Buddy rows: the dump pattern (kernel-empty).
+    buddy_idx = torch.gather(idx_re, 1, buddy[:, :, None, None].expand(b, g2, 3, k_pad))
+    packed_idx = torch.cat([idx_re[..., :k_half], buddy_idx[..., :k_half]], dim=3)
+    corner = torch.arange(3, device=dev).reshape(1, 1, 3, 1)
+    dump_idx = (usable * _LANES + corner).expand(b, g2, 3, k_pad)
+    p_idx = torch.where(
+        primary[..., None, None], packed_idx,
+        torch.where(is_buddy_role[..., None, None], dump_idx, idx_re),
+    )
+    p_pages = torch.where(is_buddy_role[..., None], dump, pair_pages)
+    origin_b = torch.gather(origin, 1, buddy[..., None].expand(b, g2, 2))
+    p_origin_b = torch.where(primary[..., None], origin_b, origin)
+    p_flags = torch.where(primary, 1, torch.where(is_buddy_role, 2, 0))
+    p_buddy = torch.where(primary, buddy, tiles)
+    i32 = torch.int32
+    return (p_pages.to(i32).contiguous(), p_idx.to(i32).contiguous(), p_origin_b.contiguous(),
+            p_flags.to(i32).contiguous(), p_buddy.to(i32).contiguous(), primary.sum(dim=1).to(i32))
+
+
+def pack_bins(bins: FusedBins, num_verts: int, k_half: int = K_HALF) -> FusedBins:
+    """Lane-pack a batch's bins (after any interior skip), `_BIN_FRAMES`
+    frames at a time; adds the p_* fields and leaves the unpacked ones as
+    they are (the α paths read those).
+
+    Tiles with at most `k_half` CORE candidates pair up in tile order; a
+    packed tile keeps its first `k_half` candidates (all core ones plus the
+    nearest margin ones), so at bin time the packed loss equals the
+    unpacked one. Pairs whose page-list union exceeds P̂−1 pages stay
+    unpacked: packing itself drops no candidate (jrr_tpu `pack_bins`)."""
+    if bins.core_count is None:
+        raise ValueError("pack_bins needs FusedBins.core_count (re-bin first)")
+    if bins.idx.shape[3] != 2 * k_half:
+        raise ValueError(f"pack_bins needs K_pad == 2·k_half, got {bins.idx.shape[3]} and {k_half}")
+    dump = dump_page_id(num_verts)
+    parts = [
+        _pack_bins_frames(
+            bins.pages[lo:lo + _BIN_FRAMES], bins.idx[lo:lo + _BIN_FRAMES],
+            bins.origin[lo:lo + _BIN_FRAMES], bins.core_count[lo:lo + _BIN_FRAMES],
+            dump=dump, k_half=k_half,
+        )
+        for lo in range(0, bins.pages.shape[0], _BIN_FRAMES)
+    ]
+    p_pages, p_idx, p_origin_b, p_flags, p_buddy, pairs = (
+        torch.cat([p[j] for p in parts]) for j in range(6)
+    )
+    return bins._replace(p_pages=p_pages, p_idx=p_idx, p_origin_b=p_origin_b,
+                         p_flags=p_flags, p_buddy=p_buddy, p_num_pairs=pairs)
+
+
+# ---------------------------------------------------------------------------
 # Plain versions (CPU tests, the on-card reference) — autograd gradients
 # ---------------------------------------------------------------------------
 
@@ -425,6 +552,43 @@ def fused_lossgrad_plain(tx, ty, pages, idx, origin, mask_tiles, tile, inv_sigma
         ty_ = ty.detach().requires_grad_(True)
         tiles = fused_tiles_alpha_plain(tx_, ty_, pages, idx, origin, tile, inv_sigma, blur_px2)
         err = torch.sum((tiles - mask_tiles) ** 2, dim=(-1, -2))
+        dtx, dty = torch.autograd.grad(err.sum(), (tx_, ty_))
+    return err.detach(), dtx, dty
+
+
+def fused_lossgrad_packed_plain(tx, ty, pages, idx, origin, origin_b, flags, buddy, mask_tiles,
+                                tile, inv_sigma, blur_px2, k_half=K_HALF):
+    """(err (B,), dtx, dty) of the lane-packed layout (jrr_tpu
+    `_fused_lossgrad_packed_kernel` :1192-1240 with the wrapper's rule for
+    empty rows), gradients by autograd. Lanes [0, k_half) lie at `origin`,
+    the rest at `origin_b`. A primary entry (flags 1) holds two tiles: each
+    half's α = 1 − Π over its own lanes, held against the entry's mask and
+    its buddy's; a normal entry's α is 1 − Π over all lanes; buddy entries
+    (flags 2) add nothing, their primary counted them."""
+    b, g2 = pages.shape[:2]
+    t2 = tile * tile
+    with torch.enable_grad():
+        tx_ = tx.detach().requires_grad_(True)
+        ty_ = ty.detach().requires_grad_(True)
+        tri = _gather_tri(tx_, ty_, pages, idx)  # (B, G², 6, K)
+        lane_b = torch.arange(idx.shape[3], device=tx.device) >= k_half
+        org = torch.where(lane_b[:, None], origin_b[:, :, None, :], origin[:, :, None, :])
+        i = torch.arange(t2, device=tx.device)
+        px_x = org[:, :, None, :, 0] + (i % tile).to(tx.dtype)[:, None]  # (B, G², T², K)
+        px_y = org[:, :, None, :, 1] + (i // tile).to(tx.dtype)[:, None]
+        rows = tuple(tri[:, :, j, None, :] for j in range(6))
+        p = coverage.coverage_rows(px_x, px_y, rows, inv_sigma=inv_sigma, blur_px2=blur_px2)[0]
+        logs = torch.log(torch.clamp_min(1.0 - p, 1e-30))
+        total_a = torch.exp(torch.sum(torch.where(lane_b, 0.0, logs), dim=-1))  # (B, G², T²)
+        total_b = torch.exp(torch.sum(torch.where(lane_b, logs, 0.0), dim=-1))
+        primary = flags == 1
+        alpha_a = 1.0 - torch.where(primary[..., None], total_a, total_a * total_b)
+        alpha_b = 1.0 - total_b
+        mask_b = torch.gather(mask_tiles, 1, buddy.long()[..., None].expand(b, g2, t2))
+        err_a = torch.sum((alpha_a - mask_tiles) ** 2, dim=-1)
+        err_b = torch.sum((alpha_b - mask_b) ** 2, dim=-1)
+        err_entry = err_a + torch.where(primary, err_b, 0.0)
+        err = torch.sum(torch.where(flags == 2, 0.0, err_entry), dim=1)
         dtx, dty = torch.autograd.grad(err.sum(), (tx_, ty_))
     return err.detach(), dtx, dty
 
@@ -503,6 +667,56 @@ def fused_sq_err(tx, ty, pages, idx, origin, mask_tiles, tile, inv_sigma, blur_p
     )
 
 
+def fused_lossgrad_packed(tx, ty, pages, idx, origin, origin_b, flags, buddy, mask_tiles, tile,
+                          inv_sigma, blur_px2, dump_page):
+    """(err (B,), dtx, dty) of the lane-packed layout; CUDA tensors launch
+    `kernels.fused_lossgrad_packed`. Kernel-empty rows add their Σmask²
+    here, except buddy rows (flags 2), whose error their primary already
+    counted (jrr_tpu :1301-1308)."""
+    if tx.device.type == "cpu":
+        kernels.check_mask_range(mask_tiles)
+        return fused_lossgrad_packed_plain(tx, ty, pages, idx, origin, origin_b, flags, buddy,
+                                           mask_tiles, tile, inv_sigma, blur_px2)
+    err_tile, dtx, dty = kernels.fused_lossgrad_packed(
+        tx, ty, pages, idx, origin, origin_b, flags, buddy, mask_tiles, tile, inv_sigma,
+        blur_px2, dump_page,
+    )
+    empty = (pages[:, :, 0] == dump_page) & (flags != 2)
+    err_empty = torch.where(empty, torch.sum(mask_tiles * mask_tiles, dim=-1), 0.0)
+    return err_tile.sum(dim=1) + err_empty.sum(dim=1), dtx, dty
+
+
+class _FusedSqErrPacked(torch.autograd.Function):
+    """`_FusedSqErr` on the lane-packed layout (jrr_tpu `fused_sq_err_packed`
+    :1311-1367): the forward computes the error and the table gradients in
+    one pass, the backward scales them by the cotangent; the mask's
+    cotangent is zero."""
+
+    @staticmethod
+    def forward(ctx, tx, ty, pages, idx, origin, origin_b, flags, buddy, mask_tiles, tile,
+                inv_sigma, blur_px2, dump_page):
+        err, dtx, dty = fused_lossgrad_packed(
+            tx, ty, pages, idx, origin, origin_b, flags, buddy, mask_tiles, tile, inv_sigma,
+            blur_px2, dump_page,
+        )
+        ctx.save_for_backward(dtx, dty)
+        return err
+
+    @staticmethod
+    def backward(ctx, g):
+        dtx, dty = ctx.saved_tensors
+        scale = g[:, None, None]
+        return (scale * dtx, scale * dty) + (None,) * 11
+
+
+def fused_sq_err_packed(tx, ty, bins: FusedBins, mask_tiles, tile, inv_sigma, blur_px2, dump_page):
+    """Per-frame Σ(α − mask)² through the packed fields of `bins`."""
+    return _FusedSqErrPacked.apply(
+        tx, ty, bins.p_pages, bins.p_idx, bins.origin, bins.p_origin_b, bins.p_flags,
+        bins.p_buddy, mask_tiles, tile, inv_sigma, blur_px2, dump_page,
+    )
+
+
 # ---------------------------------------------------------------------------
 # High-level entry points
 # ---------------------------------------------------------------------------
@@ -526,13 +740,17 @@ def _prep_kernel_inputs(vertices_smpl, model, cam_t, spec, bins):
 def silhouette_sq_err_fused(vertices_smpl, model, cam_t, mask_tiles, spec,
                             bins: Optional[FusedBins] = None) -> torch.Tensor:
     """Per-frame mean squared silhouette error (B,), one kernel pass per
-    value-and-gradient. The mask is supervision: its gradient is stopped."""
+    value-and-gradient, through the lane-packed layout when `bins` carries
+    one (`pack_bins`). The mask is supervision: its gradient is stopped.
+    Unlike jrr_tpu off the TPU, CPU tensors keep the packed layout too
+    (its plain version)."""
     bins, tx, ty, inv_sigma, blur_px2 = _prep_kernel_inputs(vertices_smpl, model, cam_t, spec, bins)
     mask_tiles = mask_tiles.detach()
-    err = fused_sq_err(
-        tx, ty, bins.pages, bins.idx, bins.origin, mask_tiles, spec.tile_size,
-        inv_sigma, blur_px2, dump_page_id(model.num_verts),
-    )
+    consts = (spec.tile_size, inv_sigma, blur_px2, dump_page_id(model.num_verts))
+    if bins.p_pages is not None:
+        err = fused_sq_err_packed(tx, ty, bins, mask_tiles, *consts)
+    else:
+        err = fused_sq_err(tx, ty, bins.pages, bins.idx, bins.origin, mask_tiles, *consts)
     if bins.sat_tiles is not None:
         # Interior-skipped α≡1 tiles read as kernel-empty (α≡0) and so
         # contributed Σmask² instead of Σ(1−mask)²: add Σ(1 − 2m). Constant

@@ -39,6 +39,12 @@ def test_no_jax_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def test_the_checks_cover_the_probes():
+    names = {str(p.relative_to(ROOT)) for p in _port_modules()}
+    for probe in ("__init__", "kernel_probe", "kernel_probe2", "bf16_probe"):
+        assert f"jrr_tpu_torch/probes/{probe}.py" in names
+
+
 def test_importing_every_module_loads_no_jax():
     mods = [
         ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")

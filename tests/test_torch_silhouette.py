@@ -268,9 +268,30 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     from jrr_tpu_torch import kernels
 
     z = torch.zeros(1, 8, 128)
+    pages = torch.zeros(1, 1, 16, dtype=torch.int32)
+    idx = torch.zeros(1, 1, 3, 128, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
-        kernels.fused_alpha_fwd(
-            z, z, torch.zeros(1, 1, 16, dtype=torch.int32),
-            torch.zeros(1, 1, 3, 128, dtype=torch.int32), torch.zeros(1, 1, 2), 8, 1.0, 0.0, 1,
+        kernels.fused_alpha_fwd(z, z, pages, idx, torch.zeros(1, 1, 2), 8, 1.0, 0.0, 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.fused_lossgrad_packed(
+            z, z, pages, idx, torch.zeros(1, 1, 2), torch.zeros(1, 1, 2),
+            torch.zeros(1, 1, dtype=torch.int32), torch.zeros(1, 1, dtype=torch.int32),
+            torch.zeros(1, 1, 64), 8, 1.0, 0.0, 1,
         )
-    assert kernels.fused_alpha_fwd.launches == 0
+    i8 = torch.zeros(1, 8, dtype=torch.int32)
+    block = torch.zeros(1, 8, 128, dtype=torch.int32)
+    table = torch.zeros(56, 128)
+    for call in (
+        lambda: kernels.paged_gather_rmw(i8, block, table),
+        lambda: kernels.take_along_axis(z, block, 2),
+        lambda: kernels.dyn_slice(i8, table),
+        lambda: kernels.onehot_gather(z, block),
+        lambda: kernels.select_reduce(z, block),
+        lambda: kernels.rmw_rows(i8, z, 56),
+        lambda: kernels.elementwise_baseline(z),
+        lambda: kernels.fma_chain_f32(z, 2),
+        lambda: kernels.fma_chain_bf16(z, 2),
+    ):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+    assert all(w.launches == 0 for w in kernels.WRAPPERS)
