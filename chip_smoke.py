@@ -9,7 +9,11 @@
    and times both: the fused kernels on the fused bins, the round-1 tile
    kernels on the round-1 bins, and the lane-packed loss kernel on the
    fused bins after `pack_bins` (also against the unpacked kernel and
-   against its own repeat);
+   against its own repeat); the loss kernel against its own repeat too, and
+   its time over the α VJP kernel's on the same bins (`lossgrad_over_bwd`:
+   the near-pair design against the all-pairs one). Bounds count a coverage
+   per (pixel, lane) pair in the face's pixel box and the box test per
+   other pair (`bound_ms`), beside a coverage per pair (`bound_all_pairs_ms`);
 3. drives the main path once: `refine_batch` at batch 256, 1000 + 100
    steps, shipped defaults, live discriminators (one warm-up, then three
    timed runs, the median reported), with every kernel's launch count set to
@@ -38,7 +42,8 @@
    kernel refinements that must agree bit for bit;
 10. runs the primitive probes (jrr_tpu_torch/probes/): each probe kernel
    against its plain version at the probe tools' shapes, timed beside one
-   PyTorch call for the same function;
+   PyTorch call for the same function (the RMW probe's int64 sums equal its
+   fixed-point plain version's exactly);
 11. prints the kernels line, the card's name and power limit, and the
    contract line `{"ok": true, "device": {...}}` last.
 
@@ -73,6 +78,13 @@ OPS_COVERAGE = 76
 # p ∈ {0, 1} test 2, dL/dp → dL/dd²min 9, exact-argmin edge selection and
 # split 8, the selected edge's four corner terms 12.
 OPS_GRADIENT = 31
+# Per pair outside its triangle's pixel box (coverage.cuh, pixel_box): the
+# box tests each of a tile's T rows and T columns once per lane (two
+# differences, two compares, an and, a bit set: ~8 ops each), 16T ops over
+# T² pairs, 2 per pair at tile 8 (4 at tile 4). Pairs inside the box (the
+# near pairs, `coverage.near_box`) cost a coverage each; the per-lane box
+# set-up (~40 ops) is left out.
+OPS_BOX = 2
 
 ALPHA_ATOL = 1e-5
 ERR_RTOL = 1e-5
@@ -179,9 +191,11 @@ def _empty_tiles(x):
     return x
 
 
-def _active_pairs(tri, origin, tile, inv_sigma, blur_px2, lane_ok=None):
-    """(pixel, lane) pairs with 0 < p < 1 of tiles tri (N, 6, K), origin
-    (N, 2), counting only lanes where `lane_ok` (N, K) is set."""
+def _near_and_active_pairs(tri, origin, tile, inv_sigma, blur_px2, lane_ok):
+    """(pixel, lane) pairs of tiles tri (N, 6, K), origin (N, 2): those in
+    their triangle's pixel box (`coverage.near_box`, the loss kernel's own
+    test) and those with 0 < p < 1, counting only lanes where `lane_ok`
+    (N, K) is set."""
     import torch
 
     from jrr_tpu_torch.render import coverage
@@ -191,30 +205,45 @@ def _active_pairs(tri, origin, tile, inv_sigma, blur_px2, lane_ok=None):
     px_y = origin[:, 1:2, None] + (i // tile).float()[None, :, None]
     rows = tuple(tri[:, j, None, :] for j in range(6))
     p = coverage.coverage_rows(px_x, px_y, rows, inv_sigma=inv_sigma, blur_px2=blur_px2)[0]
-    active = (p > 0) & (p < 1)
-    if lane_ok is not None:
-        active &= lane_ok[:, None, :]
-    return int(active.sum())
+    active = (p > 0) & (p < 1) & lane_ok[:, None, :]
+    near = coverage.near_box(px_x, px_y, rows, blur_px2=blur_px2) & lane_ok[:, None, :]
+    return int(near.sum()), int(active.sum())
+
+
+def _ops(pairs, near, active, gradient):
+    """Operations these inputs need of a coverage kernel: a coverage per
+    near pair, the box test per other pair, and for a gradient kernel the
+    recomputed coverage and the gradient per pair with 0 < p < 1."""
+    ops = near * OPS_COVERAGE + (pairs - near) * OPS_BOX
+    return ops + (active * (OPS_COVERAGE + OPS_GRADIENT) if gradient else 0)
+
+
+def _ops_all_pairs(pairs, active, gradient):
+    """The bound's operations before the recount: a coverage per pair."""
+    return pairs * OPS_COVERAGE + (active * (OPS_COVERAGE + OPS_GRADIENT) if gradient else 0)
 
 
 def _pair_counts(x):
     """(pixel, candidate) pairs these bins need: (pairs of a real candidate
-    face, those with 0 < p < 1, occupied tiles). A lane is a real candidate
-    when its corners do not index page slot P̂−1: binning points the lanes
-    past a tile's face count, the pad from K to 128 and the faces dropped by
-    page overflow there, at the dump triangle (p ≡ 0, no work needed)."""
+    face, those in the face's pixel box, those with 0 < p < 1, occupied
+    tiles). A lane is a real candidate when its corners do not index page
+    slot P̂−1: binning points the lanes past a tile's face count, the pad
+    from K to 128 and the faces dropped by page overflow there, at the dump
+    triangle (p ≡ 0, no work needed)."""
     from jrr_tpu_torch.render import silhouette_fused as sf
 
     occupied = x["pages"][:, :, 0] != x["dump"]
     real = (x["idx"][:, :, 0, :] >> 7) != x["pages"].shape[2] - 1
     pairs = int((real & occupied[..., None]).sum()) * x["tile"] ** 2
-    active = 0
+    near = active = 0
     for lo in range(0, x["tx"].shape[0], PLAIN_FRAMES):
         sl = slice(lo, lo + PLAIN_FRAMES)
-        tri = sf._gather_tri(x["tx"][sl], x["ty"][sl], x["pages"][sl], x["idx"][sl])[occupied[sl]]
-        active += _active_pairs(tri, x["origin"][sl][occupied[sl]], x["tile"], x["inv_sigma"],
-                                x["blur_px2"])
-    return pairs, active, int(occupied.sum())
+        occ = occupied[sl]
+        tri = sf._gather_tri(x["tx"][sl], x["ty"][sl], x["pages"][sl], x["idx"][sl])[occ]
+        n, a = _near_and_active_pairs(tri, x["origin"][sl][occ], x["tile"], x["inv_sigma"],
+                                      x["blur_px2"], real[sl][occ])
+        near, active = near + n, active + a
+    return pairs, near, active, int(occupied.sum())
 
 
 def _max_bound(byte_count, ops):
@@ -304,8 +333,11 @@ def check_kernels(problem):
         _check(a_err <= ALPHA_ATOL, f"{geometry}: fused_alpha_fwd max|Δα| {a_err} > {ALPHA_ATOL}")
 
         err, dtx, dty = sf.fused_lossgrad(*bins, x["mask"], *consts, x["dump"])
+        again = sf.fused_lossgrad(*bins, x["mask"], *consts, x["dump"])
         err_p, dtx_p, dty_p = _chunked(sf.fused_lossgrad_plain, bins + (x["mask"],), consts)
         torch.cuda.synchronize()
+        _check(all(torch.equal(a, b) for a, b in zip((err, dtx, dty), again)),
+               f"{geometry}: two fused_lossgrad launches differ")
         e_viol = _max_rel_violation(err, err_p, 1e-30, ERR_RTOL)
         _check(e_viol <= 1.0, f"{geometry}: fused_lossgrad err beyond rtol {ERR_RTOL} ({e_viol})")
         g_viol, g_err, g_scale = _grad_check((dtx, dty), (dtx_p, dty_p))
@@ -325,8 +357,9 @@ def check_kernels(problem):
             bwd_max_abs_err=b_err, bwd_scale=b_scale, bwd_tolerance_use=b_viol,
         )
         if geometry != "empty":
-            pairs, active, occ = _pair_counts(x)
-            row.update(occupied_tiles=occ, pairs=pairs, active_pairs=active)
+            pairs, near, active, occ = _pair_counts(x)
+            row.update(occupied_tiles=occ, pairs=pairs, near_pairs=near, active_pairs=active,
+                       near_share=near / pairs)
             row["fwd_ms"] = _time_ms(lambda: kernels.fused_alpha_fwd(*bins, *consts, x["dump"]), 20)
             row["lossgrad_ms"] = _time_ms(
                 lambda: kernels.fused_lossgrad(*bins, x["mask"], *consts, x["dump"]), 20
@@ -341,33 +374,39 @@ def check_kernels(problem):
             row["bwd_plain_ms"] = _time_ms(
                 lambda: _chunked(_fused_alpha_vjp_plain, bins + (g,), consts), 1
             )
-            grad_ops = pairs * OPS_COVERAGE + active * (OPS_COVERAGE + OPS_GRADIENT)
-            row["fwd_bound_ms"], row["fwd_bound_by"] = _bound_ms(x, pairs * OPS_COVERAGE, False)
+            row["lossgrad_over_bwd"] = row["lossgrad_ms"] / row["bwd_ms"]
+            fwd_ops, grad_ops = _ops(pairs, near, active, False), _ops(pairs, near, active, True)
+            row["fwd_bound_ms"], row["fwd_bound_by"] = _bound_ms(x, fwd_ops, False)
             row["lossgrad_bound_ms"], row["lossgrad_bound_by"] = _bound_ms(x, grad_ops, True)
             row["bwd_bound_ms"], row["bwd_bound_by"] = _bound_ms(x, grad_ops, True, err_out=False)
+            fwd_all, grad_all = _ops_all_pairs(pairs, active, False), _ops_all_pairs(pairs, active, True)
+            row["fwd_bound_all_pairs_ms"] = _bound_ms(x, fwd_all, False)[0]
+            row["lossgrad_bound_all_pairs_ms"] = _bound_ms(x, grad_all, True)[0]
+            row["bwd_bound_all_pairs_ms"] = _bound_ms(x, grad_all, True, err_out=False)[0]
         report[geometry] = row
     return report
 
 
 def _packed_pair_counts(x, packed):
     """`_pair_counts` of the lane-packed layout: (pairs of a real candidate
-    lane in an occupied row, those with 0 < p < 1 with each lane at its own
-    half's origin, occupied rows)."""
+    lane in an occupied row, those in the face's pixel box and those with
+    0 < p < 1, each lane at its own half's origin, occupied rows)."""
     from jrr_tpu_torch.render import silhouette_fused as sf
 
     half = sf.K_HALF
     occupied = packed.p_pages[:, :, 0] != x["dump"]
     real = (packed.p_idx[:, :, 0, :] >> 7) != packed.p_pages.shape[2] - 1
     pairs = int((real & occupied[..., None]).sum()) * x["tile"] ** 2
-    active = 0
+    near = active = 0
     for lo in range(0, x["tx"].shape[0], PLAIN_FRAMES):
         sl = slice(lo, lo + PLAIN_FRAMES)
         occ = occupied[sl]
         tri = sf._gather_tri(x["tx"][sl], x["ty"][sl], packed.p_pages[sl], packed.p_idx[sl])[occ]
         for lanes, origin in ((slice(0, half), x["origin"]), (slice(half, None), packed.p_origin_b)):
-            active += _active_pairs(tri[..., lanes], origin[sl][occ], x["tile"], x["inv_sigma"],
-                                    x["blur_px2"])
-    return pairs, active, int(occupied.sum())
+            n, a = _near_and_active_pairs(tri[..., lanes], origin[sl][occ], x["tile"],
+                                          x["inv_sigma"], x["blur_px2"], real[sl][occ][..., lanes])
+            near, active = near + n, active + a
+    return pairs, near, active, int(occupied.sum())
 
 
 def _packed_bound_ms(x, packed, ops):
@@ -436,10 +475,10 @@ def check_packed_kernel(problem):
                              int(packed.p_num_pairs.max())],
         )
         if geometry != "empty":
-            pairs, active, rows = _packed_pair_counts(x, packed)
-            u_pairs, u_active, occ = _pair_counts(x)
-            row.update(occupied_tiles=occ, occupied_rows=rows, pairs=pairs, active_pairs=active,
-                       unpacked_pairs=u_pairs, unpacked_active_pairs=u_active)
+            pairs, near, active, rows = _packed_pair_counts(x, packed)
+            u_pairs, _, u_active, occ = _pair_counts(x)
+            row.update(occupied_tiles=occ, occupied_rows=rows, pairs=pairs, near_pairs=near,
+                       active_pairs=active, unpacked_pairs=u_pairs, unpacked_active_pairs=u_active)
             row["ms"] = _time_ms(lambda: kernels.fused_lossgrad_packed(*args, *consts, x["dump"]), 20)
             row["unpacked_ms"] = _time_ms(lambda: kernels.fused_lossgrad(*unpacked_args, *consts, x["dump"]), 20)
             row["plain_ms"] = _time_ms(lambda: _chunked(sf.fused_lossgrad_packed_plain, args, consts), 1)
@@ -448,8 +487,8 @@ def check_packed_kernel(problem):
                 f"profile_pack_{geometry}.txt", row["pack_ms"] / 1e3,
                 lambda: sf.pack_bins(x["bins"], x["num_verts"]),
             )["device_busy_s"]
-            ops = pairs * OPS_COVERAGE + active * (OPS_COVERAGE + OPS_GRADIENT)
-            row["bound_ms"], row["bound_by"] = _packed_bound_ms(x, packed, ops)
+            row["bound_ms"], row["bound_by"] = _packed_bound_ms(x, packed, _ops(pairs, near, active, True))
+            row["bound_all_pairs_ms"] = _packed_bound_ms(x, packed, _ops_all_pairs(pairs, active, True))[0]
         report[geometry] = row
     return report
 
@@ -490,18 +529,21 @@ def _tiles_alpha_vjp_plain(origin, tri, valid, g, tile, inv_sigma, blur_px2):
 
 
 def _tile_pair_counts(t):
-    """(pixel, valid lane) pairs of these tiles, those with 0 < p < 1, the
-    occupied tiles (any valid lane) and the valid lanes."""
+    """(pixel, valid lane) pairs of these tiles, those in the face's pixel
+    box, those with 0 < p < 1, the occupied tiles (any valid lane) and the
+    valid lanes."""
     valid = t["valid"][:, 0, :] > 0
     occupied = valid.any(dim=-1)
     lanes = int(valid.sum())
-    active = 0
+    near = active = 0
     step = PLAIN_FRAMES * t["tiles_per_frame"]
     for lo in range(0, valid.shape[0], step):
         occ = occupied[lo:lo + step]
-        active += _active_pairs(t["tri"][lo:lo + step][occ], t["origin"][lo:lo + step][occ],
-                                t["tile"], t["inv_sigma"], t["blur_px2"], valid[lo:lo + step][occ])
-    return lanes * t["tile"] ** 2, active, int(occupied.sum()), lanes
+        n, a = _near_and_active_pairs(t["tri"][lo:lo + step][occ], t["origin"][lo:lo + step][occ],
+                                      t["tile"], t["inv_sigma"], t["blur_px2"],
+                                      valid[lo:lo + step][occ])
+        near, active = near + n, active + a
+    return lanes * t["tile"] ** 2, near, active, int(occupied.sum()), lanes
 
 
 def _tile_bound_ms(t, ops, backward, occ, lanes):
@@ -552,9 +594,9 @@ def check_tile_kernels(problem):
         row = dict(alpha_max_abs_err=a_err, bwd_max_abs_err=err, bwd_scale=scale,
                    bwd_tolerance_use=viol)
         if geometry != "empty":
-            pairs, active, occ, lanes = _tile_pair_counts(t)
+            pairs, near, active, occ, lanes = _tile_pair_counts(t)
             row.update(tiles=t["origin"].shape[0], occupied_tiles=occ, valid_lanes=lanes,
-                       pairs=pairs, active_pairs=active)
+                       pairs=pairs, near_pairs=near, active_pairs=active)
             row["fwd_ms"] = _time_ms(lambda: kernels.tiles_alpha_fwd(*args, *consts), 20)
             row["bwd_ms"] = _time_ms(lambda: kernels.tiles_alpha_bwd(*args, g, *consts), 20)
             row["fwd_plain_ms"] = _time_ms(lambda: _chunked(sp.tiles_alpha_plain, args, consts, per), 1)
@@ -562,11 +604,15 @@ def check_tile_kernels(problem):
                 lambda: _chunked(_tiles_alpha_vjp_plain, args + (g,), consts, per), 1
             )
             row["fwd_bound_ms"], row["fwd_bound_by"] = _tile_bound_ms(
-                t, pairs * OPS_COVERAGE, False, occ, lanes
+                t, _ops(pairs, near, active, False), False, occ, lanes
             )
             row["bwd_bound_ms"], row["bwd_bound_by"] = _tile_bound_ms(
-                t, pairs * OPS_COVERAGE + active * (OPS_COVERAGE + OPS_GRADIENT), True, occ, lanes
+                t, _ops(pairs, near, active, True), True, occ, lanes
             )
+            row["fwd_bound_all_pairs_ms"] = _tile_bound_ms(
+                t, _ops_all_pairs(pairs, active, False), False, occ, lanes)[0]
+            row["bwd_bound_all_pairs_ms"] = _tile_bound_ms(
+                t, _ops_all_pairs(pairs, active, True), True, occ, lanes)[0]
         report[geometry] = row
     return report
 
@@ -992,6 +1038,9 @@ def run_probes():
     from jrr_tpu_torch.probes import bf16_probe, kernel_probe, kernel_probe2
 
     records = kernel_probe.measure() + kernel_probe2.measure() + bf16_probe.measure()
+    rmw = [r for r in records if r.get("name") == "E_rmw_dynamic_rows"]
+    _check(len(rmw) == 1 and rmw[0]["exact_vs_fixed_plain"],
+           "E_rmw_dynamic_rows: int64 sums not held equal to rmw_rows_fixed_plain's")
     return [r for r in records if "name" in r], [r for r in records if "name" not in r]
 
 
@@ -1233,15 +1282,23 @@ def main() -> int:
             "max_abs_err": max(checks[g][err_key] for g in checks),
             "ms": fine[f"{key}_ms"], "plain_ms": fine[f"{key}_plain_ms"],
             "bound_ms": fine[f"{key}_bound_ms"], "bound_by": fine[f"{key}_bound_by"],
+            "bound_all_pairs_ms": fine[f"{key}_bound_all_pairs_ms"],
             "library_ms": None, "tolerance": tolerance,
             "coarse_ms": coarse[f"{key}_ms"], "coarse_plain_ms": coarse[f"{key}_plain_ms"],
             "coarse_bound_ms": coarse[f"{key}_bound_ms"],
+            "coarse_bound_all_pairs_ms": coarse[f"{key}_bound_all_pairs_ms"],
         }
 
     grad_tol = f"atol {GRAD_ATOL_REL}*max|plain| + rtol {GRAD_RTOL}"
+    lossgrad = entry("fused_lossgrad", "silhouette_fused.cu", "jrr_tpu/render/silhouette_fused.py:994",
+                     launches["fused_lossgrad"], checks, "lossgrad",
+                     f"err rtol {ERR_RTOL}; grads {grad_tol}; two launches bit for bit")
+    lossgrad.update(lossgrad_over_bwd=checks["fine"]["lossgrad_over_bwd"],
+                    coarse_lossgrad_over_bwd=checks["coarse"]["lossgrad_over_bwd"],
+                    near_share=checks["fine"]["near_share"],
+                    coarse_near_share=checks["coarse"]["near_share"])
     _emit({"kernels": [
-        entry("fused_lossgrad", "silhouette_fused.cu", "jrr_tpu/render/silhouette_fused.py:994",
-              launches["fused_lossgrad"], checks, "lossgrad", f"err rtol {ERR_RTOL}; grads {grad_tol}"),
+        lossgrad,
         entry("fused_alpha_fwd", "silhouette_fused.cu", "jrr_tpu/render/silhouette_fused.py:719",
               launches["fused_alpha_fwd"], checks, "fwd", f"atol {ALPHA_ATOL}"),
         entry("fused_alpha_bwd", "silhouette_fused.cu", "jrr_tpu/render/silhouette_fused.py:814",
@@ -1258,14 +1315,16 @@ def main() -> int:
             "max_abs_err": max(packed_checks[g]["grad_max_abs_err"] for g in packed_checks),
             "ms": packed_checks["fine"]["ms"], "plain_ms": packed_checks["fine"]["plain_ms"],
             "bound_ms": packed_checks["fine"]["bound_ms"], "bound_by": packed_checks["fine"]["bound_by"],
+            "bound_all_pairs_ms": packed_checks["fine"]["bound_all_pairs_ms"],
             "library_ms": None, "unpacked_ms": packed_checks["fine"]["unpacked_ms"],
             "tolerance": f"err rtol {ERR_RTOL}; grads {grad_tol}; vs unpacked at bin time: "
                          "err rtol 2e-5, grads atol 5e-5*max; repeat bit for bit",
             "coarse_ms": packed_checks["coarse"]["ms"],
             "coarse_unpacked_ms": packed_checks["coarse"]["unpacked_ms"],
             "coarse_bound_ms": packed_checks["coarse"]["bound_ms"],
+            "coarse_bound_all_pairs_ms": packed_checks["coarse"]["bound_all_pairs_ms"],
         },
-    ] + [dict(r, launches=0, note="probe") for r in probe_records]})
+    ] + [dict(r, launches=0, note="probe", bound_all_pairs_ms=r["bound_ms"]) for r in probe_records]})
     print(_card(), flush=True)
     _emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -6,7 +6,8 @@ imports torch, numpy and the standard library only — never JAX or anything
 under `jrr_tpu` — and keeps its own copies of what it needs.
 
 Entry points that create state (`models.smpl.synthetic_smpl_model`,
-`problem.synthetic_problem`, the discriminator constructors) run on "cuda"
+`problem.synthetic_problem`, the discriminator constructors,
+`ops.rotations.random_rotmat`, the probes' input builders) run on "cuda"
 unless the caller passes `device="cpu"`; without a card they raise instead of
 moving to the CPU.
 """

@@ -8,16 +8,20 @@
 // Shapes: N tiles of an (8, 128) block each (the TPU's (sublane, lane)
 // tile; here 8 rows of 128 threads), P = 8 page ids per tile, a table of
 // at most 64 rows of 128 floats. Every kernel but the elementwise and FMA
-// chains is one CTA of 128 threads per tile, thread k owning column k.
-// Sums across CTAs (the read-modify-write probes) add int64 fixed point
-// (value * 2^32) with atomics, the primitive the loss kernels' gradient
-// tables rely on: integer adds commute, so the sums repeat bit for bit.
+// chains and the RMW at dynamic rows is one CTA of 128 threads per tile,
+// thread k owning column k. Sums across CTAs (the read-modify-write
+// probes) add int64 fixed point (value * 2^32), the form the loss kernels'
+// gradient tables take: with global atomics in the gather + RMW probe,
+// through per-CTA resident tables in the RMW probe. Integer adds commute,
+// so the sums repeat bit for bit.
 // Indices are taken modulo their axis length (row index & 7, lane & 127),
 // so no input reads outside a shared-memory block; page ids are checked by
 // the wrappers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cassert>
 
 namespace {
 
@@ -152,15 +156,106 @@ select_reduce_kernel(const float* __restrict__ x, const int* __restrict__ isub,
 
 // Replaces the E probe of tools/kernel_probe2.py (k_rmw :170): read-modify-
 // write at dynamic rows, out[pages[n, p]] += x[n, p] over every tile, in
-// int64 fixed point. Bound: bytes (x read once).
-__global__ void __launch_bounds__(kLanes)
+// int64 fixed point (each term llrintf(x * 2^32)). Bound: bytes (x read
+// once: 25.7 MB at the probe's 6272 tiles). The Pallas kernel kept its
+// output block resident in VMEM across the whole grid; the first design
+// here added every term with a global int64 atomic (6.4 M atomics onto 7168
+// addresses) and took twice as long as index_add_. Design: a resident
+// accumulator per CTA. A persistent grid of one CTA per SM; 384 threads in
+// three lane groups, thread g * 128 + k owning lane k of group g's private
+// int64 copy of the table in shared memory (rows * 1 KB each: 168 KB at 56
+// rows, 192 KB at 64, so dynamic shared memory). Group g walks every third
+// tile of the CTA's share, kRmwUnroll tiles at a time with all their loads
+// issued first. The row index is uniform across the group and each thread
+// adds into its own lane: a plain read-add-write, no bank conflict, no
+// atomic. The loads in flight bound this kernel: more groups per CTA keep
+// more of them in flight than a longer unroll or more CTAs of one group
+// each did, and four copies do not fit at 64 rows. The CTA adds its
+// copies and writes one partial table; rmw_rows_reduce_kernel sums the
+// partials per entry. No atomics at all: one flush atomic per entry and CTA would still
+// be 132 * 7168 = 946 k int64 atomics on 7168 addresses, where the partials
+// cost 7.5 MB of L2 traffic. Integer sums do not depend on their order, so
+// the result is the same bit for bit on every run, and equals the atomic
+// version's. The kernel checks its inputs itself (device asserts: page ids
+// in [0, rows), |x| < x_limit so no sum overflows): the same checks as
+// separate PyTorch reductions read x twice more and took longer than the
+// kernel.
+constexpr int kRmwGroups = 3;
+constexpr int kRmwUnroll = 4;
+
+__global__ void __launch_bounds__(kLanes * kRmwGroups)
 rmw_rows_kernel(const int* __restrict__ pages, const float* __restrict__ x,
-                unsigned long long* __restrict__ out) {
-  const long long n = blockIdx.x;
-  const int k = threadIdx.x;
+                long long* __restrict__ partial, int n_tiles, int table_rows, float x_limit) {
+  extern __shared__ long long s_acc[];  // [kRmwGroups][table_rows][kLanes]
+  const int k = threadIdx.x & (kLanes - 1), g = threadIdx.x / kLanes;
+  const int entries = table_rows * kLanes;
+  for (int e = threadIdx.x; e < kRmwGroups * entries; e += blockDim.x) s_acc[e] = 0;
+  __syncthreads();
+  long long* acc = s_acc + g * entries + k;
+  // Group g takes tiles blockIdx.x + gridDim.x * (g + kRmwGroups * j), j = 0, 1, ...
+  const long long step = (long long)gridDim.x * kRmwGroups;
+  for (long long n0 = blockIdx.x + (long long)g * gridDim.x; n0 < n_tiles;
+       n0 += step * kRmwUnroll) {
+    float v[kRmwUnroll][kRows];
+    int pg[kRmwUnroll][kRows];
 #pragma unroll
-  for (int p = 0; p < kRows; ++p)
-    add_fixed(out + pages[n * kRows + p] * kLanes + k, x[(n * kRows + p) * kLanes + k]);
+    for (int u = 0; u < kRmwUnroll; ++u) {
+      const long long n = n0 + u * step;
+      const bool live = n < n_tiles;
+      const int4 p0 = live ? __ldg(reinterpret_cast<const int4*>(pages + n * kRows)) : int4{};
+      const int4 p1 = live ? __ldg(reinterpret_cast<const int4*>(pages + n * kRows) + 1) : int4{};
+      pg[u][0] = p0.x, pg[u][1] = p0.y, pg[u][2] = p0.z, pg[u][3] = p0.w;
+      pg[u][4] = p1.x, pg[u][5] = p1.y, pg[u][6] = p1.z, pg[u][7] = p1.w;
+#pragma unroll
+      for (int p = 0; p < kRows; ++p)
+        v[u][p] = live ? __ldg(x + (n * kRows + p) * kLanes + k) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kRmwUnroll; ++u) {
+#pragma unroll
+      for (int p = 0; p < kRows; ++p) {
+        assert(pg[u][p] >= 0 && pg[u][p] < table_rows && fabsf(v[u][p]) < x_limit);
+        acc[pg[u][p] * kLanes] += llrintf(v[u][p] * kFixedScale);
+      }
+    }
+  }
+  __syncthreads();
+  long long* part = partial + (long long)blockIdx.x * entries;
+  for (int e = threadIdx.x; e < entries; e += blockDim.x) {
+    long long sum = 0;
+#pragma unroll
+    for (int gg = 0; gg < kRmwGroups; ++gg) sum += s_acc[gg * entries + e];
+    part[e] = sum;
+  }
+}
+
+// out[e] = sum over the n_parts partial tables of partial[part][e]. A CTA of
+// 128 threads takes 16 entries, its 8 slices of threads every 8th partial
+// each (128-byte rows, loads in flight across the slices); the slices' sums
+// add in shared memory.
+constexpr int kReduceCols = 16;
+constexpr int kReduceSlices = kLanes / kReduceCols;
+
+__global__ void __launch_bounds__(kLanes)
+rmw_rows_reduce_kernel(const long long* __restrict__ partial, long long* __restrict__ out,
+                       int n_parts, int entries) {
+  __shared__ long long s_sum[kReduceSlices][kReduceCols];
+  const int col = threadIdx.x % kReduceCols, slice = threadIdx.x / kReduceCols;
+  const int e = blockIdx.x * kReduceCols + col;
+  long long s = 0;
+  if (e < entries) {
+#pragma unroll 4
+    for (int c = slice; c < n_parts; c += kReduceSlices)
+      s += __ldg(partial + (long long)c * entries + e);
+  }
+  s_sum[slice][col] = s;
+  __syncthreads();
+  if (slice == 0 && e < entries) {
+    long long total = 0;
+#pragma unroll
+    for (int i = 0; i < kReduceSlices; ++i) total += s_sum[i][col];
+    out[e] = total;
+  }
 }
 
 // Replaces the F probe of tools/kernel_probe2.py (k_base :191), the
@@ -255,9 +350,27 @@ int jrr_select_reduce(const float* x, const int* isub, float* out, int n_tiles, 
   return (int)cudaGetLastError();
 }
 
-int jrr_rmw_rows(const int* pages, const float* x, unsigned long long* out, int n_tiles,
-                 void* stream) {
-  rmw_rows_kernel<<<n_tiles, kLanes, 0, (cudaStream_t)stream>>>(pages, x, out);
+int jrr_rmw_rows(const int* pages, const float* x, long long* partial, long long* out,
+                 int n_tiles, int table_rows, int n_ctas, float x_limit, void* stream) {
+  // Above 48 KB of dynamic shared memory needs the opt-in, set once per
+  // device for the largest table (outside any graph capture: the wrappers'
+  // first call runs eagerly).
+  static int opted_in_device = -1;
+  int device = 0;
+  cudaError_t rc = cudaGetDevice(&device);
+  if (rc == cudaSuccess && device != opted_in_device) {
+    rc = cudaFuncSetAttribute(rmw_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)(kRmwGroups * kMaxTableRows * kLanes * sizeof(long long)));
+    if (rc == cudaSuccess) opted_in_device = device;
+  }
+  if (rc != cudaSuccess) return (int)rc;
+  const int entries = table_rows * kLanes;
+  rmw_rows_kernel<<<n_ctas, kLanes * kRmwGroups, kRmwGroups * entries * sizeof(long long),
+                    (cudaStream_t)stream>>>(pages, x, partial, n_tiles, table_rows, x_limit);
+  rc = cudaGetLastError();
+  if (rc != cudaSuccess) return (int)rc;
+  rmw_rows_reduce_kernel<<<(entries + kReduceCols - 1) / kReduceCols, kLanes, 0,
+                           (cudaStream_t)stream>>>(partial, out, n_ctas, entries);
   return (int)cudaGetLastError();
 }
 

@@ -14,11 +14,12 @@
 // the tile's top-left pixel. A tile whose first page is the dump page has no
 // candidates (alpha == 0).
 //
-// All three kernels: one CTA per (tile, frame), 128 threads, thread k owns
+// All four kernels: one CTA per (tile, frame), 128 threads, thread k owns
 // candidate lane k. Each thread decodes its face's three corners through
 // `pages` (staged in shared memory) and reads them from tx/ty (28 KB per
 // frame, L2-resident across the frame's tiles); the coverage passes are the
-// shared ones of coverage.cuh.
+// shared ones of coverage.cuh: near pairs only in fused_lossgrad_kernel,
+// every pair in the others.
 
 #include <cuda_runtime.h>
 
@@ -55,21 +56,27 @@ __device__ __forceinline__ Face load_face(const float* tx, const float* ty,
   return f;
 }
 
-// Adds the thread's corner gradients into the tables as fixed point: at
-// most six atomics per thread, none for the dump page, whose rows the
-// Pallas kernels never write (silhouette_fused.py:803-811).
+// Adds one corner's gradient into the tables as fixed point: two atomics
+// at most, none for the dump page, whose rows the Pallas kernels never
+// write (silhouette_fused.py:803-811).
+__device__ __forceinline__ void add_corner_fixed_point(long long pos, int page, float gx, float gy,
+                                                       int dump_page, unsigned long long* dtx,
+                                                       unsigned long long* dty) {
+  if (page == dump_page) return;
+  // Two's complement: adding the cast of a negative value subtracts.
+  const long long qx = llrintf(gx * kFixedScale), qy = llrintf(gy * kFixedScale);
+  if (qx != 0) atomicAdd(dtx + pos, (unsigned long long)qx);
+  if (qy != 0) atomicAdd(dty + pos, (unsigned long long)qy);
+}
+
+// The thread's corner gradients into the tables: at most six atomics.
 __device__ __forceinline__ void add_fixed_point(const Face& f, const float gx[3],
                                                 const float gy[3], int dump_page,
                                                 unsigned long long* dtx,
                                                 unsigned long long* dty) {
 #pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    if (f.page[c] == dump_page) continue;
-    // Two's complement: adding the cast of a negative value subtracts.
-    const long long qx = llrintf(gx[c] * kFixedScale), qy = llrintf(gy[c] * kFixedScale);
-    if (qx != 0) atomicAdd(dtx + f.pos[c], (unsigned long long)qx);
-    if (qy != 0) atomicAdd(dty + f.pos[c], (unsigned long long)qy);
-  }
+  for (int c = 0; c < 3; ++c)
+    add_corner_fixed_point(f.pos[c], f.page[c], gx[c], gy[c], dump_page, dtx, dty);
 }
 
 // Stages the tile's page list in shared memory and loads thread k's face.
@@ -114,17 +121,24 @@ fused_alpha_fwd_kernel(const float* __restrict__ tx, const float* __restrict__ t
 // Replaces jrr_tpu/render/silhouette_fused.py::_fused_lossgrad_kernel (:994).
 // Per occupied tile: err[b, t] = sum over pixels of (alpha - mask)^2, and
 // dL/dcorner (L = sum err) added into dtx/dty[b, page, lane]. Bound on this
-// card: operations — pass 1 as in the forward, pass 2 recomputes the ~70
-// ops per (pixel, lane) plus ~40 for the gradient; bytes (tables, idx,
-// mask, and 768 atomics per tile) are a small share. Design: the per-pixel
-// dL/dalpha and Pi(1 - p) from pass 1 stay in shared memory; pass 2 skips
-// (pixel, lane) pairs with p in {0, 1}, whose gradient is exactly zero, and
-// keeps the six corner gradients in registers, so each thread issues at
-// most six atomicAdds. The atomics add int64 fixed point, not f32: float
-// atomics reorder the sums from run to run, and 30 Adam steps amplify
-// those last bits into parameter differences past 1e-3. Empty tiles exit;
-// their err stays 0 and the wrapper adds their sum of mask^2.
-__global__ void __launch_bounds__(kLanes)
+// card: operations — ~76 per (pixel, lane) pair within the blur radius of
+// its triangle (coverage, expf, logf and a division) and ~31 more per pair
+// with 0 < p < 1, ~2 per other pair for the box test; bytes (tables, idx,
+// mask, and up to 768 atomics per tile) are a small share. Design: only ~8%
+// of the pairs lie near their triangle, so the kernel does work only
+// there (coverage.cuh): each lane stages its triangle and its pixel box,
+// and sets its bit in each of its box pixels' lane masks; pass 1 runs by pixel,
+// 128 / T^2 threads walking the pixel's set lanes; pass 2 runs by lane over
+// the lane's own box, skipping pairs with p in {0, 1}, whose gradient is
+// exactly zero, and keeps the six corner gradients in registers, so each
+// thread issues at most six atomicAdds. The per-pixel dL/dalpha and
+// Pi(1 - p) stay in shared memory. The atomics add int64 fixed point, not
+// f32: float atomics reorder the sums from run to run, and 30 Adam steps
+// amplify those last bits into parameter differences past 1e-3. Nothing
+// depends on the order threads run in, so two launches agree bit for bit.
+// Empty tiles exit; their err stays 0 and the wrapper adds their sum of
+// mask^2. At most 64 registers, so that 8 CTAs fit on an SM.
+__global__ void __launch_bounds__(kLanes, 8)
 fused_lossgrad_kernel(const float* __restrict__ tx, const float* __restrict__ ty,
                       const int* __restrict__ pages, const int* __restrict__ idx,
                       const float* __restrict__ origin, const float* __restrict__ mask,
@@ -133,8 +147,9 @@ fused_lossgrad_kernel(const float* __restrict__ tx, const float* __restrict__ ty
                       int G2, int PG, int P, int tile, float inv_sigma, float blur_px2,
                       int dump_page) {
   __shared__ int s_pages[kMaxPages];
-  __shared__ float s_part[kWarps][kMaxT2];
-  __shared__ float s_total[kMaxT2];  // Pi(1 - p) per pixel
+  __shared__ StagedTris s_tri;
+  __shared__ unsigned s_lmask[kMaxT2][kWarps];  // per pixel, the lanes whose box holds it
+  __shared__ float s_total[kMaxT2];  // log-sum over the lanes, then Pi(1 - p), per pixel
   __shared__ float s_g[kMaxT2];      // dL/dalpha = 2 (alpha - mask) per pixel
   __shared__ float s_sq[kMaxT2];     // (alpha - mask)^2 per pixel
   const int t = blockIdx.x, b = blockIdx.y, k = threadIdx.x;
@@ -142,13 +157,19 @@ fused_lossgrad_kernel(const float* __restrict__ tx, const float* __restrict__ ty
   const int t2 = tile * tile;
   const int* pages_t = pages + bt * P;
   if (pages_t[0] == dump_page) return;
-  const Face f = stage_tile(tx, ty, pages_t, idx, s_pages, bt, b, PG, P, k);
+  // Only the triangle stays live across the passes; the table positions are
+  // decoded again for the atomics (the register budget of 8 CTAs per SM).
+  const Tri tri = stage_tile(tx, ty, pages_t, idx, s_pages, bt, b, PG, P, k).tri;
   const float ox = origin[2 * bt], oy = origin[2 * bt + 1];
-  lane_log_sums(f.tri, true, ox, oy, tile, inv_sigma, blur_px2, s_part);
+  const PixelBox box = pixel_box(tri, ox, oy, tile, blur_px2);
+  stage_tri(s_tri, tri, k);
+  stage_lane_masks(box, tile, s_lmask);
+  __syncthreads();
+  box_log_sums(s_tri, s_lmask, ox, oy, tile, inv_sigma, blur_px2, s_total);
   __syncthreads();
   const float* mask_t = mask + bt * t2;
   for (int i = k; i < t2; i += kLanes) {
-    const float total = expf(log_sum_total(s_part, i));
+    const float total = expf(s_total[i]);
     const float diff = (1.f - total) - mask_t[i];
     s_total[i] = total;
     s_g[i] = 2.f * diff;
@@ -161,8 +182,14 @@ fused_lossgrad_kernel(const float* __restrict__ tx, const float* __restrict__ ty
     err[bt] = e;
   }
   float gx[3], gy[3];
-  corner_grads(f.tri, true, ox, oy, tile, inv_sigma, blur_px2, s_g, s_total, gx, gy);
-  add_fixed_point(f, gx, gy, dump_page, dtx, dty);
+  box_corner_grads(tri, box, ox, oy, tile, inv_sigma, blur_px2, s_g, s_total, gx, gy);
+  const int* idx_t = idx + bt * 3 * kLanes;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const int v = idx_t[c * kLanes + k], page = s_pages[v >> 7];
+    add_corner_fixed_point(((long long)b * PG + page) * kLanes + (v & 127), page, gx[c], gy[c],
+                           dump_page, dtx, dty);
+  }
 }
 
 // Replaces jrr_tpu/render/silhouette_fused.py::_fused_lossgrad_packed_kernel
@@ -170,15 +197,19 @@ fused_lossgrad_kernel(const float* __restrict__ tx, const float* __restrict__ ty
 // row (flags 1) carries tile A's candidates in lanes [0, 64) and its buddy
 // tile B's in [64, 128); BUDDY rows (flags 2) are dump-marked and exit with
 // the empty rows; NORMAL rows (flags 0) are fused_lossgrad_kernel's tiles,
-// with the same arithmetic bit for bit. Lanes 0-63 are warps 0-1 and lanes
-// 64-127 warps 2-3, so lane_log_sums' per-warp partials split the halves
+// covered here for every (pixel, lane) pair (lane_log_sums, corner_grads),
+// so alpha's lane sums are taken in another order than there: the two
+// agree within float rounding (chip_smoke.py holds them to err rtol 2e-5,
+// gradients atol 5e-5 * max, the bin-time contract). Lanes 0-63 are warps
+// 0-1 and lanes 64-127 warps 2-3, so lane_log_sums' per-warp partials split the halves
 // with no masked reduction: Pi over A = exp(s_part[0] + s_part[1]), over B
 // = exp(s_part[2] + s_part[3]). Each thread evaluates its pixels at its own
 // half's origin and runs corner_grads with its half's dL/dalpha and Pi(1 -
 // p); B's mask row is read in place at mask[b, buddy[b, t]]. err[b, t]
-// holds both tiles' sum for a primary. Bound and design as
-// fused_lossgrad_kernel's; a packed pair costs one CTA where the unpacked
-// layout spends two. The int64 fixed-point bound (kernels._fixed_point_bound)
+// holds both tiles' sum for a primary. Bound as fused_lossgrad_kernel's;
+// design as that kernel's before it culled to the near pairs (every pair,
+// both passes); a packed pair costs one CTA where the unpacked layout spends
+// two. The int64 fixed-point bound (kernels._fixed_point_bound)
 // still holds: every lane of a row still covers T2 pixels of one tile with
 // |dL/dalpha| <= 4, buddy rows add nothing, so a frame's G2 rows add at most
 // G2 * 3 * 128 * T2 corner terms, as unpacked.
@@ -250,10 +281,12 @@ fused_lossgrad_packed_kernel(const float* __restrict__ tx, const float* __restri
 
 // Replaces jrr_tpu/render/silhouette_fused.py::_fused_bwd_kernel (:814),
 // the VJP of fused_alpha_fwd: given g = dL/dalpha (B, G2, T2), adds
-// dL/dcorner into dtx/dty[b, page, lane]. It is the loss kernel with
-// dL/dalpha read from g instead of formed from the mask: the same pass 1,
-// pass 2 and fixed-point atomics (shared device code above), so its bound
-// and design are those of fused_lossgrad_kernel. kernels.py bounds |g| so
+// dL/dcorner into dtx/dty[b, page, lane]. It is the loss kernel as it was
+// before the cull, with dL/dalpha read from g instead of formed from the
+// mask: passes 1 and 2 over every (pixel, lane) pair (lane_log_sums,
+// corner_grads) and the same fixed-point atomics, so its bound is that of
+// fused_lossgrad_kernel and, on the same bins, its time that of the
+// all-pairs design (chip_smoke.py reports the ratio). kernels.py bounds |g| so
 // that no fixed-point sum can overflow. Empty tiles have no gradient.
 __global__ void __launch_bounds__(kLanes)
 fused_alpha_bwd_kernel(const float* __restrict__ tx, const float* __restrict__ ty,

@@ -115,7 +115,7 @@ def _load():
             ("jrr_dyn_slice", [p] * 3 + [i, i, p]),
             ("jrr_onehot_gather", [p] * 3 + [i, p]),
             ("jrr_select_reduce", [p] * 3 + [i, p]),
-            ("jrr_rmw_rows", [p] * 3 + [i, p]),
+            ("jrr_rmw_rows", [p] * 4 + [i, i, i, f, p]),
             ("jrr_elementwise", [p, p, ll, p]),
             ("jrr_fma_chain", [p, p, ll, i, i, p]),
         ):
@@ -183,6 +183,12 @@ def fused_alpha_fwd(tx, ty, pages, idx, origin, tile, inv_sigma, blur_px2, dump_
 fused_alpha_fwd.launches = 0
 
 
+def from_fixed_point(table):
+    """An int64 fixed-point table (value·2³²) as float32: int64 → f32 rounds
+    once; the power-of-two scale is exact."""
+    return table.float().mul_(1.0 / _FIXED_SCALE)
+
+
 def _fixed_point_bound(g2: int, tile: int, inv_sigma: float, g_max: float = 4.0) -> float:
     """Largest |dL/d(table entry)| a fused gradient kernel can accumulate
     when |dL/dα| ≤ g_max per pixel (the loss kernel: |2(α − mask)| ≤ 4 for
@@ -245,8 +251,7 @@ def fused_lossgrad(tx, ty, pages, idx, origin, mask_tiles, tile, inv_sigma, blur
         )
         fused_lossgrad.launches += 1
     _raise_on(rc, "fused_lossgrad")
-    # int64 → f32 rounds once; the power-of-two scale is exact.
-    return err, dtx.float().mul_(1.0 / _FIXED_SCALE), dty.float().mul_(1.0 / _FIXED_SCALE)
+    return err, from_fixed_point(dtx), from_fixed_point(dty)
 
 
 fused_lossgrad.launches = 0
@@ -289,7 +294,7 @@ def fused_lossgrad_packed(tx, ty, pages, idx, origin, origin_b, flags, buddy, ma
         )
         fused_lossgrad_packed.launches += 1
     _raise_on(rc, "fused_lossgrad_packed")
-    return err, dtx.float().mul_(1.0 / _FIXED_SCALE), dty.float().mul_(1.0 / _FIXED_SCALE)
+    return err, from_fixed_point(dtx), from_fixed_point(dty)
 
 
 fused_lossgrad_packed.launches = 0
@@ -319,7 +324,7 @@ def fused_alpha_bwd(tx, ty, pages, idx, origin, g, tile, inv_sigma, blur_px2, du
         )
         fused_alpha_bwd.launches += 1
     _raise_on(rc, "fused_alpha_bwd")
-    return dtx.float().mul_(1.0 / _FIXED_SCALE), dty.float().mul_(1.0 / _FIXED_SCALE)
+    return from_fixed_point(dtx), from_fixed_point(dty)
 
 
 fused_alpha_bwd.launches = 0
@@ -421,22 +426,24 @@ def _check_blocks(**tensors) -> int:
 
 
 def _check_pages(pages, n: int, rows: int) -> None:
-    """(N, 8) int32 page ids in [0, rows) (a device-side assert)."""
+    """(N, 8) int32 page ids for a table of 1 to 64 rows."""
     _check_cuda(pages.device, pages=(pages, torch.int32))
     if pages.shape != (n, _PROBE_ROWS):
         raise ValueError(f"pages must be (N, {_PROBE_ROWS}) = {(n, _PROBE_ROWS)}, got {tuple(pages.shape)}")
     if not 1 <= rows <= _MAX_TABLE_ROWS:
         raise ValueError(f"need 1 <= table rows <= {_MAX_TABLE_ROWS}, got {rows}")
-    torch._assert_async(torch.all((pages >= 0) & (pages < rows)), "page ids must lie in [0, table rows)")
 
 
 def _check_table(table, pages, n: int) -> int:
-    """A (R, 128) f32 table beside valid (N, 8) page ids; returns R."""
+    """A (R, 128) f32 table beside (N, 8) page ids in [0, R) (a device-side
+    assert); returns R."""
     _check_cuda(pages.device, table=(table, torch.float32))
     if table.dim() != 2 or table.shape[1] != _LANES:
         raise ValueError(f"table must be (R, {_LANES}), got {tuple(table.shape)}")
-    _check_pages(pages, n, table.shape[0])
-    return table.shape[0]
+    rows = table.shape[0]
+    _check_pages(pages, n, rows)
+    torch._assert_async(torch.all((pages >= 0) & (pages < rows)), "page ids must lie in [0, table rows)")
+    return rows
 
 
 def _check_fixed_point(values, terms: int, name: str) -> None:
@@ -458,7 +465,7 @@ def paged_gather_rmw(pages, idx, table):
     dtab = torch.zeros(rows, _LANES, device=idx.device, dtype=torch.int64)
     _probe_launch(paged_gather_rmw, idx.device, "jrr_paged_gather_rmw", pages.data_ptr(),
                   idx.data_ptr(), table.data_ptr(), out.data_ptr(), dtab.data_ptr(), n)
-    return out, dtab.float().mul_(1.0 / _FIXED_SCALE)
+    return out, from_fixed_point(dtab)
 
 
 def take_along_axis(x, index, axis: int):
@@ -509,15 +516,24 @@ def select_reduce(x, isub):
 
 
 def rmw_rows(pages, x, rows: int):
-    """(rows, 128): out[pages[n, p]] += x[n, p] over every tile and p, in
-    int64 fixed point — replaces the E probe (k_rmw) of tools/kernel_probe2.py."""
+    """(rows, 128) int64: out[pages[n, p]] += llrint(x[n, p]·2³²) over
+    every tile and p, the fixed-point table itself (`from_fixed_point`
+    converts it) — replaces the E probe (k_rmw) of tools/kernel_probe2.py.
+    One CTA per SM sums its share of the tiles into shared memory; a second
+    kernel adds the CTAs' tables."""
     n = _check_blocks(x=(x, torch.float32))
     _check_pages(pages, n, rows)
-    _check_fixed_point(x, _PROBE_ROWS * n, "rmw_rows")
-    out = torch.zeros(rows, _LANES, device=x.device, dtype=torch.int64)
+    if pages.data_ptr() % 16:
+        raise ValueError("rmw_rows reads pages as int4: its data must be 16-byte aligned")
+    ctas = torch.cuda.get_device_properties(x.device).multi_processor_count
+    partial = torch.empty(ctas, rows, _LANES, device=x.device, dtype=torch.int64)
+    out = torch.empty(rows, _LANES, device=x.device, dtype=torch.int64)
+    # Page ids and |x| are checked in the kernel (device asserts): no sum
+    # of 8N terms below x_limit overflows.
+    x_limit = 2.0**63 / _FIXED_SCALE / (_PROBE_ROWS * n)
     _probe_launch(rmw_rows, x.device, "jrr_rmw_rows", pages.data_ptr(), x.data_ptr(),
-                  out.data_ptr(), n)
-    return out.float().mul_(1.0 / _FIXED_SCALE)
+                  partial.data_ptr(), out.data_ptr(), n, rows, ctas, x_limit)
+    return out
 
 
 def elementwise_baseline(x):

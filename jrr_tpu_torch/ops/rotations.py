@@ -9,6 +9,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from jrr_tpu_torch import resolve_device
+
 _EPS = 1e-12  # torch F.normalize default eps (reference: scripts/utils.py:201-202)
 
 
@@ -69,8 +71,9 @@ def axis_angle_to_rotmat(aa: torch.Tensor) -> torch.Tensor:
 
 
 def random_rotmat(
-    rng: np.random.Generator, shape: tuple = (), device="cpu"
+    rng: np.random.Generator, shape: tuple = (), device="cuda"
 ) -> torch.Tensor:
     """Uniform random rotations from numpy-seeded unit quaternions."""
-    q = torch.as_tensor(rng.normal(size=shape + (4,)).astype(np.float32), device=device)
+    q = torch.as_tensor(rng.normal(size=shape + (4,)).astype(np.float32),
+                        device=resolve_device(device))
     return quat_to_rotmat(q)

@@ -17,8 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from jrr_tpu_torch import kernels
-from jrr_tpu_torch import probes
+from jrr_tpu_torch import kernels, probes, resolve_device
 from jrr_tpu_torch.probes import LANES
 
 ROWS = 512
@@ -29,9 +28,11 @@ C2 = -0.001953125  # -2^-9, exact in both
 TRIALS = 30
 
 
-def make_input(rows: int = GRID * ROWS, seed: int = 0, device="cpu"):
+def make_input(rows: int = GRID * ROWS, seed: int = 0, device="cuda"):
+    """The probe's input, U[0, 1) from numpy seed `seed`."""
     return torch.as_tensor(
-        np.random.default_rng(seed).uniform(size=(rows, LANES)).astype(np.float32), device=device
+        np.random.default_rng(seed).uniform(size=(rows, LANES)).astype(np.float32),
+        device=resolve_device(device),
     )
 
 

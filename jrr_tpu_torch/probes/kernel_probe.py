@@ -14,8 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from jrr_tpu_torch import kernels
-from jrr_tpu_torch import probes
+from jrr_tpu_torch import kernels, probes, resolve_device
 from jrr_tpu_torch.probes import LANES, ROWS
 
 P_HAT = 8
@@ -24,9 +23,10 @@ N_TILES = 784 * 8
 REPS = 50
 
 
-def make_inputs(n_tiles: int = N_TILES, seed: int = 0, device="cpu") -> dict:
+def make_inputs(n_tiles: int = N_TILES, seed: int = 0, device="cuda") -> dict:
     """tools/kernel_probe.py's inputs: table, pages, idx (gather), x, il,
     isub (take_along_axis on lanes and rows), in its draw order."""
+    device = resolve_device(device)
     rng = np.random.default_rng(seed)
     arrays = dict(
         table=rng.normal(size=(PAGES, LANES)).astype(np.float32),

@@ -18,8 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from jrr_tpu_torch import kernels
-from jrr_tpu_torch import probes
+from jrr_tpu_torch import kernels, probes, resolve_device
 from jrr_tpu_torch.probes import LANES, ROWS
 from jrr_tpu_torch.probes.kernel_probe import fixed_point_tolerance, take_along_axis_plain
 
@@ -29,9 +28,10 @@ REPS = 50
 _ONEHOT_TILES = 256  # tiles per step of the one-hot plain version (its (n, 8, 128, 128) product)
 
 
-def make_inputs(n_tiles: int = N_TILES, seed: int = 0, device="cpu") -> dict:
+def make_inputs(n_tiles: int = N_TILES, seed: int = 0, device="cuda") -> dict:
     """tools/kernel_probe2.py's inputs in its draw order: table, pages, x,
     il (lane indices), isub (row indices)."""
+    device = resolve_device(device)
     rng = np.random.default_rng(seed)
     arrays = dict(
         table=rng.normal(size=(PAGES, LANES)).astype(np.float32),
@@ -77,6 +77,16 @@ def rmw_rows_plain(pages, x, rows: int):
     out = torch.zeros(rows, LANES, dtype=torch.float64, device=x.device)
     out.index_add_(0, pages.long().reshape(-1), x.double().reshape(-1, LANES))
     return out.float()
+
+
+def rmw_rows_fixed_plain(pages, x, rows: int):
+    """E as the kernel computes it: each term quantized to int64 fixed point
+    (x·2³², rounded half to even as llrintf), summed exactly; the kernel's
+    own integers."""
+    q = torch.round(x.float() * 2.0**32).long()
+    out = torch.zeros(rows, LANES, dtype=torch.int64, device=x.device)
+    out.index_add_(0, pages.long().reshape(-1), q.reshape(-1, LANES))
+    return out
 
 
 def elementwise_plain(x):
@@ -126,14 +136,33 @@ def measure(n_tiles: int = N_TILES, reps: int = REPS) -> list:
         probes.bound(3 * block, n * ROWS * LANES * ROWS), "torch.gather",
         lambda: torch.gather(xs, 1, isub64))
 
+    # E: the kernel's int64 table equals its fixed-point plain version
+    # exactly, and in float32 lies within the quantization of the float64 sum.
+    got_e = kernels.rmw_rows(pages, xs, PAGES)
+    want_e = rmw_rows_fixed_plain(pages, xs, PAGES)
+    torch.cuda.synchronize()
+    if not torch.equal(got_e, want_e):
+        raise AssertionError("E_rmw_dynamic_rows: int64 sums differ from rmw_rows_fixed_plain's")
+    want_f64 = rmw_rows_plain(pages, xs, PAGES).double()
     terms = torch.bincount(pages64.reshape(-1), minlength=PAGES)[:, None].double()
-    want_e = rmw_rows_plain(pages, xs, PAGES)
+    f64_diff = (kernels.from_fixed_point(got_e).double() - want_f64).abs()
+    if not bool(torch.all(f64_diff <= fixed_point_tolerance(want_f64, terms))):
+        raise AssertionError("E_rmw_dynamic_rows: beyond terms·2^-33 + 1 f32 ulp of the float64 sum")
     acc = torch.zeros(PAGES, LANES, device=xs.device)
-    add("E_rmw_dynamic_rows", "170", lambda: kernels.rmw_rows(pages, xs, PAGES),
-        lambda: rmw_rows_plain(pages, xs, PAGES), fixed_point_tolerance(want_e.double(), terms),
-        "terms·2^-33 + 1 f32 ulp (int64 fixed point vs float64)",
-        probes.bound(pages_bytes + block + table_bytes, n * ROWS * LANES), "index_add_",
-        lambda: acc.index_add_(0, pages64.reshape(-1), xs.reshape(-1, LANES)))
+    rec = probes.record(
+        "E_rmw_dynamic_rows", src + "170", got_e, want_e, 0.0,
+        "int64 sums equal rmw_rows_fixed_plain's exactly; as float32 within terms·2^-33 + 1 f32 ulp "
+        "of the float64 sum (rmw_rows_plain)",
+        time(lambda: kernels.rmw_rows(pages, xs, PAGES), reps),
+        time(lambda: rmw_rows_fixed_plain(pages, xs, PAGES), 3),
+        probes.bound(pages_bytes + block + table_bytes * 2, n * ROWS * LANES), "index_add_",
+        time(lambda: acc.index_add_(0, pages64.reshape(-1), xs.reshape(-1, LANES)), reps),
+    )
+    # What reading x alone costs on this card: the floor under the bytes bound.
+    rec.update(exact_vs_fixed_plain=True, float64_max_abs_err=float(f64_diff.max()),
+               faster_than_library=rec["ms"] < rec["library_ms"],
+               read_x_ms=time(lambda: xs.sum(), reps))
+    records.append(rec)
 
     one = torch.ones((), device=xs.device)
     add("F_elementwise_baseline", "191", lambda: kernels.elementwise_baseline(xs),

@@ -38,6 +38,38 @@ def edge_terms(px_x, px_y, ax, ay, bx, by):
     return cross, t, rx, ry, rx * rx + ry * ry
 
 
+# The loss kernel's cull (csrc/coverage.cuh, pixel_box): the blur radius
+# grown by 2^-10 so that rounding in the edge distances never drops a pair
+# with p > 0, and the area ratio below which a face counts as a sliver.
+BOX_GROW = 1.0009765625  # 1 + 2^-10
+SLIVER = 0.000244140625  # 2^-12
+
+
+def near_box(px_x, px_y, rows, *, blur_px2: float) -> torch.Tensor:
+    """Pixels the CUDA loss kernel visits for each candidate: the pixel lies
+    within √blur_px2 (grown by BOX_GROW) of the face's bounding box on both
+    axes, or the face is a sliver (|2·area| ≤ SLIVER·Σ|e|², NaN included),
+    whose inside test can hold far from it, and covers its whole tile.
+
+    Every (pixel, face) with p > 0 passes: outside the box the distance to
+    the face exceeds the blur radius, and only a face of (near) zero area
+    can be "inside" away from its box. Same broadcasting as
+    `coverage_rows`; float32 ops rounded one at a time, as the kernel
+    writes them, so the two agree exactly."""
+    ax, ay, bx, by, cx, cy = rows
+    r = torch.sqrt(torch.tensor(max(blur_px2, 0.0), dtype=torch.float32)) * torch.tensor(
+        BOX_GROW, dtype=torch.float32)
+    xmin, xmax = torch.fmin(torch.fmin(ax, bx), cx), torch.fmax(torch.fmax(ax, bx), cx)
+    ymin, ymax = torch.fmin(torch.fmin(ay, by), cy), torch.fmax(torch.fmax(ay, by), cy)
+    in_box = ((px_x - xmax <= r) & (xmin - px_x <= r)) & ((px_y - ymax <= r) & (ymin - px_y <= r))
+    a2 = (bx - ax) * (cy - ay) - (by - ay) * (cx - ax)
+    len2 = ((bx - ax) * (bx - ax) + (by - ay) * (by - ay)
+            + (cx - bx) * (cx - bx) + (cy - by) * (cy - by)
+            + (ax - cx) * (ax - cx) + (ay - cy) * (ay - cy))
+    sliver = ~(a2.abs() > len2 * SLIVER)
+    return in_box | sliver
+
+
 def lane_prod(x: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
     """Π over the last (candidate) axis as exp(Σ log x); x > 0."""
     return torch.exp(torch.sum(torch.log(x), dim=-1, keepdim=keepdim))

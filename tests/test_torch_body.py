@@ -38,7 +38,7 @@ def test_rotations_match_jax():
     _close(trot.rotmat_to_rot6d(torch.as_tensor(np.array(r))), rotations.rotmat_to_rot6d(r))
     _close(trot.axis_angle_to_rotmat(torch.as_tensor(aa)), rotations.axis_angle_to_rotmat(jnp.asarray(aa)))
     # numpy-seeded random rotations are proper rotations
-    rm = trot.random_rotmat(np.random.default_rng(1), (4,))
+    rm = trot.random_rotmat(np.random.default_rng(1), (4,), device="cpu")
     _close(rm @ rm.transpose(-1, -2), np.broadcast_to(np.eye(3), (4, 3, 3)))
     _close(torch.linalg.det(rm), np.ones(4))
 

@@ -67,8 +67,12 @@ def test_importing_every_module_loads_no_jax():
 
 
 def test_state_entry_points_need_a_card_or_cpu(monkeypatch):
+    import numpy as np
+
     from jrr_tpu_torch import problem
     from jrr_tpu_torch.models import discriminator, smpl
+    from jrr_tpu_torch.ops import rotations
+    from jrr_tpu_torch.probes import bf16_probe, kernel_probe, kernel_probe2
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for make in (
@@ -76,6 +80,10 @@ def test_state_entry_points_need_a_card_or_cpu(monkeypatch):
         lambda **kw: discriminator.PoseDiscriminator(**kw),
         lambda **kw: discriminator.ShapeDiscriminator(**kw),
         lambda **kw: problem.synthetic_problem(batch=1, num_verts=96, image_size=32, **kw),
+        lambda **kw: rotations.random_rotmat(np.random.default_rng(0), (2,), **kw),
+        lambda **kw: kernel_probe.make_inputs(16, **kw),
+        lambda **kw: kernel_probe2.make_inputs(16, **kw),
+        lambda **kw: bf16_probe.make_input(16, **kw),
     ):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()

@@ -17,6 +17,7 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
+from jrr_tpu_torch import kernels
 from jrr_tpu_torch.probes import bf16_probe, kernel_probe, kernel_probe2
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools"))
@@ -33,7 +34,7 @@ def _np(d):
 
 
 def test_paged_gather_rmw_matches_interpret_kernel():
-    x = kernel_probe.make_inputs(N)
+    x = kernel_probe.make_inputs(N, device="cpu")
     a = _np(x)
     # tools/kernel_probe.py::run_gather's specs, in interpret mode.
     out, dtab = pl.pallas_call(
@@ -64,7 +65,7 @@ def test_paged_gather_rmw_matches_interpret_kernel():
 
 @pytest.mark.parametrize("axis", [2, 1], ids=["lane", "sublane"])
 def test_take_along_axis_matches_interpret_kernel(axis):
-    x = kernel_probe.make_inputs(N)
+    x = kernel_probe.make_inputs(N, device="cpu")
     index = x["il"] if axis == 2 else x["isub"]
     spec = pl.BlockSpec((CHUNK, 8, LANES), lambda i: (i, 0, 0), memory_space=pltpu.VMEM)
     want = pl.pallas_call(
@@ -82,7 +83,7 @@ def test_take_along_axis_matches_interpret_kernel(axis):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_fma_chain_matches_interpret_kernel(dtype):
     rows, grid = 8, 2
-    x = bf16_probe.make_input(rows * grid)
+    x = bf16_probe.make_input(rows * grid, device="cpu")
     want = np.asarray(pl.pallas_call(
         functools.partial(bf16_vpu_probe._kernel, reps=bf16_vpu_probe.REPS, dtype=getattr(jnp, dtype)),
         grid=(grid,),
@@ -105,7 +106,7 @@ def test_fma_chain_matches_interpret_kernel(dtype):
 
 
 def test_probe2_plain_versions_match_numpy():
-    x = kernel_probe2.make_inputs(N)
+    x = kernel_probe2.make_inputs(N, device="cpu")
     a = _np(x)
     t, p, xs, il, isub = a["table"], a["pages"], a["x"], a["il"], a["isub"]
     # The tool's oracles (tools/kernel_probe2.py:86, :126, :142).
@@ -141,3 +142,28 @@ def test_fixed_point_tolerance_covers_the_quantization():
     want = torch.as_tensor(terms.astype(np.float64).sum(axis=0)).float()
     tol = kernel_probe.fixed_point_tolerance(want.double(), 400)
     assert bool(torch.all((got.double() - want.double()).abs() <= tol))
+
+
+def test_rmw_rows_fixed_plain_matches_int64_oracle():
+    """E as the kernel computes it: `rmw_rows_fixed_plain` equals a numpy
+    int64 oracle exactly (each term x·2^32 rounded half to even, as
+    llrintf), and as float32 lies within `fixed_point_tolerance` of the
+    float64 `rmw_rows_plain`."""
+    x = kernel_probe2.make_inputs(N, device="cpu")
+    pages, xs, rows = x["pages"], x["x"], kernel_probe2.PAGES
+    got = kernel_probe2.rmw_rows_fixed_plain(pages, xs, rows)
+    q = np.rint(xs.numpy().astype(np.float64) * 2.0**32).astype(np.int64)
+    want = np.zeros((rows, LANES), np.int64)
+    np.add.at(want, pages.numpy().reshape(-1), q.reshape(-1, LANES))
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(), want)
+    terms = torch.bincount(pages.long().reshape(-1), minlength=rows)[:, None].double()
+    want64 = kernel_probe2.rmw_rows_plain(pages, xs, rows).double()
+    diff = (kernels.from_fixed_point(got).double() - want64).abs()
+    assert bool(torch.all(diff <= kernel_probe.fixed_point_tolerance(want64, terms)))
+
+    # Terms on a rounding tie go to the even integer, as llrintf does.
+    ties = torch.zeros(1, 8, LANES)
+    ties[0, 0, :5] = torch.tensor([0.5, -0.5, 1.5, -1.5, 2.5]) * 2.0**-32
+    one = kernel_probe2.rmw_rows_fixed_plain(torch.arange(8, dtype=torch.int32)[None], ties, 8)
+    assert one[0, :5].tolist() == [0, 0, 2, -2, 2]

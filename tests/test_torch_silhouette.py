@@ -1,7 +1,9 @@
 """The port's fused rasterizer against jrr_tpu on the CPU: bins equal exactly,
 plain α against the interpret-mode Pallas forward kernel (atol 1e-5), plain
 loss+grad against the interpret-mode loss+grad kernel (the JAX kernel test's
-criterion), and the high-level loss entry with the interior skip."""
+criterion), the high-level loss entry with the interior skip, and the loss
+kernel's cull (`coverage.near_box`) against JAX's coverage: every pair with
+p > 0 lies in its face's pixel box."""
 
 import jax
 import jax.numpy as jnp
@@ -11,6 +13,7 @@ import torch
 
 from jrr_tpu.render import camera as camera_lib
 from jrr_tpu.render import silhouette_fused as sf
+from jrr_tpu.render import silhouette_pallas as sp
 from jrr_tpu_torch import convert
 from jrr_tpu_torch.render import coverage
 from jrr_tpu_torch.render import silhouette as tsil
@@ -295,3 +298,115 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         with pytest.raises(ValueError, match="CUDA"):
             call()
     assert all(w.launches == 0 for w in kernels.WRAPPERS)
+
+
+# ---------------------------------------------------------------------------
+# The CUDA loss kernel visits only the (pixel, lane) pairs in the face's
+# pixel box; coverage.near_box is its test in torch. A pair with p > 0
+# outside the box would lose its share of α and its gradient.
+# ---------------------------------------------------------------------------
+
+
+def _tile_grid(origin, tile):
+    """Pixel coordinates (N, T², 1) of tiles at origin (N, 2), as the kernels
+    place them (origin + column, origin + row)."""
+    i = torch.arange(tile * tile)
+    px_x = origin[:, 0:1, None] + (i % tile).float()[None, :, None]
+    px_y = origin[:, 1:2, None] + (i // tile).float()[None, :, None]
+    return px_x, px_y
+
+
+def _covered_and_near(tri, origin, tile, inv_sigma, blur_px2):
+    """(p > 0 by JAX's coverage, near_box) for tiles tri (N, 6, K) at origin
+    (N, 2): two (N, T², K) bool tensors."""
+    px_x, px_y = _tile_grid(origin, tile)
+    rows = tuple(tri[:, j, None, :] for j in range(6))
+    p = sp._coverage_rows(jnp.asarray(px_x.numpy()), jnp.asarray(px_y.numpy()),
+                          tuple(jnp.asarray(r.numpy()) for r in rows),
+                          inv_sigma=inv_sigma, blur_px2=blur_px2)[0]
+    near = coverage.near_box(px_x, px_y, rows, blur_px2=blur_px2)
+    return torch.as_tensor(np.asarray(p) > 0), near
+
+
+@pytest.fixture(scope="module")
+def full_width_inputs():
+    """The kernel inputs of the full-width synthetic problem at batch 2 at
+    the first rebin of each c2f phase (fused bins after the interior skip),
+    as chip_smoke.py builds them at batch 256."""
+    import chip_smoke
+    from jrr_tpu_torch import problem
+
+    prob = problem.synthetic_problem(batch=2, seed=0, device="cpu")
+    return {g: chip_smoke._kernel_inputs(prob, g) for g in ("fine", "coarse")}
+
+
+@pytest.mark.parametrize("geometry", ["fine", "coarse"])
+def test_near_box_holds_every_pair_jax_covers(full_width_inputs, geometry):
+    """At 224²/tile 8 and 112²/tile 4: every (pixel, lane) of an occupied
+    tile with p > 0 in JAX's coverage lies in the lane's pixel box, and the
+    box keeps a small share of the pairs (the cull does cut)."""
+    x = full_width_inputs[geometry]
+    occupied = x["pages"][:, :, 0] != x["dump"]
+    tri = tsf._gather_tri(x["tx"], x["ty"], x["pages"], x["idx"])[occupied]
+    covered, near = _covered_and_near(tri, x["origin"][occupied], x["tile"], x["inv_sigma"],
+                                      x["blur_px2"])
+    assert int(covered.sum()) > 10000
+    assert not bool((covered & ~near).any())
+    assert float(near.float().mean()) < 0.15
+
+
+@pytest.mark.parametrize("geometry", ["fine", "coarse"])
+def test_pair_counts_order_active_near_pairs(full_width_inputs, geometry):
+    """chip_smoke's bound counts: pairs with 0 < p < 1 ≤ pairs in the box ≤
+    all real-lane pairs."""
+    import chip_smoke
+
+    pairs, near, active, occupied = chip_smoke._pair_counts(full_width_inputs[geometry])
+    assert 0 < active <= near < pairs and occupied > 0
+
+
+_BOX_R = 1.25  # blur radius of the constructed cases: √blur_px2 exactly
+_BOX_CASES = {
+    # Vertex B = (9.75, 4.5) is the face's rightmost point and C = (8, 6.25)
+    # its lowest: pixels (11, 4.5) and (8, 7.5) lie exactly √blur_px2 from
+    # the face along an axis (d² == blur_px2 in float32, so p > 0).
+    "axis_distance": ([[8.0, 4.0, 9.75, 4.5, 8.0, 6.25]], (0.0, 0.5), 16),
+    # A point face (inside everywhere: every cross product is 0) and a
+    # collinear one on pixel row y = 3.5 (inside along the whole row).
+    "zero_area": ([[5.3, 7.7, 5.3, 7.7, 5.3, 7.7], [2.0, 3.5, 5.0, 3.5, 8.0, 3.5]], (0.0, 0.5), 16),
+    # A face across the left border of the tile at (8, 8).
+    "tile_border": ([[6.5, 9.0, 9.5, 9.25, 7.0, 11.0]], (8.0, 8.0), 8),
+    # The bins' far-off-screen dump triangle (render/silhouette_fused.py).
+    "dump": ([[0.0, -1.0e6, 8.0, -1.0e6, 0.0, -1.0e6 + 8.0]], (216.0, 216.0), 8),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_BOX_CASES))
+def test_near_box_constructed_cases(case):
+    faces, origin, tile = _BOX_CASES[case]
+    tri = torch.tensor(faces, dtype=torch.float32).T[None]  # (1, 6, K)
+    org = torch.tensor([origin], dtype=torch.float32)
+    covered, near = _covered_and_near(tri, org, tile, 2.0, _BOX_R**2)
+    covered, near = covered[0], near[0]  # (T², K)
+    assert not bool((covered & ~near).any())
+
+    def pixel(x, y):
+        return int(round(y - origin[1])) * tile + int(round(x - origin[0]))
+
+    if case == "axis_distance":
+        for x, y in ((11.0, 4.5), (8.0, 7.5)):
+            assert covered[pixel(x, y), 0] and near[pixel(x, y), 0]
+        for x, y in ((12.0, 4.5), (8.0, 8.5)):  # 2.25 px away: outside both
+            assert not covered[pixel(x, y), 0] and not near[pixel(x, y), 0]
+    elif case == "zero_area":
+        assert bool(covered[:, 0].all())  # the point face covers the whole tile
+        assert covered[pixel(15.0, 3.5), 1]  # 7 px past the segment's end
+        assert bool(near.all())
+    elif case == "tile_border":
+        cols = near[:, 0].reshape(tile, tile).any(dim=0)
+        rows = near[:, 0].reshape(tile, tile).any(dim=1)
+        assert cols.tolist() == [True] * 3 + [False] * 5  # x = 8, 9, 10 ≤ 9.5 + 1.25
+        assert rows.tolist() == [True] * 5 + [False] * 3  # y = 8 .. 12 ≤ 11 + 1.25
+        assert bool(covered.any())
+    else:
+        assert not bool(near.any()) and not bool(covered.any())
