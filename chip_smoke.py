@@ -11,9 +11,10 @@
    fused bins after `pack_bins` (also against the unpacked kernel and
    against its own repeat); the loss kernel against its own repeat too, and
    its time over the α VJP kernel's on the same bins (`lossgrad_over_bwd`:
-   the near-pair design against the all-pairs one). Bounds count a coverage
-   per (pixel, lane) pair in the face's pixel box and the box test per
-   other pair (`bound_ms`), beside a coverage per pair (`bound_all_pairs_ms`);
+   the near-pair design against the all-pairs one); the round-1 backward
+   against its own repeat; the packed kernel's NORMAL rows against the
+   unpacked kernel's err bit for bit. Bounds count a coverage per (pixel,
+   lane) pair in the face's pixel box and the box test per other pair;
 3. drives the main path once: `refine_batch` at batch 256, 1000 + 100
    steps, shipped defaults, live discriminators (one warm-up, then three
    timed runs, the median reported), with every kernel's launch count set to
@@ -218,11 +219,6 @@ def _ops(pairs, near, active, gradient):
     return ops + (active * (OPS_COVERAGE + OPS_GRADIENT) if gradient else 0)
 
 
-def _ops_all_pairs(pairs, active, gradient):
-    """The bound's operations before the recount: a coverage per pair."""
-    return pairs * OPS_COVERAGE + (active * (OPS_COVERAGE + OPS_GRADIENT) if gradient else 0)
-
-
 def _pair_counts(x):
     """(pixel, candidate) pairs these bins need: (pairs of a real candidate
     face, those in the face's pixel box, those with 0 < p < 1, occupied
@@ -379,10 +375,6 @@ def check_kernels(problem):
             row["fwd_bound_ms"], row["fwd_bound_by"] = _bound_ms(x, fwd_ops, False)
             row["lossgrad_bound_ms"], row["lossgrad_bound_by"] = _bound_ms(x, grad_ops, True)
             row["bwd_bound_ms"], row["bwd_bound_by"] = _bound_ms(x, grad_ops, True, err_out=False)
-            fwd_all, grad_all = _ops_all_pairs(pairs, active, False), _ops_all_pairs(pairs, active, True)
-            row["fwd_bound_all_pairs_ms"] = _bound_ms(x, fwd_all, False)[0]
-            row["lossgrad_bound_all_pairs_ms"] = _bound_ms(x, grad_all, True)[0]
-            row["bwd_bound_all_pairs_ms"] = _bound_ms(x, grad_all, True, err_out=False)[0]
         report[geometry] = row
     return report
 
@@ -431,7 +423,10 @@ def check_packed_kernel(problem):
     version (err rtol ERR_RTOL, gradients at the kernel test's criterion),
     against the unpacked kernel on the same bins (at bin time the two are
     one function: err rtol 2e-5, gradients atol 5e-5·max, the contract of
-    tests/test_lane_pack.py) and against its own repeat (bit for bit)."""
+    tests/test_lane_pack.py) and against its own repeat (bit for bit). Its
+    NORMAL rows (flags 0, an unpacked tile's lanes in order) run the
+    unpacked kernel's work in its order: their per-row err must equal that
+    kernel's per-tile err bit for bit."""
     import torch
 
     from jrr_tpu_torch import kernels
@@ -452,9 +447,14 @@ def check_packed_kernel(problem):
         again = sf.fused_lossgrad_packed(*args, *consts, x["dump"])
         plain = _chunked(sf.fused_lossgrad_packed_plain, args, consts)
         unpacked = sf.fused_lossgrad(*unpacked_args, *consts, x["dump"])
+        err_rows = kernels.fused_lossgrad_packed(*args, *consts, x["dump"])[0]
+        err_tiles = kernels.fused_lossgrad(*unpacked_args, *consts, x["dump"])[0]
+        normal = (packed.p_flags == 0) & (packed.p_pages[:, :, 0] != x["dump"])
         torch.cuda.synchronize()
         _check(all(torch.equal(a, b) for a, b in zip(got, again)),
                f"{geometry}: two packed kernel runs differ")
+        _check(torch.equal(err_rows[normal], err_tiles[normal]),
+               f"{geometry}: packed NORMAL rows' err differs from fused_lossgrad's")
         e_viol = _max_rel_violation(got[0], plain[0], 1e-30, ERR_RTOL)
         _check(e_viol <= 1.0, f"{geometry}: packed err beyond rtol {ERR_RTOL} of plain ({e_viol})")
         g_viol, g_err, g_scale = _grad_check(got[1:], plain[1:])
@@ -471,6 +471,7 @@ def check_packed_kernel(problem):
             vs_unpacked_err_tolerance_use=u_err_viol, vs_unpacked_grad_max_abs=u_grad,
             vs_unpacked_grad_tolerance_use=u_grad / (5e-5 * max(u_scale, 1e-30)),
             entries=int(packed.p_pages.shape[0] * packed.p_pages.shape[1]),
+            normal_rows=int(normal.sum()), primary_rows=int((packed.p_flags == 1).sum()),
             pairs_per_frame=[float(pairs_per_frame.mean()), int(packed.p_num_pairs.min()),
                              int(packed.p_num_pairs.max())],
         )
@@ -481,6 +482,7 @@ def check_packed_kernel(problem):
                        active_pairs=active, unpacked_pairs=u_pairs, unpacked_active_pairs=u_active)
             row["ms"] = _time_ms(lambda: kernels.fused_lossgrad_packed(*args, *consts, x["dump"]), 20)
             row["unpacked_ms"] = _time_ms(lambda: kernels.fused_lossgrad(*unpacked_args, *consts, x["dump"]), 20)
+            row["packed_over_unpacked"] = row["ms"] / row["unpacked_ms"]
             row["plain_ms"] = _time_ms(lambda: _chunked(sf.fused_lossgrad_packed_plain, args, consts), 1)
             row["pack_ms"] = _time_ms(lambda: sf.pack_bins(x["bins"], x["num_verts"]), 3)
             row["pack_device_ms"] = 1e3 * _profile(
@@ -488,7 +490,6 @@ def check_packed_kernel(problem):
                 lambda: sf.pack_bins(x["bins"], x["num_verts"]),
             )["device_busy_s"]
             row["bound_ms"], row["bound_by"] = _packed_bound_ms(x, packed, _ops(pairs, near, active, True))
-            row["bound_all_pairs_ms"] = _packed_bound_ms(x, packed, _ops_all_pairs(pairs, active, True))[0]
         report[geometry] = row
     return report
 
@@ -564,7 +565,8 @@ def _tile_bound_ms(t, ops, backward, occ, lanes):
 
 def check_tile_kernels(problem):
     """The round-1 tile kernels (forward and backward) against their plain
-    versions on the round-1 bins at both geometries + all-empty."""
+    versions on the round-1 bins at both geometries + all-empty, and the
+    backward against its own repeat (bit for bit)."""
     import torch
 
     from jrr_tpu_torch import kernels
@@ -583,8 +585,10 @@ def check_tile_kernels(problem):
         alpha = kernels.tiles_alpha_fwd(*args, *consts)
         alpha_p = _chunked(sp.tiles_alpha_plain, args, consts, per)
         dtri = kernels.tiles_alpha_bwd(*args, g, *consts)
+        dtri_again = kernels.tiles_alpha_bwd(*args, g, *consts)
         dtri_p = _chunked(_tiles_alpha_vjp_plain, args + (g,), consts, per)
         torch.cuda.synchronize()
+        _check(torch.equal(dtri, dtri_again), f"{geometry}: two tiles_alpha_bwd launches differ")
         a_err = float((alpha - alpha_p).abs().max())
         _check(a_err <= ALPHA_ATOL, f"{geometry}: tiles_alpha_fwd max|Δα| {a_err} > {ALPHA_ATOL}")
         viol, err, scale = _grad_check((dtri,), (dtri_p,))
@@ -609,10 +613,6 @@ def check_tile_kernels(problem):
             row["bwd_bound_ms"], row["bwd_bound_by"] = _tile_bound_ms(
                 t, _ops(pairs, near, active, True), True, occ, lanes
             )
-            row["fwd_bound_all_pairs_ms"] = _tile_bound_ms(
-                t, _ops_all_pairs(pairs, active, False), False, occ, lanes)[0]
-            row["bwd_bound_all_pairs_ms"] = _tile_bound_ms(
-                t, _ops_all_pairs(pairs, active, True), True, occ, lanes)[0]
         report[geometry] = row
     return report
 
@@ -1282,11 +1282,9 @@ def main() -> int:
             "max_abs_err": max(checks[g][err_key] for g in checks),
             "ms": fine[f"{key}_ms"], "plain_ms": fine[f"{key}_plain_ms"],
             "bound_ms": fine[f"{key}_bound_ms"], "bound_by": fine[f"{key}_bound_by"],
-            "bound_all_pairs_ms": fine[f"{key}_bound_all_pairs_ms"],
             "library_ms": None, "tolerance": tolerance,
             "coarse_ms": coarse[f"{key}_ms"], "coarse_plain_ms": coarse[f"{key}_plain_ms"],
             "coarse_bound_ms": coarse[f"{key}_bound_ms"],
-            "coarse_bound_all_pairs_ms": coarse[f"{key}_bound_all_pairs_ms"],
         }
 
     grad_tol = f"atol {GRAD_ATOL_REL}*max|plain| + rtol {GRAD_RTOL}"
@@ -1306,7 +1304,8 @@ def main() -> int:
         entry("tiles_alpha_fwd", "silhouette_tiles.cu", "jrr_tpu/render/silhouette_pallas.py:169",
               round1_launches["tiles_alpha_fwd"], tile_checks, "fwd", f"atol {ALPHA_ATOL}"),
         entry("tiles_alpha_bwd", "silhouette_tiles.cu", "jrr_tpu/render/silhouette_pallas.py:182",
-              round1_launches["tiles_alpha_bwd"], tile_checks, "bwd", grad_tol),
+              round1_launches["tiles_alpha_bwd"], tile_checks, "bwd",
+              f"{grad_tol}; two launches bit for bit"),
         {
             "name": "fused_lossgrad_packed", "route": "cuda",
             "source": "jrr_tpu_torch/csrc/silhouette_fused.cu",
@@ -1315,16 +1314,17 @@ def main() -> int:
             "max_abs_err": max(packed_checks[g]["grad_max_abs_err"] for g in packed_checks),
             "ms": packed_checks["fine"]["ms"], "plain_ms": packed_checks["fine"]["plain_ms"],
             "bound_ms": packed_checks["fine"]["bound_ms"], "bound_by": packed_checks["fine"]["bound_by"],
-            "bound_all_pairs_ms": packed_checks["fine"]["bound_all_pairs_ms"],
             "library_ms": None, "unpacked_ms": packed_checks["fine"]["unpacked_ms"],
+            "packed_over_unpacked": packed_checks["fine"]["packed_over_unpacked"],
             "tolerance": f"err rtol {ERR_RTOL}; grads {grad_tol}; vs unpacked at bin time: "
-                         "err rtol 2e-5, grads atol 5e-5*max; repeat bit for bit",
+                         "err rtol 2e-5, grads atol 5e-5*max; NORMAL rows' err equal to "
+                         "fused_lossgrad's; repeat bit for bit",
             "coarse_ms": packed_checks["coarse"]["ms"],
             "coarse_unpacked_ms": packed_checks["coarse"]["unpacked_ms"],
+            "coarse_packed_over_unpacked": packed_checks["coarse"]["packed_over_unpacked"],
             "coarse_bound_ms": packed_checks["coarse"]["bound_ms"],
-            "coarse_bound_all_pairs_ms": packed_checks["coarse"]["bound_all_pairs_ms"],
         },
-    ] + [dict(r, launches=0, note="probe", bound_all_pairs_ms=r["bound_ms"]) for r in probe_records]})
+    ] + [dict(r, launches=0, note="probe") for r in probe_records]})
     print(_card(), flush=True)
     _emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

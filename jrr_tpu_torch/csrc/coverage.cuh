@@ -7,21 +7,27 @@
 // the routing of the min-distance gradient at ties (exact argmin here; see
 // coverage.corner_row_grads).
 //
-// Every kernel runs one CTA per tile, 128 threads, thread k owning candidate
-// lane k (one triangle). Two ways to cover a tile:
-// - Every pixel for every lane (lane_log_sums, corner_grads; all kernels but
-//   fused_lossgrad_kernel). Pass 1 computes, per pixel, log(1 - p) for the
-//   thread's triangle and block-reduces it over the 128 lanes (warp
+// Every kernel runs one CTA per tile (or lane-packed pair of tiles), 128
+// threads, thread k owning candidate lane k (one triangle). Two ways to
+// cover a tile:
+// - Every pixel for every lane (lane_log_sums, corner_grads): the alpha
+//   kernels fused_alpha_fwd_kernel and tiles_alpha_fwd_kernel and the alpha
+//   VJP fused_alpha_bwd_kernel. Pass 1 computes, per pixel, log(1 - p) for
+//   the thread's triangle and block-reduces it over the 128 lanes (warp
 //   shuffles, then a 4-warp shared-memory step) into alpha = 1 - exp(sum).
 //   Pass 2 (the gradients) recomputes the coverage per pixel and
 //   accumulates the thread's six corner gradients in registers.
 // - Only the pairs near a triangle (pixel_box, stage_lane_masks,
-//   box_log_sums, box_corner_grads; fused_lossgrad_kernel). p > 0 only
-//   within the blur radius of a triangle (~1.1 px at 224^2, 0.56 px at
-//   112^2), so ~8% of the (pixel, lane) pairs can have p > 0. Each lane
-//   marks its pixels in a per-pixel 128-bit lane mask; pass 1 walks each
-//   pixel's set lanes, pass 2 each lane's own pixels. Pairs outside the
-//   box have p == 0 exactly, so they add log(1) = 0 and no gradient.
+//   box_log_sums, box_corner_grads): the loss kernels fused_lossgrad_kernel
+//   and fused_lossgrad_packed_kernel and the round-1 backward
+//   tiles_alpha_bwd_kernel. p > 0 only within the blur radius of a
+//   triangle (~1.1 px at 224^2, 0.56 px at 112^2), so ~8% of the (pixel,
+//   lane) pairs can have p > 0. Each lane marks its pixels in a per-pixel
+//   128-bit lane mask; pass 1 walks each pixel's set lanes, pass 2 each
+//   lane's own pixels. Pairs outside the box have p == 0 exactly, so they
+//   add log(1) = 0 and no gradient. A lane-packed row splits its lanes into
+//   two halves, each a tile at its own origin: a half's lanes mark and sum
+//   only its own tile's pixels.
 
 #pragma once
 
@@ -164,7 +170,8 @@ __device__ __forceinline__ void corner_grads(const Tri& f, bool valid, float ox,
 }
 
 // ---------------------------------------------------------------------------
-// Work only where a triangle can cover a pixel (fused_lossgrad_kernel).
+// Work only where a triangle can cover a pixel (the loss kernels and the
+// round-1 backward).
 // ---------------------------------------------------------------------------
 
 // The blur radius grown by 2^-10: the edge distances round with an error
@@ -247,8 +254,11 @@ __device__ __forceinline__ Tri staged_tri(const StagedTris& s, int lane) {
 
 // Per pixel i, the lanes whose box holds it: bit (k & 31) of
 // s_lmask[i][k >> 5], set by thread k over its own box with atomicOr (an
-// OR does not depend on the order). Called by all 128 threads; the caller
-// must __syncthreads() before reading s_lmask.
+// OR does not depend on the order). The box is taken at the lane's own
+// tile's origin, so in a lane-packed row words 0-1 hold tile A's lanes at
+// A's pixel i and words 2-3 tile B's at B's pixel i. A lane that must add
+// nothing passes an empty box. Called by all 128 threads; the caller must
+// __syncthreads() before reading s_lmask.
 __device__ __forceinline__ void stage_lane_masks(PixelBox box, int tile,
                                                  unsigned (*s_lmask)[kWarps]) {
   const int k = threadIdx.x;
@@ -263,36 +273,42 @@ __device__ __forceinline__ void stage_lane_masks(PixelBox box, int tile,
   }
 }
 
-// Lane groups per pixel in box_log_sums: the most (a power of two, at most
-// 8, so each group holds >= 16 lanes) for which groups x pixels fit in the
-// 128 threads: 2 at tile 8, 8 at tile 4; 1 above 64 pixels, and above 128
-// a thread takes two pixels.
-__device__ __forceinline__ int lane_groups(int t2) {
+// Lane groups per item in box_log_sums: the most (a power of two, each
+// group holding >= 16 of the item's `lanes` lanes) for which groups x items
+// fit in the 128 threads. One tile (128 lanes): 2 at tile 8, 8 at tile 4; 1
+// above 64 pixels, and above 128 a thread takes two pixels. Two packed
+// tiles (64 lanes each, 2 T^2 items): 1 at tile 8, 4 at tile 4.
+__device__ __forceinline__ int lane_groups(int items, int lanes) {
   int g = 1;
-  while (g < 8 && 2 * g * t2 <= kLanes) g *= 2;
+  while (32 * g <= lanes && 2 * g * items <= kLanes) g *= 2;
   return g;
 }
 
-// Pass 1 over the lane masks: per pixel i, s_logsum[i] = sum over the lanes
-// in its mask of log(max(1 - p, 1e-30)). G = lane_groups(t2) consecutive
-// threads share a pixel, each walking the set bits of its 128 / G lanes in
+// Pass 1 over the lane masks. The lanes form `halves` (1 or 2) equal sets,
+// each a tile at its own origin: (ox, oy) for lanes [0, 128 / halves),
+// (ox_b, oy_b) for the rest. Per half h and pixel i of its tile,
+// s_logsum[h * T^2 + i] = sum over the half's lanes in pixel i's mask of
+// log(max(1 - p, 1e-30)). G = lane_groups consecutive threads share an
+// item, each walking the set bits of its share of the half's lanes in
 // ascending lane order; their partial sums combine in a fixed butterfly
 // (commutative at each step, so every thread of the group holds the same
 // total). The sum is over the same terms as lane_log_sums', whose other
 // terms are log(1) = 0, in another order. Called by all 128 threads.
 __device__ __forceinline__ void box_log_sums(const StagedTris& s_tri,
-                                             unsigned (*s_lmask)[kWarps], float ox,
-                                             float oy, int tile, float inv_sigma,
-                                             float blur_px2, float* s_logsum) {
-  const int t2 = tile * tile;
-  const int groups = lane_groups(t2), width = kLanes / groups;
-  for (int base = 0; base < t2 * groups; base += kLanes) {  // uniform across the CTA
+                                             unsigned (*s_lmask)[kWarps], int halves, float ox,
+                                             float oy, float ox_b, float oy_b, int tile,
+                                             float inv_sigma, float blur_px2, float* s_logsum) {
+  const int t2 = tile * tile, items = halves * t2, lanes = kLanes / halves;
+  const int groups = lane_groups(items, lanes), width = lanes / groups;
+  for (int base = 0; base < items * groups; base += kLanes) {  // uniform across the CTA
     const int w = base + (int)threadIdx.x;
-    const int i = w / groups, lo = (w % groups) * width;
+    const int item = w / groups, h = item < t2 ? 0 : 1;
+    const int i = item - h * t2, lo = h * lanes + (w % groups) * width;
     float s = 0.f;
-    if (i < t2) {
+    if (item < items) {
       const int row = i / tile;
-      const float px = ox + (float)(i - row * tile), py = oy + (float)row;
+      const float px = (h ? ox_b : ox) + (float)(i - row * tile);
+      const float py = (h ? oy_b : oy) + (float)row;
       for (int word = lo >> 5; word <= (lo + width - 1) >> 5; ++word) {
         unsigned m = s_lmask[i][word];
         if (width < 32) m &= ((1u << width) - 1u) << (lo & 31);
@@ -309,7 +325,7 @@ __device__ __forceinline__ void box_log_sums(const StagedTris& s_tri,
       }
     }
     for (int o = groups >> 1; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    if (i < t2 && w % groups == 0) s_logsum[i] = s;
+    if (item < items && w % groups == 0) s_logsum[item] = s;
   }
 }
 

@@ -18,8 +18,9 @@
 // candidate lane k. Each thread decodes its face's three corners through
 // `pages` (staged in shared memory) and reads them from tx/ty (28 KB per
 // frame, L2-resident across the frame's tiles); the coverage passes are the
-// shared ones of coverage.cuh: near pairs only in fused_lossgrad_kernel,
-// every pair in the others.
+// shared ones of coverage.cuh: near pairs only in the two loss kernels
+// (fused_lossgrad_kernel, fused_lossgrad_packed_kernel), every pair in the
+// alpha kernel and its VJP.
 
 #include <cuda_runtime.h>
 
@@ -118,6 +119,68 @@ fused_alpha_fwd_kernel(const float* __restrict__ tx, const float* __restrict__ t
   for (int i = k; i < t2; i += kLanes) out_t[i] = 1.f - expf(log_sum_total(s_part, i));
 }
 
+// The loss kernels' work on one row, near pairs only (coverage.cuh): a
+// tile in all 128 lanes, or, for a lane-packed primary row, tile A in lanes
+// [0, 64) at origin_t with mask row mask_a and tile B in [64, 128) at
+// origin_bt with mask row mask_b. Each lane takes its pixel box at its own
+// tile's origin, so the lane masks split at lane 64; pass 1 sums each
+// half's lanes into its own tile's pixels (one log sum per pixel and
+// half), pass 2 walks each lane's box with its half's dL/dalpha and
+// Pi(1 - p). *err_t receives the row's sum of (alpha - mask)^2 over both
+// tiles, and the corner gradients go into dtx/dty as int64 fixed point.
+// For a row that is not primary the work and its order are those of a
+// single tile whatever the caller, so the two loss kernels give such a row
+// the same err bit for bit. The shared arrays hold T^2 values per half.
+__device__ __forceinline__ void lossgrad_row(
+    const float* tx, const float* ty, const int* pages_t, const int* idx, long long bt, int b,
+    int PG, int P, const float* origin_t, const float* origin_bt, const float* mask_a,
+    const float* mask_b, bool primary, int tile, float inv_sigma, float blur_px2, int dump_page,
+    float* err_t, unsigned long long* dtx, unsigned long long* dty, int* s_pages,
+    StagedTris& s_tri, unsigned (*s_lmask)[kWarps], float* s_total, float* s_g, float* s_sq) {
+  const int k = threadIdx.x, t2 = tile * tile;
+  const int halves = primary ? 2 : 1, h = (primary && k >= kLanes / 2) ? 1 : 0;
+  // Only the triangle stays live across the passes; the table positions are
+  // decoded again for the atomics (the register budget of 8 CTAs per SM).
+  const Tri tri = stage_tile(tx, ty, pages_t, idx, s_pages, bt, b, PG, P, k).tri;
+  const float* org = h ? origin_bt : origin_t;
+  const float ox = org[0], oy = org[1];
+  const PixelBox box = pixel_box(tri, ox, oy, tile, blur_px2);
+  stage_tri(s_tri, tri, k);
+  stage_lane_masks(box, tile, s_lmask);
+  __syncthreads();
+  box_log_sums(s_tri, s_lmask, halves, origin_t[0], origin_t[1], origin_bt[0], origin_bt[1], tile,
+               inv_sigma, blur_px2, s_total);
+  __syncthreads();
+  for (int j = k; j < halves * t2; j += kLanes) {
+    const float total = expf(s_total[j]);
+    const float diff = (1.f - total) - (j < t2 ? mask_a[j] : mask_b[j - t2]);
+    s_total[j] = total;
+    s_g[j] = 2.f * diff;
+    s_sq[j] = diff * diff;
+  }
+  __syncthreads();
+  if (k == 0) {
+    float e = 0.f;
+    for (int i = 0; i < t2; ++i) e += s_sq[i];
+    if (primary) {
+      float e_b = 0.f;
+      for (int i = t2; i < 2 * t2; ++i) e_b += s_sq[i];
+      e += e_b;
+    }
+    *err_t = e;
+  }
+  float gx[3], gy[3];
+  box_corner_grads(tri, box, ox, oy, tile, inv_sigma, blur_px2, s_g + h * t2, s_total + h * t2,
+                   gx, gy);
+  const int* idx_t = idx + bt * 3 * kLanes;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const int v = idx_t[c * kLanes + k], page = s_pages[v >> 7];
+    add_corner_fixed_point(((long long)b * PG + page) * kLanes + (v & 127), page, gx[c], gy[c],
+                           dump_page, dtx, dty);
+  }
+}
+
 // Replaces jrr_tpu/render/silhouette_fused.py::_fused_lossgrad_kernel (:994).
 // Per occupied tile: err[b, t] = sum over pixels of (alpha - mask)^2, and
 // dL/dcorner (L = sum err) added into dtx/dty[b, page, lane]. Bound on this
@@ -126,7 +189,7 @@ fused_alpha_fwd_kernel(const float* __restrict__ tx, const float* __restrict__ t
 // with 0 < p < 1, ~2 per other pair for the box test; bytes (tables, idx,
 // mask, and up to 768 atomics per tile) are a small share. Design: only ~8%
 // of the pairs lie near their triangle, so the kernel does work only
-// there (coverage.cuh): each lane stages its triangle and its pixel box,
+// there (lossgrad_row): each lane stages its triangle and its pixel box,
 // and sets its bit in each of its box pixels' lane masks; pass 1 runs by pixel,
 // 128 / T^2 threads walking the pixel's set lanes; pass 2 runs by lane over
 // the lane's own box, skipping pairs with p in {0, 1}, whose gradient is
@@ -152,44 +215,14 @@ fused_lossgrad_kernel(const float* __restrict__ tx, const float* __restrict__ ty
   __shared__ float s_total[kMaxT2];  // log-sum over the lanes, then Pi(1 - p), per pixel
   __shared__ float s_g[kMaxT2];      // dL/dalpha = 2 (alpha - mask) per pixel
   __shared__ float s_sq[kMaxT2];     // (alpha - mask)^2 per pixel
-  const int t = blockIdx.x, b = blockIdx.y, k = threadIdx.x;
+  const int t = blockIdx.x, b = blockIdx.y;
   const long long bt = (long long)b * G2 + t;
-  const int t2 = tile * tile;
   const int* pages_t = pages + bt * P;
   if (pages_t[0] == dump_page) return;
-  // Only the triangle stays live across the passes; the table positions are
-  // decoded again for the atomics (the register budget of 8 CTAs per SM).
-  const Tri tri = stage_tile(tx, ty, pages_t, idx, s_pages, bt, b, PG, P, k).tri;
-  const float ox = origin[2 * bt], oy = origin[2 * bt + 1];
-  const PixelBox box = pixel_box(tri, ox, oy, tile, blur_px2);
-  stage_tri(s_tri, tri, k);
-  stage_lane_masks(box, tile, s_lmask);
-  __syncthreads();
-  box_log_sums(s_tri, s_lmask, ox, oy, tile, inv_sigma, blur_px2, s_total);
-  __syncthreads();
-  const float* mask_t = mask + bt * t2;
-  for (int i = k; i < t2; i += kLanes) {
-    const float total = expf(s_total[i]);
-    const float diff = (1.f - total) - mask_t[i];
-    s_total[i] = total;
-    s_g[i] = 2.f * diff;
-    s_sq[i] = diff * diff;
-  }
-  __syncthreads();
-  if (k == 0) {
-    float e = 0.f;
-    for (int i = 0; i < t2; ++i) e += s_sq[i];
-    err[bt] = e;
-  }
-  float gx[3], gy[3];
-  box_corner_grads(tri, box, ox, oy, tile, inv_sigma, blur_px2, s_g, s_total, gx, gy);
-  const int* idx_t = idx + bt * 3 * kLanes;
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    const int v = idx_t[c * kLanes + k], page = s_pages[v >> 7];
-    add_corner_fixed_point(((long long)b * PG + page) * kLanes + (v & 127), page, gx[c], gy[c],
-                           dump_page, dtx, dty);
-  }
+  const float* mask_t = mask + bt * tile * tile;
+  lossgrad_row(tx, ty, pages_t, idx, bt, b, PG, P, origin + 2 * bt, origin + 2 * bt, mask_t,
+               mask_t, false, tile, inv_sigma, blur_px2, dump_page, err + bt, dtx, dty, s_pages,
+               s_tri, s_lmask, s_total, s_g, s_sq);
 }
 
 // Replaces jrr_tpu/render/silhouette_fused.py::_fused_lossgrad_packed_kernel
@@ -197,23 +230,24 @@ fused_lossgrad_kernel(const float* __restrict__ tx, const float* __restrict__ ty
 // row (flags 1) carries tile A's candidates in lanes [0, 64) and its buddy
 // tile B's in [64, 128); BUDDY rows (flags 2) are dump-marked and exit with
 // the empty rows; NORMAL rows (flags 0) are fused_lossgrad_kernel's tiles,
-// covered here for every (pixel, lane) pair (lane_log_sums, corner_grads),
-// so alpha's lane sums are taken in another order than there: the two
-// agree within float rounding (chip_smoke.py holds them to err rtol 2e-5,
-// gradients atol 5e-5 * max, the bin-time contract). Lanes 0-63 are warps
-// 0-1 and lanes 64-127 warps 2-3, so lane_log_sums' per-warp partials split the halves
-// with no masked reduction: Pi over A = exp(s_part[0] + s_part[1]), over B
-// = exp(s_part[2] + s_part[3]). Each thread evaluates its pixels at its own
-// half's origin and runs corner_grads with its half's dL/dalpha and Pi(1 -
-// p); B's mask row is read in place at mask[b, buddy[b, t]]. err[b, t]
-// holds both tiles' sum for a primary. Bound as fused_lossgrad_kernel's;
-// design as that kernel's before it culled to the near pairs (every pair,
-// both passes); a packed pair costs one CTA where the unpacked layout spends
-// two. The int64 fixed-point bound (kernels._fixed_point_bound)
-// still holds: every lane of a row still covers T2 pixels of one tile with
-// |dL/dalpha| <= 4, buddy rows add nothing, so a frame's G2 rows add at most
-// G2 * 3 * 128 * T2 corner terms, as unpacked.
-__global__ void __launch_bounds__(kLanes)
+// with the same lanes in the same order (pack_bins keeps an unpacked
+// tile's idx and page list), and run its work in its order (lossgrad_row),
+// so their err equals that kernel's bit for bit (chip_smoke.py checks it).
+// Bound on this card: as fused_lossgrad_kernel's, operations, each pair
+// counted at its own half's origin. Design: near pairs only, as
+// fused_lossgrad_kernel, with each half's pixel boxes at its own tile's
+// origin: A's lanes mark and sum A's pixels, B's lanes B's, pass 1 runs
+// over 2 T^2 (pixel, half) items, and pass 2 walks each lane's box with
+// its half's dL/dalpha and Pi(1 - p). B's mask row is read in place at
+// mask[b, buddy[b, t]]; err[b, t] holds both tiles' sum for a primary. A
+// packed pair costs one CTA where the unpacked layout spends two. Both
+// halves' unused lanes hold the dump triangle, whose box is empty. The
+// int64 fixed-point bound (kernels._fixed_point_bound) still holds: every
+// lane of a row still covers T2 pixels of one tile with |dL/dalpha| <= 4,
+// buddy rows add nothing, so a frame's G2 rows add at most
+// G2 * 3 * 128 * T2 corner terms, as unpacked. At most 64 registers, so
+// that 8 CTAs fit on an SM.
+__global__ void __launch_bounds__(kLanes, 8)
 fused_lossgrad_packed_kernel(const float* __restrict__ tx, const float* __restrict__ ty,
                              const int* __restrict__ pages, const int* __restrict__ idx,
                              const float* __restrict__ origin,
@@ -223,60 +257,21 @@ fused_lossgrad_packed_kernel(const float* __restrict__ tx, const float* __restri
                              unsigned long long* __restrict__ dty,
                              int G2, int PG, int P, int tile, float inv_sigma, float blur_px2,
                              int dump_page) {
-  constexpr int kHalf = kLanes / 2;
   __shared__ int s_pages[kMaxPages];
-  __shared__ float s_part[kWarps][kMaxT2];
-  __shared__ float s_total[2][kMaxT2];  // Pi(1 - p) per pixel, per half
-  __shared__ float s_g[2][kMaxT2];      // dL/dalpha per pixel, per half
-  __shared__ float s_sq[2][kMaxT2];     // (alpha - mask)^2 per pixel, per half
-  const int t = blockIdx.x, b = blockIdx.y, k = threadIdx.x;
+  __shared__ StagedTris s_tri;
+  __shared__ unsigned s_lmask[kMaxT2][kWarps];  // per pixel index, A's lanes then B's
+  __shared__ float s_total[2 * kMaxT2];  // per pixel of A, then of B: log-sum, then Pi(1 - p)
+  __shared__ float s_g[2 * kMaxT2];      // dL/dalpha per pixel, per half
+  __shared__ float s_sq[2 * kMaxT2];     // (alpha - mask)^2 per pixel, per half
+  const int t = blockIdx.x, b = blockIdx.y;
   const long long bt = (long long)b * G2 + t;
   const int t2 = tile * tile;
   const int* pages_t = pages + bt * P;
   if (pages_t[0] == dump_page) return;  // empty and buddy rows
-  const bool primary = flags[bt] == 1;
-  const int half = (primary && k >= kHalf) ? 1 : 0;
-  const Face f = stage_tile(tx, ty, pages_t, idx, s_pages, bt, b, PG, P, k);
-  const float* org = half ? origin_b : origin;
-  const float ox = org[2 * bt], oy = org[2 * bt + 1];
-  lane_log_sums(f.tri, true, ox, oy, tile, inv_sigma, blur_px2, s_part);
-  __syncthreads();
-  const float* mask_a = mask + bt * t2;
-  const float* mask_b = mask + ((long long)b * G2 + buddy[bt]) * t2;
-  for (int i = k; i < t2; i += kLanes) {
-    if (primary) {
-      const float total_a = expf(s_part[0][i] + s_part[1][i]);
-      const float total_b = expf(s_part[2][i] + s_part[3][i]);
-      const float diff_a = (1.f - total_a) - mask_a[i];
-      const float diff_b = (1.f - total_b) - mask_b[i];
-      s_total[0][i] = total_a;
-      s_total[1][i] = total_b;
-      s_g[0][i] = 2.f * diff_a;
-      s_g[1][i] = 2.f * diff_b;
-      s_sq[0][i] = diff_a * diff_a;
-      s_sq[1][i] = diff_b * diff_b;
-    } else {
-      const float total = expf(log_sum_total(s_part, i));
-      const float diff = (1.f - total) - mask_a[i];
-      s_total[0][i] = total;
-      s_g[0][i] = 2.f * diff;
-      s_sq[0][i] = diff * diff;
-    }
-  }
-  __syncthreads();
-  if (k == 0) {
-    float e = 0.f;
-    for (int i = 0; i < t2; ++i) e += s_sq[0][i];
-    if (primary) {
-      float e_b = 0.f;
-      for (int i = 0; i < t2; ++i) e_b += s_sq[1][i];
-      e += e_b;
-    }
-    err[bt] = e;
-  }
-  float gx[3], gy[3];
-  corner_grads(f.tri, true, ox, oy, tile, inv_sigma, blur_px2, s_g[half], s_total[half], gx, gy);
-  add_fixed_point(f, gx, gy, dump_page, dtx, dty);
+  lossgrad_row(tx, ty, pages_t, idx, bt, b, PG, P, origin + 2 * bt, origin_b + 2 * bt,
+               mask + bt * t2, mask + ((long long)b * G2 + buddy[bt]) * t2, flags[bt] == 1, tile,
+               inv_sigma, blur_px2, dump_page, err + bt, dtx, dty, s_pages, s_tri, s_lmask,
+               s_total, s_g, s_sq);
 }
 
 // Replaces jrr_tpu/render/silhouette_fused.py::_fused_bwd_kernel (:814),

@@ -13,9 +13,10 @@
 // g[n, T2] are per pixel, row-major within the tile.
 //
 // Both kernels: one CTA per tile, 128 threads, thread k owns lane k; the
-// coverage passes are the shared ones of coverage.cuh. A tile without a
-// valid lane (most tiles of a body frame) writes its zero output and exits
-// before reading any triangle.
+// coverage passes are the shared ones of coverage.cuh: every pair in the
+// forward, near pairs only in the backward. A tile without a valid lane
+// (most tiles of a body frame) writes its zero output and exits before
+// reading any triangle.
 
 #include <cuda_runtime.h>
 
@@ -67,18 +68,29 @@ tiles_alpha_fwd_kernel(const float* __restrict__ origin, const float* __restrict
 // coverage (pass 1 for Pi(1 - p) per pixel, pass 2 per lane) instead of
 // storing it, as the Pallas kernel does, but routes the min-distance
 // gradient to the exact argmin (coverage.cuh) where the Pallas kernel uses
-// a 1e-4 band. Bound on this card: operations — pass 1 as in the forward,
-// pass 2 adds ~107 ops per (pixel, lane) with 0 < p < 1; the (6, 128) rows
-// written per tile are the byte share. Design: each thread keeps its six
-// corner sums in registers and writes its lane of the tile's rows once,
-// with no atomics, so the result repeats bit for bit; invalid lanes and
-// empty tiles write zeros.
-__global__ void __launch_bounds__(kLanes)
+// a 1e-4 band. Bound on this card: bytes — the (6, 128) rows written for
+// every tile, empty ones included, outweigh the ~76 ops per (pixel, lane)
+// pair in the lane's pixel box and ~107 more per pair with 0 < p < 1.
+// Design: only ~2% of the valid-lane pairs of the round-1 bins lie near
+// their triangle, so the kernel does work only there, on the loss kernels'
+// passes (coverage.cuh): each lane stages its triangle and sets its bit in
+// the lane masks of its pixel box, pass 1 walks each pixel's set lanes
+// into Pi(1 - p), pass 2 each lane's own box. An invalid lane gets an
+// empty box: round-1 bins fill invalid slots with face 0's real corners
+// and the pad lanes past K with zeros, a point face that pixel_box would
+// give the whole tile, and only `valid` keeps their p at 0 in the Pallas
+// kernel. Each thread keeps its six corner sums in registers and writes
+// its lane of the tile's rows once, with no atomics, so the result repeats
+// bit for bit; invalid lanes write zeros, and an empty tile (no valid
+// lane, one block vote) writes its zero rows, one coalesced store per
+// lane, and exits. At most 64 registers, so that 8 CTAs fit on an SM.
+__global__ void __launch_bounds__(kLanes, 8)
 tiles_alpha_bwd_kernel(const float* __restrict__ origin, const float* __restrict__ tri,
                        const float* __restrict__ valid, const float* __restrict__ g,
                        float* __restrict__ dtri, int tile, float inv_sigma, float blur_px2) {
-  __shared__ float s_part[kWarps][kMaxT2];
-  __shared__ float s_total[kMaxT2];  // Pi(1 - p) per pixel
+  __shared__ StagedTris s_tri;
+  __shared__ unsigned s_lmask[kMaxT2][kWarps];  // per pixel, the lanes whose box holds it
+  __shared__ float s_total[kMaxT2];  // log-sum over the lanes, then Pi(1 - p), per pixel
   __shared__ float s_g[kMaxT2];      // dL/dalpha per pixel
   const long long n = blockIdx.x;
   const int k = threadIdx.x;
@@ -92,16 +104,20 @@ tiles_alpha_bwd_kernel(const float* __restrict__ origin, const float* __restrict
   }
   const Tri f = load_tri(tri + n * 6 * kLanes, k);
   const float ox = origin[2 * n], oy = origin[2 * n + 1];
-  lane_log_sums(f, v, ox, oy, tile, inv_sigma, blur_px2, s_part);
+  const PixelBox box = v ? pixel_box(f, ox, oy, tile, blur_px2) : PixelBox{0u, 0u};
+  stage_tri(s_tri, f, k);
+  stage_lane_masks(box, tile, s_lmask);
+  __syncthreads();
+  box_log_sums(s_tri, s_lmask, 1, ox, oy, ox, oy, tile, inv_sigma, blur_px2, s_total);
   __syncthreads();
   const float* g_n = g + n * t2;
   for (int i = k; i < t2; i += kLanes) {
-    s_total[i] = expf(log_sum_total(s_part, i));
+    s_total[i] = expf(s_total[i]);
     s_g[i] = g_n[i];
   }
   __syncthreads();
   float gx[3], gy[3];
-  corner_grads(f, v, ox, oy, tile, inv_sigma, blur_px2, s_g, s_total, gx, gy);
+  box_corner_grads(f, box, ox, oy, tile, inv_sigma, blur_px2, s_g, s_total, gx, gy);
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
     dtri_n[(2 * c) * kLanes + k] = gx[c];

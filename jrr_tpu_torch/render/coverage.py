@@ -38,7 +38,7 @@ def edge_terms(px_x, px_y, ax, ay, bx, by):
     return cross, t, rx, ry, rx * rx + ry * ry
 
 
-# The loss kernel's cull (csrc/coverage.cuh, pixel_box): the blur radius
+# The near-pair kernels' cull (csrc/coverage.cuh, pixel_box): the blur radius
 # grown by 2^-10 so that rounding in the edge distances never drops a pair
 # with p > 0, and the area ratio below which a face counts as a sliver.
 BOX_GROW = 1.0009765625  # 1 + 2^-10
@@ -46,7 +46,8 @@ SLIVER = 0.000244140625  # 2^-12
 
 
 def near_box(px_x, px_y, rows, *, blur_px2: float) -> torch.Tensor:
-    """Pixels the CUDA loss kernel visits for each candidate: the pixel lies
+    """Pixels the CUDA loss kernels and the round-1 backward visit for each
+    candidate (the round-1 backward only for valid lanes): the pixel lies
     within √blur_px2 (grown by BOX_GROW) of the face's bounding box on both
     axes, or the face is a sliver (|2·area| ≤ SLIVER·Σ|e|², NaN included),
     whose inside test can hold far from it, and covers its whole tile.

@@ -1,9 +1,10 @@
 """The port's fused rasterizer against jrr_tpu on the CPU: bins equal exactly,
 plain α against the interpret-mode Pallas forward kernel (atol 1e-5), plain
 loss+grad against the interpret-mode loss+grad kernel (the JAX kernel test's
-criterion), the high-level loss entry with the interior skip, and the loss
-kernel's cull (`coverage.near_box`) against JAX's coverage: every pair with
-p > 0 lies in its face's pixel box."""
+criterion), the high-level loss entry with the interior skip, and the cull
+of the near-pair kernels (`coverage.near_box`) against JAX's coverage on the
+fused, lane-packed and round-1 layouts: every pair with p > 0 lies in its
+face's pixel box."""
 
 import jax
 import jax.numpy as jnp
@@ -301,9 +302,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 
 # ---------------------------------------------------------------------------
-# The CUDA loss kernel visits only the (pixel, lane) pairs in the face's
-# pixel box; coverage.near_box is its test in torch. A pair with p > 0
-# outside the box would lose its share of α and its gradient.
+# The CUDA loss kernels and the round-1 backward visit only the (pixel,
+# lane) pairs in the face's pixel box; coverage.near_box is their test in
+# torch. A pair with p > 0 outside the box would lose its share of α and
+# its gradient.
 # ---------------------------------------------------------------------------
 
 
@@ -316,43 +318,93 @@ def _tile_grid(origin, tile):
     return px_x, px_y
 
 
-def _covered_and_near(tri, origin, tile, inv_sigma, blur_px2):
+def _covered_and_near(tri, origin, tile, inv_sigma, blur_px2, valid=None):
     """(p > 0 by JAX's coverage, near_box) for tiles tri (N, 6, K) at origin
-    (N, 2): two (N, T², K) bool tensors."""
+    (N, 2), JAX's coverage gated by `valid` (N, 1, K) where given: two
+    (N, T², K) bool tensors."""
     px_x, px_y = _tile_grid(origin, tile)
     rows = tuple(tri[:, j, None, :] for j in range(6))
     p = sp._coverage_rows(jnp.asarray(px_x.numpy()), jnp.asarray(px_y.numpy()),
                           tuple(jnp.asarray(r.numpy()) for r in rows),
-                          inv_sigma=inv_sigma, blur_px2=blur_px2)[0]
+                          inv_sigma=inv_sigma, blur_px2=blur_px2,
+                          valid_row=None if valid is None else jnp.asarray(valid.numpy()))[0]
     near = coverage.near_box(px_x, px_y, rows, blur_px2=blur_px2)
     return torch.as_tensor(np.asarray(p) > 0), near
 
 
 @pytest.fixture(scope="module")
-def full_width_inputs():
+def full_width_problem():
+    """The full-width synthetic problem at batch 2 (batch 4 for the round-1
+    tiles, whose coarse phase covers under 10,000 pairs at batch 2)."""
+    from jrr_tpu_torch import problem
+
+    return {b: problem.synthetic_problem(batch=b, seed=0, device="cpu") for b in (2, 4)}
+
+
+@pytest.fixture(scope="module")
+def full_width_inputs(full_width_problem):
     """The kernel inputs of the full-width synthetic problem at batch 2 at
     the first rebin of each c2f phase (fused bins after the interior skip),
     as chip_smoke.py builds them at batch 256."""
     import chip_smoke
-    from jrr_tpu_torch import problem
 
-    prob = problem.synthetic_problem(batch=2, seed=0, device="cpu")
-    return {g: chip_smoke._kernel_inputs(prob, g) for g in ("fine", "coarse")}
+    return {g: chip_smoke._kernel_inputs(full_width_problem[2], g) for g in ("fine", "coarse")}
 
 
-@pytest.mark.parametrize("geometry", ["fine", "coarse"])
-def test_near_box_holds_every_pair_jax_covers(full_width_inputs, geometry):
-    """At 224²/tile 8 and 112²/tile 4: every (pixel, lane) of an occupied
-    tile with p > 0 in JAX's coverage lies in the lane's pixel box, and the
-    box keeps a small share of the pairs (the cull does cut)."""
-    x = full_width_inputs[geometry]
-    occupied = x["pages"][:, :, 0] != x["dump"]
-    tri = tsf._gather_tri(x["tx"], x["ty"], x["pages"], x["idx"])[occupied]
-    covered, near = _covered_and_near(tri, x["origin"][occupied], x["tile"], x["inv_sigma"],
-                                      x["blur_px2"])
+def _layout_pairs(layout, geometry, problems, fused_inputs):
+    """(covered, near, pairs) of one kernel's layout on the full-width
+    problem, covered and near (N, T², 128) over its occupied tiles: the
+    fused bins (the loss kernel), the same bins lane-packed (lanes [0, 64)
+    at `origin`, [64, 128) at `p_origin_b`, as chip_smoke._packed_pair_counts
+    splits them) or the round-1 tiles (chip_smoke._tile_inputs, the
+    backward kernel's input). Round-1 pairs are those of valid lanes, and an
+    invalid lane is near nowhere, as the kernel gives it an empty box;
+    fused and packed pairs are all of a row's 128 lanes."""
+    import chip_smoke
+
+    if layout == "round1":
+        t = chip_smoke._tile_inputs(problems[4], geometry)
+        valid = t["valid"][:, 0, :] > 0
+        occ = valid.any(dim=-1)
+        covered, near = _covered_and_near(t["tri"][occ], t["origin"][occ], t["tile"],
+                                          t["inv_sigma"], t["blur_px2"], valid=t["valid"][occ])
+        return covered, near & valid[occ][:, None, :], int(valid.sum()) * t["tile"] ** 2
+    x = fused_inputs[geometry]
+    pages, idx, origin_b = x["pages"], x["idx"], x["origin"]
+    if layout == "packed":
+        packed = tsf.pack_bins(x["bins"], x["num_verts"])
+        pages, idx, origin_b = packed.p_pages, packed.p_idx, packed.p_origin_b
+    occupied = pages[:, :, 0] != x["dump"]
+    tri = tsf._gather_tri(x["tx"], x["ty"], pages, idx)[occupied]
+    (cov_a, near_a), (cov_b, near_b) = (
+        _covered_and_near(tri[..., lanes], org[occupied], x["tile"], x["inv_sigma"], x["blur_px2"])
+        for lanes, org in ((slice(0, tsf.K_HALF), x["origin"]), (slice(tsf.K_HALF, None), origin_b))
+    )
+    covered, near = torch.cat([cov_a, cov_b], dim=-1), torch.cat([near_a, near_b], dim=-1)
+    return covered, near, covered.numel()
+
+
+_LAYOUT_CASES = [(layout, geometry) for layout in ("fused", "packed", "round1")
+                 for geometry in ("fine", "coarse")]
+
+
+# The fused cases keep the bare ids "fine" and "coarse", so that their test
+# names stay those of the fused-only test.
+@pytest.mark.parametrize(
+    "layout,geometry", _LAYOUT_CASES,
+    ids=[g if lay == "fused" else f"{lay}-{g}" for lay, g in _LAYOUT_CASES],
+)
+def test_near_box_holds_every_pair_jax_covers(full_width_problem, full_width_inputs, layout,
+                                             geometry):
+    """At 224²/tile 8 and 112²/tile 4, for each layout a near-pair kernel
+    walks (the fused bins, the lane-packed rows, the round-1 tiles): every
+    (pixel, lane) of an occupied tile with p > 0 in JAX's coverage lies in
+    the lane's pixel box at its own tile's origin, and the box keeps a small
+    share of the pairs (the cull does cut; round-1: of the valid lanes')."""
+    covered, near, pairs = _layout_pairs(layout, geometry, full_width_problem, full_width_inputs)
     assert int(covered.sum()) > 10000
     assert not bool((covered & ~near).any())
-    assert float(near.float().mean()) < 0.15
+    assert int(near.sum()) < 0.15 * pairs
 
 
 @pytest.mark.parametrize("geometry", ["fine", "coarse"])
@@ -410,3 +462,33 @@ def test_near_box_constructed_cases(case):
         assert bool(covered.any())
     else:
         assert not bool(near.any()) and not bool(covered.any())
+
+
+def test_round1_invalid_and_pad_lanes_need_the_valid_gate():
+    """Round-1 tiles from `pack_tri`: slot 0 a real face, slot 1 an invalid
+    slot holding face 0's corners (binning fills invalid slots with face 0),
+    lanes 2-127 the zero pad, a point face at (0, 0). `near_box` gives the
+    point face the whole tile and the invalid slot face 0's box, while JAX's
+    coverage gated by `valid` gives both p = 0 everywhere: the backward
+    kernel gives invalid lanes an empty box before the box test, and the
+    gated box still holds every pair JAX covers."""
+    from jrr_tpu_torch.render import silhouette_pallas as tsp
+
+    face = [[2.0, 2.0], [5.0, 2.5], [3.0, 5.0]]
+    sel_xy = np.array([[face, face]], dtype=np.float32)  # (1, K=2, 3, 2)
+    sel_valid = np.array([[True, False]])
+    tri, valid, k_pad = tsp.pack_tri(_t(sel_xy), _t(sel_valid))
+    jtri, jvalid, _ = sp.pack_tri(jnp.asarray(sel_xy), jnp.asarray(sel_valid))
+    np.testing.assert_array_equal(tri.numpy(), np.asarray(jtri))
+    np.testing.assert_array_equal(valid.numpy(), np.asarray(jvalid))
+    assert k_pad == 128 and not bool(tri[0, :, 2:].any())
+
+    origin = torch.zeros(1, 2)
+    covered, near = _covered_and_near(tri, origin, 8, 2.0, _BOX_R**2, valid=valid)
+    ungated, _ = _covered_and_near(tri, origin, 8, 2.0, _BOX_R**2)
+    covered, near, ungated = covered[0], near[0], ungated[0]  # (T², 128)
+    assert bool(near[:, 2:].all()) and bool(ungated[:, 2:].all())  # the point face: whole tile
+    assert torch.equal(near[:, 1], near[:, 0]) and bool(ungated[:, 1].any())
+    assert bool(covered[:, 0].any()) and not bool(covered[:, 1:].any())
+    gated = near & (valid[0] > 0)
+    assert not bool((covered & ~gated).any()) and not bool(gated[:, 1:].any())
