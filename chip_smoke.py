@@ -11,10 +11,13 @@
    fused bins after `pack_bins` (also against the unpacked kernel and
    against its own repeat); the loss kernel against its own repeat too, and
    its time over the α VJP kernel's on the same bins (`lossgrad_over_bwd`:
-   the near-pair design against the all-pairs one); the round-1 backward
-   against its own repeat; the packed kernel's NORMAL rows against the
-   unpacked kernel's err bit for bit. Bounds count a coverage per (pixel,
-   lane) pair in the face's pixel box and the box test per other pair;
+   the near-pair design against the all-pairs one); both α kernels and the
+   round-1 backward against their own repeats; the interior skip's tile
+   decisions from the fused α kernel against those from the plain α on the
+   bins the skip sees (`skip_flips`); the packed kernel's NORMAL rows
+   against the unpacked kernel's err bit for bit. Bounds count a coverage
+   per (pixel, lane) pair in the face's pixel box and the box test per
+   other pair;
 3. drives the main path once: `refine_batch` at batch 256, 1000 + 100
    steps, shipped defaults, live discriminators (one warm-up, then three
    timed runs, the median reported), with every kernel's launch count set to
@@ -91,6 +94,10 @@ ALPHA_ATOL = 1e-5
 ERR_RTOL = 1e-5
 GRAD_ATOL_REL, GRAD_RTOL = 3e-4, 2e-4
 REFINE_PARAM_ATOL = 5e-4
+# How near its threshold the plain α's deciding extreme may lie for an
+# interior-skip tile decision to differ between the kernel's α and the plain
+# α: ~4 float32 ulp at 1 − 1e-6, far inside ALPHA_ATOL.
+SKIP_BAND = 2.5e-7
 GRAD_SEEDS = range(1, 13)  # problem seeds of the stage-B gradient check
 
 BATCH = 256
@@ -169,12 +176,13 @@ def _kernel_inputs(problem, geometry):
     spec = losses.rasterizer_spec(cfg)
     with torch.no_grad():
         verts = losses.forward_frame(model, init).vertices
-        bins = sf.compute_fused_bins(verts, model, init.cam_t, spec)
-        bins = sf.apply_interior_skip(bins, verts, model, init.cam_t, spec)
+        pre_skip = sf.compute_fused_bins(verts, model, init.cam_t, spec)
+        bins = sf.apply_interior_skip(pre_skip, verts, model, init.cam_t, spec)
         _, tx, ty, inv_sigma, blur_px2 = sf._prep_kernel_inputs(verts, model, init.cam_t, spec, bins)
     mask_tiles = sf.image_to_tiles(mask, spec.tile_size).contiguous()
     return dict(
         tx=tx, ty=ty, pages=bins.pages, idx=bins.idx, origin=bins.origin, mask=mask_tiles,
+        pre_skip=(pre_skip.pages, pre_skip.idx),
         tile=spec.tile_size, inv_sigma=inv_sigma, blur_px2=blur_px2,
         dump=sf.dump_page_id(model.num_verts), bins=bins, num_verts=model.num_verts,
     )
@@ -306,9 +314,28 @@ def _fused_alpha_vjp_plain(tx, ty, pages, idx, origin, g, tile, inv_sigma, blur_
         return torch.autograd.grad(alpha, (tx_, ty_), g)
 
 
+def skip_decision_flips(alpha, alpha_plain, band=SKIP_BAND):
+    """`apply_interior_skip`'s tile decisions (lo: every α of the tile ≤
+    _SAT_EPS; hi: every α ≥ 1 − _SAT_EPS) from the kernel's α and from the
+    plain α, both (..., T²): (tiles whose decisions differ, those of them
+    whose plain α's deciding extreme, its largest α for lo and its smallest
+    for hi, lies more than `band` from the threshold). Another summation
+    order may move an α within a few ulp of a threshold across it; a flip
+    farther out is a fault."""
+    from jrr_tpu_torch.render.silhouette_fused import _SAT_EPS
+
+    lo_flip = (alpha <= _SAT_EPS).all(-1) != (alpha_plain <= _SAT_EPS).all(-1)
+    hi_flip = (alpha >= 1.0 - _SAT_EPS).all(-1) != (alpha_plain >= 1.0 - _SAT_EPS).all(-1)
+    lo_far = (alpha_plain.amax(-1) - _SAT_EPS).abs() > band
+    hi_far = (alpha_plain.amin(-1) - (1.0 - _SAT_EPS)).abs() > band
+    return int((lo_flip | hi_flip).sum()), int(((lo_flip & lo_far) | (hi_flip & hi_far)).sum())
+
+
 def check_kernels(problem):
     """Each fused kernel against its plain version at both geometries +
-    all-empty."""
+    all-empty; at both geometries also the α kernel on the bins the
+    interior skip sees (the main path's launches), and the skip's tile
+    decisions from its α against those from the plain α."""
     import torch
 
     from jrr_tpu_torch import kernels
@@ -323,8 +350,10 @@ def check_kernels(problem):
         consts = (x["tile"], x["inv_sigma"], x["blur_px2"])
 
         alpha = kernels.fused_alpha_fwd(*bins, *consts, x["dump"])
+        alpha_again = kernels.fused_alpha_fwd(*bins, *consts, x["dump"])
         alpha_plain = _chunked(sf.fused_tiles_alpha_plain, bins, consts)
         torch.cuda.synchronize()
+        _check(torch.equal(alpha, alpha_again), f"{geometry}: two fused_alpha_fwd launches differ")
         a_err = float((alpha - alpha_plain).abs().max())
         _check(a_err <= ALPHA_ATOL, f"{geometry}: fused_alpha_fwd max|Δα| {a_err} > {ALPHA_ATOL}")
 
@@ -353,6 +382,18 @@ def check_kernels(problem):
             bwd_max_abs_err=b_err, bwd_scale=b_scale, bwd_tolerance_use=b_viol,
         )
         if geometry != "empty":
+            pre = (x["tx"], x["ty"], *x["pre_skip"], x["origin"])
+            rebin_alpha = kernels.fused_alpha_fwd(*pre, *consts, x["dump"])
+            rebin_plain = _chunked(sf.fused_tiles_alpha_plain, pre, consts)
+            torch.cuda.synchronize()
+            r_err = float((rebin_alpha - rebin_plain).abs().max())
+            _check(r_err <= ALPHA_ATOL,
+                   f"{geometry}: fused_alpha_fwd before the skip max|Δα| {r_err} > {ALPHA_ATOL}")
+            flips, far = skip_decision_flips(rebin_alpha, rebin_plain)
+            _check(far == 0, f"{geometry}: {far} interior-skip decisions flip farther than "
+                             f"{SKIP_BAND} from their threshold")
+            row.update(rebin_alpha_max_abs_err=r_err, skip_flips=flips)
+            row["fwd_rebin_ms"] = _time_ms(lambda: kernels.fused_alpha_fwd(*pre, *consts, x["dump"]), 20)
             pairs, near, active, occ = _pair_counts(x)
             row.update(occupied_tiles=occ, pairs=pairs, near_pairs=near, active_pairs=active,
                        near_share=near / pairs)
@@ -565,8 +606,8 @@ def _tile_bound_ms(t, ops, backward, occ, lanes):
 
 def check_tile_kernels(problem):
     """The round-1 tile kernels (forward and backward) against their plain
-    versions on the round-1 bins at both geometries + all-empty, and the
-    backward against its own repeat (bit for bit)."""
+    versions on the round-1 bins at both geometries + all-empty, and each
+    against its own repeat (bit for bit)."""
     import torch
 
     from jrr_tpu_torch import kernels
@@ -583,11 +624,13 @@ def check_tile_kernels(problem):
         g = _seeded_uniform((t["origin"].shape[0], t["tile"] ** 2), seed=5)
 
         alpha = kernels.tiles_alpha_fwd(*args, *consts)
+        alpha_again = kernels.tiles_alpha_fwd(*args, *consts)
         alpha_p = _chunked(sp.tiles_alpha_plain, args, consts, per)
         dtri = kernels.tiles_alpha_bwd(*args, g, *consts)
         dtri_again = kernels.tiles_alpha_bwd(*args, g, *consts)
         dtri_p = _chunked(_tiles_alpha_vjp_plain, args + (g,), consts, per)
         torch.cuda.synchronize()
+        _check(torch.equal(alpha, alpha_again), f"{geometry}: two tiles_alpha_fwd launches differ")
         _check(torch.equal(dtri, dtri_again), f"{geometry}: two tiles_alpha_bwd launches differ")
         a_err = float((alpha - alpha_p).abs().max())
         _check(a_err <= ALPHA_ATOL, f"{geometry}: tiles_alpha_fwd max|Δα| {a_err} > {ALPHA_ATOL}")
@@ -1295,14 +1338,23 @@ def main() -> int:
                     coarse_lossgrad_over_bwd=checks["coarse"]["lossgrad_over_bwd"],
                     near_share=checks["fine"]["near_share"],
                     coarse_near_share=checks["coarse"]["near_share"])
+    alpha_fwd = entry("fused_alpha_fwd", "silhouette_fused.cu",
+                      "jrr_tpu/render/silhouette_fused.py:719", launches["fused_alpha_fwd"], checks,
+                      "fwd", f"atol {ALPHA_ATOL}; two launches bit for bit; interior-skip "
+                             f"decisions flip only within {SKIP_BAND} of their threshold")
+    # The main path launches it on the bins before the skip.
+    alpha_fwd.update(rebin_ms=checks["fine"]["fwd_rebin_ms"],
+                     coarse_rebin_ms=checks["coarse"]["fwd_rebin_ms"],
+                     skip_flips=checks["fine"]["skip_flips"],
+                     coarse_skip_flips=checks["coarse"]["skip_flips"])
     _emit({"kernels": [
         lossgrad,
-        entry("fused_alpha_fwd", "silhouette_fused.cu", "jrr_tpu/render/silhouette_fused.py:719",
-              launches["fused_alpha_fwd"], checks, "fwd", f"atol {ALPHA_ATOL}"),
+        alpha_fwd,
         entry("fused_alpha_bwd", "silhouette_fused.cu", "jrr_tpu/render/silhouette_fused.py:814",
               vjp_launches["fused_alpha_bwd"], checks, "bwd", grad_tol),
         entry("tiles_alpha_fwd", "silhouette_tiles.cu", "jrr_tpu/render/silhouette_pallas.py:169",
-              round1_launches["tiles_alpha_fwd"], tile_checks, "fwd", f"atol {ALPHA_ATOL}"),
+              round1_launches["tiles_alpha_fwd"], tile_checks, "fwd",
+              f"atol {ALPHA_ATOL}; two launches bit for bit"),
         entry("tiles_alpha_bwd", "silhouette_tiles.cu", "jrr_tpu/render/silhouette_pallas.py:182",
               round1_launches["tiles_alpha_bwd"], tile_checks, "bwd",
               f"{grad_tol}; two launches bit for bit"),

@@ -10,24 +10,27 @@
 // Every kernel runs one CTA per tile (or lane-packed pair of tiles), 128
 // threads, thread k owning candidate lane k (one triangle). Two ways to
 // cover a tile:
-// - Every pixel for every lane (lane_log_sums, corner_grads): the alpha
-//   kernels fused_alpha_fwd_kernel and tiles_alpha_fwd_kernel and the alpha
-//   VJP fused_alpha_bwd_kernel. Pass 1 computes, per pixel, log(1 - p) for
-//   the thread's triangle and block-reduces it over the 128 lanes (warp
-//   shuffles, then a 4-warp shared-memory step) into alpha = 1 - exp(sum).
-//   Pass 2 (the gradients) recomputes the coverage per pixel and
-//   accumulates the thread's six corner gradients in registers.
-// - Only the pairs near a triangle (pixel_box, stage_lane_masks,
-//   box_log_sums, box_corner_grads): the loss kernels fused_lossgrad_kernel
-//   and fused_lossgrad_packed_kernel and the round-1 backward
-//   tiles_alpha_bwd_kernel. p > 0 only within the blur radius of a
-//   triangle (~1.1 px at 224^2, 0.56 px at 112^2), so ~8% of the (pixel,
-//   lane) pairs can have p > 0. Each lane marks its pixels in a per-pixel
-//   128-bit lane mask; pass 1 walks each pixel's set lanes, pass 2 each
-//   lane's own pixels. Pairs outside the box have p == 0 exactly, so they
-//   add log(1) = 0 and no gradient. A lane-packed row splits its lanes into
-//   two halves, each a tile at its own origin: a half's lanes mark and sum
-//   only its own tile's pixels.
+// - Every pixel for every lane (lane_log_sums, corner_grads): only the
+//   alpha VJP fused_alpha_bwd_kernel, kept as the yardstick of that
+//   design. Pass 1 computes, per pixel, log(1 - p) for the thread's
+//   triangle and block-reduces it over the 128 lanes (warp shuffles, then a
+//   4-warp shared-memory step); pass 2 (the gradients) recomputes the
+//   coverage per pixel and accumulates the thread's six corner gradients in
+//   registers.
+// - Only the pairs near a triangle (pixel_box, near_log_sums,
+//   box_corner_grads): the alpha kernels fused_alpha_fwd_kernel and
+//   tiles_alpha_fwd_kernel (pass 1 only), the loss kernels
+//   fused_lossgrad_kernel and fused_lossgrad_packed_kernel and the round-1
+//   backward tiles_alpha_bwd_kernel. p > 0 only within the blur radius of
+//   a triangle (~1.1 px at 224^2, 0.56 px at 112^2), so ~8% of the fused
+//   bins' (pixel, lane) pairs and ~2% of the round-1 tiles' can have p > 0.
+//   Each lane marks its pixels in a per-pixel 128-bit lane mask; pass 1
+//   walks each pixel's set lanes, pass 2 each lane's own pixels. Pairs
+//   outside the box have p == 0 exactly, so they add log(1) = 0 and no
+//   gradient. All five kernels run one pass 1 (near_log_sums), so on the
+//   same lanes they form the same Pi(1 - p) bit for bit. A lane-packed row
+//   splits its lanes into two halves, each a tile at its own origin: a
+//   half's lanes mark and sum only its own tile's pixels.
 
 #pragma once
 
@@ -170,8 +173,8 @@ __device__ __forceinline__ void corner_grads(const Tri& f, bool valid, float ox,
 }
 
 // ---------------------------------------------------------------------------
-// Work only where a triangle can cover a pixel (the loss kernels and the
-// round-1 backward).
+// Work only where a triangle can cover a pixel (every kernel but the alpha
+// VJP).
 // ---------------------------------------------------------------------------
 
 // The blur radius grown by 2^-10: the edge distances round with an error
@@ -327,6 +330,22 @@ __device__ __forceinline__ void box_log_sums(const StagedTris& s_tri,
     for (int o = groups >> 1; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
     if (item < items && w % groups == 0) s_logsum[item] = s;
   }
+}
+
+// Pass 1 of the near-pair kernels, called by all 128 threads: stages the
+// thread's triangle f and its pixel box (empty for a lane that must add
+// nothing), then leaves box_log_sums' per-pixel log sums in s_logsum, ready
+// to read (it ends in a barrier). The box is at the lane's own tile's
+// origin; the halves' origins are as box_log_sums'.
+__device__ __forceinline__ void near_log_sums(const Tri& f, PixelBox box, int halves, float ox,
+                                              float oy, float ox_b, float oy_b, int tile,
+                                              float inv_sigma, float blur_px2, StagedTris& s_tri,
+                                              unsigned (*s_lmask)[kWarps], float* s_logsum) {
+  stage_tri(s_tri, f, threadIdx.x);
+  stage_lane_masks(box, tile, s_lmask);
+  __syncthreads();
+  box_log_sums(s_tri, s_lmask, halves, ox, oy, ox_b, oy_b, tile, inv_sigma, blur_px2, s_logsum);
+  __syncthreads();
 }
 
 // Pass 2 over the thread's own box: as corner_grads, on the pixels of `box`

@@ -18,9 +18,9 @@
 // candidate lane k. Each thread decodes its face's three corners through
 // `pages` (staged in shared memory) and reads them from tx/ty (28 KB per
 // frame, L2-resident across the frame's tiles); the coverage passes are the
-// shared ones of coverage.cuh: near pairs only in the two loss kernels
-// (fused_lossgrad_kernel, fused_lossgrad_packed_kernel), every pair in the
-// alpha kernel and its VJP.
+// shared ones of coverage.cuh: near pairs only in the alpha kernel (pass 1)
+// and the two loss kernels (fused_lossgrad_kernel,
+// fused_lossgrad_packed_kernel), every pair in the alpha VJP.
 
 #include <cuda_runtime.h>
 
@@ -90,19 +90,28 @@ __device__ __forceinline__ Face stage_tile(const float* tx, const float* ty,
 }
 
 // Replaces jrr_tpu/render/silhouette_fused.py::_fused_fwd_kernel (:719).
-// Bound on this card: operations — per (pixel, lane) ~70 f32 ops plus an
-// expf, a logf and a division, against ~4 bytes of input per pixel; the
-// inputs (tables, idx, pages) are read once per CTA. Design: empty tiles
-// write zeros and exit before any gather; the lane product is exp of a
-// shuffle-reduced log sum (no shared-memory transpose).
-__global__ void __launch_bounds__(kLanes)
+// alpha = 1 - exp(sum over the lanes of log max(1 - p, 1e-30)). Bound on
+// this card: bytes — the coordinate tables and page lists read once and
+// alpha written for every tile, empty ones included, outweigh the ~76 ops
+// per (pixel, lane) pair in the face's pixel box and ~2 per other pair.
+// Design: only ~8% of the pairs lie near their triangle, so the kernel
+// runs the loss kernels' pass 1 (near_log_sums) and no pass 2: each lane
+// stages its triangle and marks its pixel box, and each pixel sums its set
+// lanes. The fused bins have no invalid lanes: the pad lanes hold the dump
+// triangle, whose box is empty. On the same bins alpha is bit for bit the
+// 1 - Pi(1 - p) of fused_lossgrad_kernel, and two launches agree bit for
+// bit. Empty tiles write zeros and exit before any gather. At most 64
+// registers, so that 8 CTAs fit on an SM.
+__global__ void __launch_bounds__(kLanes, 8)
 fused_alpha_fwd_kernel(const float* __restrict__ tx, const float* __restrict__ ty,
                        const int* __restrict__ pages, const int* __restrict__ idx,
                        const float* __restrict__ origin, float* __restrict__ out,
                        int G2, int PG, int P, int tile, float inv_sigma, float blur_px2,
                        int dump_page) {
   __shared__ int s_pages[kMaxPages];
-  __shared__ float s_part[kWarps][kMaxT2];
+  __shared__ StagedTris s_tri;
+  __shared__ unsigned s_lmask[kMaxT2][kWarps];  // per pixel, the lanes whose box holds it
+  __shared__ float s_total[kMaxT2];             // log-sum over the lanes per pixel
   const int t = blockIdx.x, b = blockIdx.y, k = threadIdx.x;
   const long long bt = (long long)b * G2 + t;
   const int t2 = tile * tile;
@@ -112,11 +121,11 @@ fused_alpha_fwd_kernel(const float* __restrict__ tx, const float* __restrict__ t
     for (int i = k; i < t2; i += kLanes) out_t[i] = 0.f;
     return;
   }
-  const Face f = stage_tile(tx, ty, pages_t, idx, s_pages, bt, b, PG, P, k);
-  lane_log_sums(f.tri, true, origin[2 * bt], origin[2 * bt + 1], tile, inv_sigma, blur_px2,
-                s_part);
-  __syncthreads();
-  for (int i = k; i < t2; i += kLanes) out_t[i] = 1.f - expf(log_sum_total(s_part, i));
+  const Tri tri = stage_tile(tx, ty, pages_t, idx, s_pages, bt, b, PG, P, k).tri;
+  const float ox = origin[2 * bt], oy = origin[2 * bt + 1];
+  near_log_sums(tri, pixel_box(tri, ox, oy, tile, blur_px2), 1, ox, oy, ox, oy, tile, inv_sigma,
+                blur_px2, s_tri, s_lmask, s_total);
+  for (int i = k; i < t2; i += kLanes) out_t[i] = 1.f - expf(s_total[i]);
 }
 
 // The loss kernels' work on one row, near pairs only (coverage.cuh): a
@@ -145,12 +154,8 @@ __device__ __forceinline__ void lossgrad_row(
   const float* org = h ? origin_bt : origin_t;
   const float ox = org[0], oy = org[1];
   const PixelBox box = pixel_box(tri, ox, oy, tile, blur_px2);
-  stage_tri(s_tri, tri, k);
-  stage_lane_masks(box, tile, s_lmask);
-  __syncthreads();
-  box_log_sums(s_tri, s_lmask, halves, origin_t[0], origin_t[1], origin_bt[0], origin_bt[1], tile,
-               inv_sigma, blur_px2, s_total);
-  __syncthreads();
+  near_log_sums(tri, box, halves, origin_t[0], origin_t[1], origin_bt[0], origin_bt[1], tile,
+                inv_sigma, blur_px2, s_tri, s_lmask, s_total);
   for (int j = k; j < halves * t2; j += kLanes) {
     const float total = expf(s_total[j]);
     const float diff = (1.f - total) - (j < t2 ? mask_a[j] : mask_b[j - t2]);

@@ -13,10 +13,10 @@
 // g[n, T2] are per pixel, row-major within the tile.
 //
 // Both kernels: one CTA per tile, 128 threads, thread k owns lane k; the
-// coverage passes are the shared ones of coverage.cuh: every pair in the
-// forward, near pairs only in the backward. A tile without a valid lane
-// (most tiles of a body frame) writes its zero output and exits before
-// reading any triangle.
+// coverage passes are the shared near-pair ones of coverage.cuh (pass 1 in
+// the forward, passes 1 and 2 in the backward), with an empty pixel box for
+// every invalid lane. A tile without a valid lane (most tiles of a body
+// frame) writes its zero output and exits before reading any triangle.
 
 #include <cuda_runtime.h>
 
@@ -38,16 +38,27 @@ __device__ __forceinline__ Tri load_tri(const float* tri_n, int k) {
 
 // Replaces jrr_tpu/render/silhouette_pallas.py::_fwd_kernel (:169).
 // alpha = 1 - exp(sum over valid lanes of log max(1 - p, 1e-30)), the lane
-// product of _lane_prod (:61-74). Bound on this card: operations — ~76 f32
-// ops plus an expf, a logf and a division per (pixel, valid lane), against
-// 4 bytes of output per pixel and 28 bytes of input per lane. Design: the
-// emptiness test is one block vote on the valid row, so an empty tile
-// costs one 512-byte read and its zero write.
-__global__ void __launch_bounds__(kLanes)
+// product of _lane_prod (:61-74). Bound on this card: bytes — the alpha
+// rows written for every tile, empty ones included, and the valid rows
+// read, outweigh the ~76 ops per (pixel, valid lane) pair in the lane's
+// pixel box and ~2 per other pair. Design: only ~2% of the valid-lane pairs
+// of the round-1 bins lie near their triangle, so the kernel runs the
+// backward's pass 1 (near_log_sums) and no pass 2: each valid lane stages
+// its triangle and marks its pixel box, and each pixel sums its set lanes.
+// An invalid lane gets an empty box: round-1 bins fill invalid slots with
+// face 0's real corners and the pad lanes past K with zeros, a point face
+// that pixel_box would give the whole tile. The lane masks are set with an
+// OR and each pixel's lanes summed in a fixed order, so the result repeats
+// bit for bit. An empty tile (no valid lane, one block vote) costs one
+// 512-byte read and its zero write. At most 64 registers, so that 8 CTAs
+// fit on an SM.
+__global__ void __launch_bounds__(kLanes, 8)
 tiles_alpha_fwd_kernel(const float* __restrict__ origin, const float* __restrict__ tri,
                        const float* __restrict__ valid, float* __restrict__ out, int tile,
                        float inv_sigma, float blur_px2) {
-  __shared__ float s_part[kWarps][kMaxT2];
+  __shared__ StagedTris s_tri;
+  __shared__ unsigned s_lmask[kMaxT2][kWarps];  // per pixel, the lanes whose box holds it
+  __shared__ float s_total[kMaxT2];             // log-sum over the lanes per pixel
   const long long n = blockIdx.x;
   const int k = threadIdx.x;
   const int t2 = tile * tile;
@@ -58,9 +69,10 @@ tiles_alpha_fwd_kernel(const float* __restrict__ origin, const float* __restrict
     return;
   }
   const Tri f = load_tri(tri + n * 6 * kLanes, k);
-  lane_log_sums(f, v, origin[2 * n], origin[2 * n + 1], tile, inv_sigma, blur_px2, s_part);
-  __syncthreads();
-  for (int i = k; i < t2; i += kLanes) out_n[i] = 1.f - expf(log_sum_total(s_part, i));
+  const float ox = origin[2 * n], oy = origin[2 * n + 1];
+  const PixelBox box = v ? pixel_box(f, ox, oy, tile, blur_px2) : PixelBox{0u, 0u};
+  near_log_sums(f, box, 1, ox, oy, ox, oy, tile, inv_sigma, blur_px2, s_tri, s_lmask, s_total);
+  for (int i = k; i < t2; i += kLanes) out_n[i] = 1.f - expf(s_total[i]);
 }
 
 // Replaces jrr_tpu/render/silhouette_pallas.py::_bwd_kernel (:182): given
@@ -76,10 +88,8 @@ tiles_alpha_fwd_kernel(const float* __restrict__ origin, const float* __restrict
 // passes (coverage.cuh): each lane stages its triangle and sets its bit in
 // the lane masks of its pixel box, pass 1 walks each pixel's set lanes
 // into Pi(1 - p), pass 2 each lane's own box. An invalid lane gets an
-// empty box: round-1 bins fill invalid slots with face 0's real corners
-// and the pad lanes past K with zeros, a point face that pixel_box would
-// give the whole tile, and only `valid` keeps their p at 0 in the Pallas
-// kernel. Each thread keeps its six corner sums in registers and writes
+// empty box, as in the forward: only `valid` keeps its p at 0 in the
+// Pallas kernel. Each thread keeps its six corner sums in registers and writes
 // its lane of the tile's rows once, with no atomics, so the result repeats
 // bit for bit; invalid lanes write zeros, and an empty tile (no valid
 // lane, one block vote) writes its zero rows, one coalesced store per
@@ -105,11 +115,7 @@ tiles_alpha_bwd_kernel(const float* __restrict__ origin, const float* __restrict
   const Tri f = load_tri(tri + n * 6 * kLanes, k);
   const float ox = origin[2 * n], oy = origin[2 * n + 1];
   const PixelBox box = v ? pixel_box(f, ox, oy, tile, blur_px2) : PixelBox{0u, 0u};
-  stage_tri(s_tri, f, k);
-  stage_lane_masks(box, tile, s_lmask);
-  __syncthreads();
-  box_log_sums(s_tri, s_lmask, 1, ox, oy, ox, oy, tile, inv_sigma, blur_px2, s_total);
-  __syncthreads();
+  near_log_sums(f, box, 1, ox, oy, ox, oy, tile, inv_sigma, blur_px2, s_tri, s_lmask, s_total);
   const float* g_n = g + n * t2;
   for (int i = k; i < t2; i += kLanes) {
     s_total[i] = expf(s_total[i]);

@@ -20,6 +20,7 @@ m̂ = m/(1−b1^t), v̂ = v/(1−b2^t), b1 0.9, b2 0.999, eps 1e-8 after the sqr
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import List, NamedTuple, Optional
 
@@ -75,6 +76,20 @@ def _leaves(params: FrameParams) -> List[torch.Tensor]:
     return [x.detach().clone().requires_grad_(True) for x in params]
 
 
+@contextlib.contextmanager
+def _no_tf32():
+    """TF32 off for matmuls and cuDNN inside; the caller's flags restored
+    on every exit, exceptions included."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+@_no_tf32()
 def refine_batch(
     model,
     j_reg_raw: torch.Tensor,
@@ -88,12 +103,10 @@ def refine_batch(
 ) -> RefineResult:
     """Run stage A + stage B on a batch of frames.
 
-    Float32 products stay float32 on the card: this entry turns TF32 off for
-    matmuls and cuDNN (the SMPL and regressor products would otherwise keep
-    only ~3 decimal digits).
+    Float32 products stay float32 on the card: TF32 is off for matmuls and
+    cuDNN while this runs (the SMPL and regressor products would otherwise
+    keep only ~3 decimal digits), and the caller's flags are restored after.
     """
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     sil = cfg.silhouette
     coarse_steps = int(sil.coarse_frac * cfg.stage_b_steps)
     if (

@@ -4,7 +4,10 @@ tolerances (atol 5e-4 on params and joints3d, 1e-4 on the stage-B curve):
 - the golden problem (tests/make_golden.py: fused silhouette, rebin 5,
   stride 2, interior skip) reproduces tests/golden_refinement.npz;
 - a coarse-to-fine problem (image 32 → 16, coarse stride 4, rebin 2,
-  interior skip, live discriminators) follows JAX's own refine_batch.
+  interior skip, live discriminators) follows JAX's own refine_batch;
+- in float64, a small scene (128 vertices, 4 frames at 64², rebin 5) follows
+  JAX's float64 refinement to 1e-5 over 5 stage-B steps;
+- refine_batch turns TF32 off only while it runs.
 """
 
 import dataclasses
@@ -16,7 +19,10 @@ import pytest
 import torch
 
 import make_golden
+from jrr_tpu import config as cfg_lib
+from jrr_tpu.data import fixtures
 from jrr_tpu.models import discriminator as disc
+from jrr_tpu.models import smpl as smpl_mod
 from jrr_tpu.refine import engine
 from jrr_tpu_torch import convert
 from jrr_tpu_torch.refine import engine as tengine
@@ -87,3 +93,94 @@ def test_coarse_to_fine_path_matches_jax():
     assert res.stage_b_terms.silhouette.shape == (8,)
     active = (res.stage_b_terms.silhouette.numpy() != 0).tolist()
     assert active == [True, False, False, False, True, False, True, False]
+
+
+def _float64(x):
+    x = np.asarray(x)
+    return x.astype(np.float64) if np.issubdtype(x.dtype, np.floating) else x
+
+
+def _to_double(t):
+    return t.double() if torch.is_tensor(t) and t.is_floating_point() else t
+
+
+def test_float64_small_scene_matches_jax():
+    """The scene of test_lane_pack.py::test_engine_lane_pack_runs_cpu (a
+    128-vertex synthetic SMPL, 4 frames at 64², init offset +0.02, tile 8,
+    rebin 5, faces_per_tile 96) refined by both packages in float64, 5 + 5
+    steps: the parameters agree to 1e-5. In float32 the two part through
+    rounding alone (3e-4 after 5 stage-B steps, as far as JAX's own float32
+    run lies from its float64 one), so float64 is where a port fault shows.
+    The problem is built in 32-bit mode: under x64 the fixture draws other
+    numbers."""
+    model = smpl_mod.synthetic_smpl_model(seed=0, num_verts=128, num_faces=200)
+    j_reg = np.zeros((17, 128), np.float32)
+    rng = np.random.default_rng(0)
+    for j in range(17):
+        j_reg[j, rng.choice(128, 4, replace=False)] = 1.0
+    gt, data = fixtures.make_synthetic_frames(model, j_reg, 4, seed=1, image_size=64)
+    init = jax.tree.map(lambda x: x + 0.02, gt)
+    cfg = cfg_lib.RefinerConfig(
+        stage_a_steps=5, stage_b_steps=5, use_discriminators=False,
+        silhouette=cfg_lib.SilhouetteConfig(image_size=64, tile_size=8, rebin_interval=5,
+                                            coarse_frac=0.0, interior_skip=False),
+    )
+    model, init, data = jax.tree.map(np.asarray, (model, init, data))
+    with jax.enable_x64(True):
+        args = jax.tree.map(lambda x: jax.numpy.asarray(_float64(x)), (model, j_reg, init, data))
+        want = engine.refine_batch(*args[:2], *args[2:], cfg)
+        want = {k: np.asarray(getattr(want.params, k)) for k in PARAMS}
+    assert want["pose6d"].dtype == np.float64
+    tm = convert.smpl_model(model, device="cpu")
+    tm = dataclasses.replace(tm, **{f.name: _to_double(getattr(tm, f.name))
+                                    for f in dataclasses.fields(tm)})
+    ti = convert.frame_params(init, device="cpu")
+    td = convert.frame_batch(data, device="cpu")
+    got = tengine.refine_batch(
+        tm, torch.as_tensor(j_reg, dtype=torch.float64), type(ti)(*map(_to_double, ti)),
+        type(td)(*map(_to_double, td)), convert.refiner_config(cfg),
+    )
+    assert int((got.stage_b_terms.silhouette != 0).sum()) == 3  # stride 2 over 5 steps
+    for key in PARAMS:
+        assert getattr(got.params, key).dtype == torch.float64
+        np.testing.assert_allclose(getattr(got.params, key).numpy(), want[key], atol=1e-5,
+                                   rtol=0, err_msg=key)
+
+
+@pytest.mark.parametrize("outcome", ["returns", "raises"])
+def test_refine_batch_restores_tf32_flags(outcome, monkeypatch):
+    """refine_batch runs with TF32 off for matmuls and cuDNN and leaves both
+    flags as the caller set them, on return and when an exception is
+    raised inside the call (here the mask range check)."""
+    from jrr_tpu_torch import problem
+
+    model, j_reg, cfg, init, data = problem.synthetic_problem(
+        batch=1, num_verts=96, image_size=32, device="cpu"
+    )
+    cfg = dataclasses.replace(cfg, stage_a_steps=2, stage_b_steps=2)
+    if outcome == "raises":
+        data = data._replace(mask=data.mask + 2.0)
+    flags = (torch.backends.cuda.matmul, torch.backends.cudnn)
+    inside = []
+    step = tengine._Adam.step
+
+    def recording_step(self, params, grads):
+        inside.append(tuple(f.allow_tf32 for f in flags))
+        return step(self, params, grads)
+
+    monkeypatch.setattr(tengine._Adam, "step", recording_step)
+    saved = tuple(f.allow_tf32 for f in flags)
+    try:
+        for f in flags:
+            f.allow_tf32 = True
+        if outcome == "raises":
+            with pytest.raises(RuntimeError, match="mask"):
+                tengine.refine_batch(model, j_reg, init, data, cfg)
+        else:
+            tengine.refine_batch(model, j_reg, init, data, cfg)
+        after = tuple(f.allow_tf32 for f in flags)
+    finally:
+        for f, v in zip(flags, saved):
+            f.allow_tf32 = v
+    assert inside and set(inside) == {(False, False)}
+    assert after == (True, True)

@@ -492,3 +492,45 @@ def test_round1_invalid_and_pad_lanes_need_the_valid_gate():
     assert bool(covered[:, 0].any()) and not bool(covered[:, 1:].any())
     gated = near & (valid[0] > 0)
     assert not bool((covered & ~gated).any()) and not bool(gated[:, 1:].any())
+
+
+def _skip_case(case):
+    """(kernel α, plain α) of three 2×2 tiles: tile 0 is the case, tile 1 is
+    saturated low and tile 2 saturated high in both (they agree)."""
+    eps = np.float32(tsf._SAT_EPS)
+    hi = np.float32(1.0 - tsf._SAT_EPS)  # the thresholds as a float32 comparison sees them
+    up, down = np.nextafter(eps, np.float32(1)), np.nextafter(hi, np.float32(0))
+    plain_k = {
+        # The plain α's extreme on the threshold, the kernel's 1 ulp past it.
+        "lo_within_band": ([0.0, 0.0, 0.0, eps], [0.0, 0.0, 0.0, up]),
+        "hi_within_band": ([1.0, 1.0, 1.0, hi], [1.0, 1.0, 1.0, down]),
+        # The plain α's extreme 5e-7 and 1e-3 from its threshold.
+        "lo_beyond_band": ([0.0, 0.0, 0.0, 5e-7], [0.0, 0.0, 0.0, 2e-6]),
+        "hi_beyond_band": ([0.999, 1.0, 1.0, 1.0], [1.0, 1.0, 1.0, 1.0]),
+        # α moved without crossing a threshold, or not at all.
+        "moved_no_flip": ([0.3, 0.0, 1.0, 0.5], [0.6, 0.0, 1.0, 0.5]),
+        "equal": ([0.0, 0.2, 0.9, 1.0], [0.0, 0.2, 0.9, 1.0]),
+    }[case]
+    rest = [[0.0, 0.0, 1e-7, 0.0], [1.0, 1.0, 1.0, hi]]
+    plain, kernel = (torch.tensor([[t] + rest], dtype=torch.float32) for t in plain_k)
+    return kernel, plain
+
+
+@pytest.mark.parametrize("case,want", [
+    ("lo_within_band", (1, 0)), ("hi_within_band", (1, 0)),
+    ("lo_beyond_band", (1, 1)), ("hi_beyond_band", (1, 1)),
+    ("moved_no_flip", (0, 0)), ("equal", (0, 0)),
+])
+def test_skip_decision_flips(case, want):
+    """chip_smoke's check of the interior skip's tile decisions (α ≤ 1e-6
+    everywhere, α ≥ 1 − 1e-6 everywhere) from the α kernel against those
+    from the plain α: (flipped tiles, flips whose plain extreme lies farther
+    than 2.5e-7 from its threshold, the ones that fail the check)."""
+    import chip_smoke
+
+    kernel, plain = _skip_case(case)
+    assert chip_smoke.skip_decision_flips(kernel, plain) == want
+    # The decisions are those of apply_interior_skip on the same α.
+    lo = torch.all(plain <= tsf._SAT_EPS, dim=-1)
+    hi = torch.all(plain >= 1.0 - tsf._SAT_EPS, dim=-1)
+    assert lo[0, 1:].tolist() == [True, False] and hi[0, 1:].tolist() == [False, True]
