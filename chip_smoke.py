@@ -48,7 +48,21 @@
    against its plain version at the probe tools' shapes, timed beside one
    PyTorch call for the same function (the RMW probe's int64 sums equal its
    fixed-point plain version's exactly);
-11. prints the kernels line, the card's name and power limit, and the
+11. drives the product loop (`product_path`): 512 fixture frames written at
+   SPIN-crop scale, then `run_pipeline(demo=True)` on them at full width
+   (two shards of 256, shipped defaults, the python loader, temporary
+   directories), with rows 1, 2 and 5 launched 76, 4 and at least 1 times
+   and finite evals, then the same call again, which must resume both
+   shards, launch no kernel and give the same regressors and evals bit for
+   bit; then holds row 5 on the fixture render's own tiles (against its
+   plain version, its repeat and the mask PNGs) and rows 1 and 2 on the
+   bins of the loop's first batch. On these inputs some coverage decisions
+   lie within float32 rounding of their thresholds, where the kernels'
+   contracted products and the plain versions' rounded ones may decide
+   them apart and α jumps: there each α is held within the bounds of both
+   outcomes, the loss kernel's err off those frames and its gradients off
+   the entries they reach;
+12. prints the kernels line, the card's name and power limit, and the
    contract line `{"ok": true, "device": {...}}` last.
 
 Any failed check raises (non-zero exit, no result line). Needs one CUDA card
@@ -99,12 +113,24 @@ REFINE_PARAM_ATOL = 5e-4
 # α: ~4 float32 ulp at 1 − 1e-6, far inside ALPHA_ATOL.
 SKIP_BAND = 2.5e-7
 GRAD_SEEDS = range(1, 13)  # problem seeds of the stage-B gradient check
+# How near a coverage decision may lie to its threshold, relative to the
+# magnitudes of its terms, for the kernels (whose compiler contracts products
+# into FMAs) and the plain versions (every op rounded) to decide it
+# differently: ~8 float32 ulp. The decisions are the inside test (a cross
+# product's sign) and the blur band (sd2 ≤ blur_px2). Where the band is 0,
+# as in the fixture masks' render, an inside flip moves p between ≥ 0.5 and
+# 0; at the band's edge p jumps from sigmoid(−blur_px2·inv_sigma) to 0.
+DECISION_BAND = 2.0 ** -20
 
 BATCH = 256
 MAIN_RUNS = 3  # timed main-path runs after the warm-up
 PLAIN_FRAMES = 8  # plain versions run in frame chunks (their (B, G², T², 128) intermediates)
 TRAIN_STEPS = 3  # outer_step calls of the training path, one batch of BATCH frames each
 LANE_PACK_PAIRS = 2  # timed (lane-packed, unpacked) pairs, in turns A B B A
+PRODUCT_FRAMES = 2 * BATCH  # fixture frames of the product path: two shards
+# Camera z of the product path's fixtures: SPIN-crop scale, the range of
+# tools/pipeline_bench.py and of the synthetic problem of the other phases.
+PRODUCT_DEPTH = (36.0, 60.0)
 
 
 def _emit(obj) -> None:
@@ -331,11 +357,148 @@ def skip_decision_flips(alpha, alpha_plain, band=SKIP_BAND):
     return int((lo_flip | hi_flip).sum()), int(((lo_flip & lo_far) | (hi_flip & hi_far)).sum())
 
 
+def _fused_flip_bounds(bins, consts):
+    """`_edge_flip_bounds` of fused bins (B, G², T²), PLAIN_FRAMES frames at
+    a time (the plain version's lanes: every candidate, dump triangles
+    included)."""
+    import torch
+
+    from jrr_tpu_torch.render import silhouette_fused as sf
+
+    tx, ty, pages, idx, origin = bins
+    los, his, kinds = [], [], []
+    for lo in range(0, tx.shape[0], PLAIN_FRAMES):
+        sl = slice(lo, lo + PLAIN_FRAMES)
+        tri = sf._gather_tri(tx[sl], ty[sl], pages[sl], idx[sl])
+        b, g2, _, k = tri.shape
+        a_lo, a_hi, kind = _edge_flip_bounds(origin[sl].reshape(b * g2, 2),
+                                             tri.reshape(b * g2, 6, k), tri.new_ones(b * g2, 1, k),
+                                             *consts)
+        los.append(a_lo.reshape(b, g2, -1))
+        his.append(a_hi.reshape(b, g2, -1))
+        kinds.append(kind.reshape(b, g2, -1))
+    return torch.cat(los), torch.cat(his), torch.cat(kinds)
+
+
+def _fused_plain64(bins, consts, frames):
+    """The float64 plain α of fused bins on the frames `frames` (B,) bool,
+    zeros elsewhere: the witness of the flips there."""
+    import torch
+
+    from jrr_tpu_torch.render import silhouette_fused as sf
+
+    tx, ty, pages, idx, origin = bins
+    out = torch.zeros(tuple(pages.shape[:2]) + (consts[0] ** 2,), dtype=torch.float64,
+                      device=tx.device)
+    sub = (tx[frames].double(), ty[frames].double(), pages[frames], idx[frames],
+           origin[frames].double())
+    out[frames] = _chunked(sf.fused_tiles_alpha_plain, sub, consts)
+    return out
+
+
+def _flip_reach(pages, idx, edge_tiles, table_shape):
+    """The coordinate-table entries (`table_shape`, as tx) of every corner
+    of every candidate of the tiles that hold a decision-edge pixel: the
+    gradient entries a flip there can move (it changes α, and so every
+    lane's share, at its pixel)."""
+    import torch
+
+    b, g2, _, k = idx.shape
+    lanes = table_shape[-1]
+    slot = (idx >> 7).long().reshape(b, g2, 3 * k)
+    pos = torch.gather(pages.long(), 2, slot) * lanes + (idx & (lanes - 1)).long().reshape(b, g2, 3 * k)
+    fb, fg = torch.nonzero(edge_tiles, as_tuple=True)
+    reach = torch.zeros(b, math.prod(table_shape[1:]), dtype=torch.bool, device=idx.device)
+    reach[fb[:, None], pos[fb, fg]] = True
+    return reach.reshape(table_shape)
+
+
+def _hold_fused(x, where, pre_skip=True, decision_flips=False):
+    """Rows 1 and 2 on one set of bins (`_kernel_inputs`): the α kernel and
+    the loss kernel against their plain versions and their own repeats (bit
+    for bit); with `pre_skip`, also the α kernel on the bins the interior
+    skip sees (the main path's launches) and the skip's tile decisions from
+    its α against those from the plain α. With `decision_flips`, the α
+    kernels are held by `_hold_within_flips`, the loss kernel's err on the
+    frames without a decision-edge pixel and its gradients off the entries
+    a flip can reach (`_flip_reach`), and the skip's far flips on the tiles
+    without such a pixel."""
+    import torch
+
+    from jrr_tpu_torch import kernels
+    from jrr_tpu_torch.render import silhouette_fused as sf
+
+    bins = (x["tx"], x["ty"], x["pages"], x["idx"], x["origin"])
+    consts = (x["tile"], x["inv_sigma"], x["blur_px2"])
+    alpha = kernels.fused_alpha_fwd(*bins, *consts, x["dump"])
+    alpha_again = kernels.fused_alpha_fwd(*bins, *consts, x["dump"])
+    alpha_plain = _chunked(sf.fused_tiles_alpha_plain, bins, consts)
+    torch.cuda.synchronize()
+    _check(torch.equal(alpha, alpha_again), f"{where}: two fused_alpha_fwd launches differ")
+    edge_frames = lambda a, p: ((a - p).abs() > ALPHA_ATOL).flatten(1).any(1)  # noqa: E731
+    row = {}
+    if decision_flips:
+        report, edge = _hold_within_flips(
+            alpha, alpha_plain, _fused_flip_bounds(bins, consts), f"{where}: fused_alpha_fwd",
+            lambda: _fused_plain64(bins, consts, edge_frames(alpha, alpha_plain)))
+        a_err = report.pop("alpha_max_abs_err")
+        row.update(report)
+    else:
+        a_err = float((alpha - alpha_plain).abs().max())
+        _check(a_err <= ALPHA_ATOL, f"{where}: fused_alpha_fwd max|Δα| {a_err} > {ALPHA_ATOL}")
+
+    err, dtx, dty = sf.fused_lossgrad(*bins, x["mask"], *consts, x["dump"])
+    again = sf.fused_lossgrad(*bins, x["mask"], *consts, x["dump"])
+    err_p, dtx_p, dty_p = _chunked(sf.fused_lossgrad_plain, bins + (x["mask"],), consts)
+    torch.cuda.synchronize()
+    _check(all(torch.equal(a, b) for a, b in zip((err, dtx, dty), again)),
+           f"{where}: two fused_lossgrad launches differ")
+    if decision_flips:
+        keep = ~edge.flatten(1).any(1)
+        reach = _flip_reach(x["pages"], x["idx"], edge.any(-1), tuple(dtx.shape))
+        err, err_p = err[keep], err_p[keep]
+        dtx, dty, dtx_p, dty_p = (v[~reach] for v in (dtx, dty, dtx_p, dty_p))
+        row.update(err_frames=int(keep.sum()), grad_entries=int((~reach).sum()) * 2,
+                   grad_entries_reached=int(reach.sum()) * 2)
+    e_viol = _max_rel_violation(err, err_p, 1e-30, ERR_RTOL)
+    _check(e_viol <= 1.0, f"{where}: fused_lossgrad err beyond rtol {ERR_RTOL} ({e_viol})")
+    g_viol, g_err, g_scale = _grad_check((dtx, dty), (dtx_p, dty_p))
+    _check(g_viol <= 1.0, f"{where}: fused_lossgrad grads beyond tolerance ({g_viol})")
+    row.update(
+        alpha_max_abs_err=a_err,
+        err_max_rel_err=float(((err - err_p).abs() / err_p.abs().clamp_min(1e-30)).max()),
+        grad_max_abs_err=g_err, grad_scale=g_scale, grad_tolerance_use=g_viol,
+    )
+    if pre_skip:
+        pre = (x["tx"], x["ty"], *x["pre_skip"], x["origin"])
+        rebin_alpha = kernels.fused_alpha_fwd(*pre, *consts, x["dump"])
+        rebin_plain = _chunked(sf.fused_tiles_alpha_plain, pre, consts)
+        torch.cuda.synchronize()
+        tiles = slice(None)
+        if decision_flips:
+            report, edge = _hold_within_flips(
+                rebin_alpha, rebin_plain, _fused_flip_bounds(pre, consts),
+                f"{where}: fused_alpha_fwd before the skip",
+                lambda: _fused_plain64(pre, consts, edge_frames(rebin_alpha, rebin_plain)))
+            r_err = report.pop("alpha_max_abs_err")
+            tiles = ~edge.any(-1)
+            row.update({f"rebin_{k}": v for k, v in report.items()})
+            row.update(skip_flips_at_edge_tiles=skip_decision_flips(
+                rebin_alpha[~tiles], rebin_plain[~tiles])[0])
+        else:
+            r_err = float((rebin_alpha - rebin_plain).abs().max())
+            _check(r_err <= ALPHA_ATOL,
+                   f"{where}: fused_alpha_fwd before the skip max|Δα| {r_err} > {ALPHA_ATOL}")
+        flips, far = skip_decision_flips(rebin_alpha[tiles], rebin_plain[tiles])
+        _check(far == 0, f"{where}: {far} interior-skip decisions flip farther than "
+                         f"{SKIP_BAND} from their threshold")
+        row.update(rebin_alpha_max_abs_err=r_err, skip_flips=flips)
+    return row
+
+
 def check_kernels(problem):
     """Each fused kernel against its plain version at both geometries +
-    all-empty; at both geometries also the α kernel on the bins the
-    interior skip sees (the main path's launches), and the skip's tile
-    decisions from its α against those from the plain α."""
+    all-empty (`_hold_fused`, and the α VJP kernel)."""
     import torch
 
     from jrr_tpu_torch import kernels
@@ -348,25 +511,7 @@ def check_kernels(problem):
             x = _empty_tiles(x)
         bins = (x["tx"], x["ty"], x["pages"], x["idx"], x["origin"])
         consts = (x["tile"], x["inv_sigma"], x["blur_px2"])
-
-        alpha = kernels.fused_alpha_fwd(*bins, *consts, x["dump"])
-        alpha_again = kernels.fused_alpha_fwd(*bins, *consts, x["dump"])
-        alpha_plain = _chunked(sf.fused_tiles_alpha_plain, bins, consts)
-        torch.cuda.synchronize()
-        _check(torch.equal(alpha, alpha_again), f"{geometry}: two fused_alpha_fwd launches differ")
-        a_err = float((alpha - alpha_plain).abs().max())
-        _check(a_err <= ALPHA_ATOL, f"{geometry}: fused_alpha_fwd max|Δα| {a_err} > {ALPHA_ATOL}")
-
-        err, dtx, dty = sf.fused_lossgrad(*bins, x["mask"], *consts, x["dump"])
-        again = sf.fused_lossgrad(*bins, x["mask"], *consts, x["dump"])
-        err_p, dtx_p, dty_p = _chunked(sf.fused_lossgrad_plain, bins + (x["mask"],), consts)
-        torch.cuda.synchronize()
-        _check(all(torch.equal(a, b) for a, b in zip((err, dtx, dty), again)),
-               f"{geometry}: two fused_lossgrad launches differ")
-        e_viol = _max_rel_violation(err, err_p, 1e-30, ERR_RTOL)
-        _check(e_viol <= 1.0, f"{geometry}: fused_lossgrad err beyond rtol {ERR_RTOL} ({e_viol})")
-        g_viol, g_err, g_scale = _grad_check((dtx, dty), (dtx_p, dty_p))
-        _check(g_viol <= 1.0, f"{geometry}: fused_lossgrad grads beyond tolerance ({g_viol})")
+        row = _hold_fused(x, geometry, pre_skip=geometry != "empty")
 
         g = _seeded_uniform(tuple(x["mask"].shape), seed=3)
         bwd = kernels.fused_alpha_bwd(*bins, g, *consts, x["dump"])
@@ -374,25 +519,9 @@ def check_kernels(problem):
         torch.cuda.synchronize()
         b_viol, b_err, b_scale = _grad_check(bwd, bwd_p)
         _check(b_viol <= 1.0, f"{geometry}: fused_alpha_bwd beyond tolerance ({b_viol})")
-
-        row = dict(
-            alpha_max_abs_err=a_err,
-            err_max_rel_err=float(((err - err_p).abs() / err_p.abs().clamp_min(1e-30)).max()),
-            grad_max_abs_err=g_err, grad_scale=g_scale, grad_tolerance_use=g_viol,
-            bwd_max_abs_err=b_err, bwd_scale=b_scale, bwd_tolerance_use=b_viol,
-        )
+        row.update(bwd_max_abs_err=b_err, bwd_scale=b_scale, bwd_tolerance_use=b_viol)
         if geometry != "empty":
             pre = (x["tx"], x["ty"], *x["pre_skip"], x["origin"])
-            rebin_alpha = kernels.fused_alpha_fwd(*pre, *consts, x["dump"])
-            rebin_plain = _chunked(sf.fused_tiles_alpha_plain, pre, consts)
-            torch.cuda.synchronize()
-            r_err = float((rebin_alpha - rebin_plain).abs().max())
-            _check(r_err <= ALPHA_ATOL,
-                   f"{geometry}: fused_alpha_fwd before the skip max|Δα| {r_err} > {ALPHA_ATOL}")
-            flips, far = skip_decision_flips(rebin_alpha, rebin_plain)
-            _check(far == 0, f"{geometry}: {far} interior-skip decisions flip farther than "
-                             f"{SKIP_BAND} from their threshold")
-            row.update(rebin_alpha_max_abs_err=r_err, skip_flips=flips)
             row["fwd_rebin_ms"] = _time_ms(lambda: kernels.fused_alpha_fwd(*pre, *consts, x["dump"]), 20)
             pairs, near, active, occ = _pair_counts(x)
             row.update(occupied_tiles=occ, pairs=pairs, near_pairs=near, active_pairs=active,
@@ -1183,6 +1312,274 @@ def run_training():
     )
 
 
+def _records(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def _eval_dict(res):
+    return {"mpjpe_mm": res.mpjpe, "pa_mpjpe_mm": res.pa_mpjpe, "frames": res.num_frames}
+
+
+def _edge_flip_bounds(origin, tri, valid, tile, inv_sigma, blur_px2):
+    """Plain α (N, T²) of these tiles under every mix of the coverage
+    decisions that lie within DECISION_BAND of their thresholds: (lo, hi),
+    each such pair's p taken at its least and its largest outcome, the
+    other pairs as the plain version has them (α is monotone in each p, so
+    every mix lies in [lo, hi]); and per pixel which kinds of decision lie
+    there (1: an inside test, 2: the blur band's edge, 3: both)."""
+    import torch
+
+    from jrr_tpu_torch.render import coverage
+
+    i = torch.arange(tile * tile, device=origin.device)
+    px_x = origin[:, 0:1, None] + (i % tile).to(origin.dtype)[None, :, None]
+    px_y = origin[:, 1:2, None] + (i // tile).to(origin.dtype)[None, :, None]
+    ax, ay, bx, by, cx, cy = rows = tuple(tri[:, j, None, :] for j in range(6))
+    _, _, dmin, inside, edges = coverage.coverage_rows(px_x, px_y, rows, inv_sigma=inv_sigma,
+                                                       blur_px2=blur_px2)
+    cross_near = blur_near = torch.zeros_like(inside)
+    for (x0, y0, x1, y1), (_, _, rx, ry, d2) in zip(
+            ((ax, ay, bx, by), (bx, by, cx, cy), (cx, cy, ax, ay)), edges):
+        ex, ey, qx, qy = x1 - x0, y1 - y0, px_x - x0, px_y - y0
+        a, b = ex * qy, ey * qx
+        mag = a.abs() + b.abs()  # 0 on a degenerate edge: its cross is 0 either way
+        cross_near = cross_near | (((a - b).abs() <= DECISION_BAND * mag) & (mag > 0))
+        spread = (rx.abs() + ry.abs()) * (qx.abs() + qy.abs() + ex.abs() + ey.abs()) + d2
+        blur_near = blur_near | ((d2 - blur_px2).abs() <= DECISION_BAND * spread)
+    zero = torch.zeros_like(dmin)
+    p_in = torch.sigmoid(dmin * inv_sigma)  # sd2 = −dmin ≤ blur_px2
+    p_band = torch.sigmoid(-dmin * inv_sigma)
+    p_out = torch.where(dmin <= blur_px2, p_band, zero)
+    out_lo = torch.where(blur_near, zero, p_out)
+    out_hi = torch.where(blur_near, p_band, p_out)
+    p_lo = torch.where(cross_near, torch.minimum(p_in, out_lo), torch.where(inside, p_in, out_lo))
+    p_hi = torch.where(cross_near, torch.maximum(p_in, out_hi), torch.where(inside, p_in, out_hi))
+    ok = valid[:, 0:1, :] > 0
+    alpha = lambda q: 1.0 - coverage.lane_prod(torch.clamp_min(1.0 - torch.where(ok, q, zero), 1e-30))  # noqa: E731
+    kind = (cross_near & ok).any(-1).to(torch.int8) + 2 * (blur_near & ok).any(-1).to(torch.int8)
+    return alpha(p_lo), alpha(p_hi), kind
+
+
+def _hold_within_flips(got, plain, bounds, where, plain64=None):
+    """`got` against `plain`: within ALPHA_ATOL at every pixel where the
+    bounds (lo, hi, kind) of `_edge_flip_bounds` lie within ALPHA_ATOL of
+    each other, within [lo, hi] ± ALPHA_ATOL at the others (the
+    decision-edge pixels). Returns a report (max |Δ| off the edges, edge
+    pixels, flips: pixels beyond ALPHA_ATOL, their largest |Δ|, their
+    decision kinds, and with `plain64()` (the float64 plain α) those where
+    `got` lies nearer it than `plain`) and the edge mask."""
+    lo, hi, kind = bounds
+    _check(bool(((got >= lo - ALPHA_ATOL) & (got <= hi + ALPHA_ATOL)).all()),
+           f"{where}: α outside the bounds of its decision flips")
+    edge = hi - lo > ALPHA_ATOL
+    d = (got - plain).abs()
+    off = float(d[~edge].max()) if bool((~edge).any()) else 0.0
+    _check(off <= ALPHA_ATOL, f"{where}: max|Δα| {off} > {ALPHA_ATOL} away from decision edges")
+    flip = d > ALPHA_ATOL
+    report = dict(alpha_max_abs_err=off, edge_pixels=int(edge.sum()), flips=int(flip.sum()),
+                  flip_max_abs_diff=float(d[flip].max()) if bool(flip.any()) else 0.0,
+                  flips_inside_test=int((flip & (kind % 2 == 1)).sum()),
+                  flips_blur_edge=int((flip & (kind >= 2)).sum()), flips_kernel_nearer_f64=0)
+    if plain64 is not None and report["flips"]:
+        f64 = plain64()
+        nearer = (got.double() - f64).abs() < (plain.double() - f64).abs()
+        report["flips_kernel_nearer_f64"] = int(nearer[flip].sum())
+    return report, edge
+
+
+def _merge_flip_reports(reports):
+    """Sum the counts of `_hold_within_flips` reports; max of the |Δ|s."""
+    out = {}
+    for r in reports:
+        for k, v in r.items():
+            out[k] = max(out.get(k, 0.0), v) if isinstance(v, float) else out.get(k, 0) + v
+    return out
+
+
+def check_product_render(model, j_true, seed, data_root):
+    """Row 5 on the product path's own tiles: the fixture write's mask render
+    of PRODUCT_FRAMES frames (one launch per `fixtures._RENDER_CHUNK`
+    frames), rebuilt from the same draws, against its own repeat (bit for
+    bit) and its plain version (`_hold_within_flips`; the render's blur band
+    is 0, so an inside test decided the other way moves α by up to 0.5),
+    each flip also scored against a float64 plain version. The α it gives
+    must be the render `make_synthetic_frames` returns, and its 8-bit image
+    the mask PNG that the loop read (valid-flag pixel aside)."""
+    import numpy as np
+    import torch
+
+    from jrr_tpu_torch import constants, kernels
+    from jrr_tpu_torch.data import fixtures, png
+    from jrr_tpu_torch.refine import losses
+    from jrr_tpu_torch.render import camera
+    from jrr_tpu_torch.render import silhouette as sil
+    from jrr_tpu_torch.render import silhouette_pallas as sp
+
+    gt, data = fixtures.make_synthetic_frames(model, j_true, PRODUCT_FRAMES, seed=seed,
+                                              depth_range=PRODUCT_DEPTH)
+    spec = sil.RasterizerSpec(image_size=constants.CROP_RES)
+    t, g = spec.tile_size, spec.image_size // spec.tile_size
+    consts = (t, *sil.tile_constants(spec))
+    per = PLAIN_FRAMES * g * g
+    with torch.no_grad():
+        verts = losses.forward_frame(model, gt).vertices
+    reports, images = [], []
+    for lo in range(0, PRODUCT_FRAMES, fixtures._RENDER_CHUNK):
+        sl = slice(lo, lo + fixtures._RENDER_CHUNK)
+        with torch.no_grad():
+            screen = camera.project_points_screen(verts[sl], gt.cam_t[sl], spec.image_size,
+                                                  spec.focal_length)
+            args = sil.packed_tiles(screen, model.faces, spec)
+        alpha = kernels.tiles_alpha_fwd(*args, *consts)
+        again = kernels.tiles_alpha_fwd(*args, *consts)
+        torch.cuda.synchronize()
+        _check(torch.equal(alpha, again), "product fixtures: two tiles_alpha_fwd launches differ")
+        with torch.no_grad():
+            for c in range(0, alpha.shape[0], per):
+                a, part = alpha[c:c + per], tuple(x[c:c + per] for x in args)
+                plain = sp.tiles_alpha_plain(*part, *consts)
+                reports.append(_hold_within_flips(
+                    a, plain, _edge_flip_bounds(*part, *consts), "product fixtures: tiles_alpha_fwd",
+                    lambda: sp.tiles_alpha_plain(*(x.double() for x in part), *consts))[0])
+        images.append(sil._tiles_to_image(alpha.reshape(-1, g * g, t * t), g, t))
+    alpha = torch.cat(images)
+    _check(torch.equal(alpha, data.mask), "product fixtures: the rebuilt render differs")
+    want = (alpha.cpu().numpy() * 255).astype(np.uint8)
+    want[:, 0, 0] = 255  # the valid-flag pixel
+    with open(os.path.join(data_root, "precomputed_val", "images.json")) as f:
+        paths = json.load(f)
+    head_tails = [p.split("imageSequence") for p in paths]
+    mismatched = sum(not np.array_equal(png.read(f"{h}maskSequence{tl}"), want[i])
+                     for i, (h, tl) in enumerate(head_tails))
+    _check(mismatched == 0, f"product fixtures: {mismatched} mask PNGs differ from the render")
+    return dict(frames=PRODUCT_FRAMES, tiles=PRODUCT_FRAMES * g * g, blur_px2=consts[2],
+                **_merge_flip_reports(reports), mask_pngs_equal=len(paths))
+
+
+def check_product_bins(model, cfg, data_root):
+    """Rows 1 and 2 on the product path's own bins (`_hold_fused` with
+    decision flips, both geometries): the first batch the loop refines (epoch 0 of the python
+    loader) at its stored initial estimates, with the mask pooled as the
+    loop pools it."""
+    from jrr_tpu_torch.data import h36m
+    from jrr_tpu_torch.pipeline import _batch_to_device_inputs
+
+    dataset = h36m.H36MDataset(data_root, cfg.data.split)
+    loader = h36m.BatchLoader(dataset, BATCH, seed=cfg.data.shuffle_seed, drop_last=True)
+    init, data = _batch_to_device_inputs(dataset.load_batch(loader._indices()[:BATCH]), cfg, "cuda")
+    problem = (model, None, cfg.refiner, init, data)
+    return {geometry: _hold_fused(_kernel_inputs(problem, geometry), f"product {geometry}",
+                                  decision_flips=True)
+            for geometry in ("fine", "coarse")}
+
+
+def run_product_path():
+    """The product loop through its entry points, as tools/pipeline_bench.py
+    drives jrr_tpu's: the fixtures written at SPIN-crop scale (camera z in
+    PRODUCT_DEPTH) and then `run_pipeline(demo=True)` on them at full width
+    (the 6890-vertex synthetic body, batch 256, shipped defaults, 1000 + 100
+    steps) over PRODUCT_FRAMES frames (two shards), with the python loader;
+    then the same call again on the same out dir, which must resume both
+    shards (no refinement kernel launched) and give the same regressors and
+    evals. The launch counts are set to 0 before each run (the first's
+    fixture write included) and read after it; the directories are
+    temporary. Rows 1, 2 and 5 are then held on the run's own inputs."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from jrr_tpu_torch import config, kernels
+    from jrr_tpu_torch.data import fixtures
+    from jrr_tpu_torch.models import smpl
+    from jrr_tpu_torch.pipeline import _demo_regressor, run_pipeline
+    from jrr_tpu_torch.utils.checkpoint import ShardManifest
+    from jrr_tpu_torch.utils.logging import MetricsLogger
+
+    cfg = config.PipelineConfig()
+    _check(cfg.data.batch_size == BATCH and cfg.refiner.stage_a_steps == 1000
+           and cfg.refiner.stage_b_steps == 100, "product path: shipped defaults changed")
+    model = smpl.synthetic_smpl_model(seed=0, device="cuda")
+    # The regressor that generates the fixtures: the demo's, drawn as
+    # run_pipeline(demo=True) draws it from cfg.seed before perturbing it.
+    j_true = _demo_regressor(model.num_verts, np.random.default_rng(cfg.seed))
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        data_root, out_dir = os.path.join(tmp, "fixtures"), os.path.join(tmp, "run")
+        for name in ("first", "resumed"):
+            metrics_path = os.path.join(tmp, f"metrics_{name}.jsonl")
+            logger = MetricsLogger(path=metrics_path, echo=False)
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            fixture_s = 0.0
+            try:
+                if name == "first":
+                    fixtures.write_fixture_dataset(
+                        data_root, PRODUCT_FRAMES, seed=cfg.seed, model=model, j_reg_raw=j_true,
+                        depth_range=PRODUCT_DEPTH,
+                    )
+                    torch.cuda.synchronize()
+                    fixture_s = time.perf_counter() - t0
+                arts = run_pipeline(cfg, data_root=data_root, out_dir=out_dir, demo=True,
+                                    model=model, logger=logger)
+            finally:
+                logger.close()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = _read_launches()
+            records = _records(metrics_path)
+            evals = {"initial": arts.eval_before_after.before,
+                     "adam_final": arts.eval_before_after.after, "lstsq": arts.eval_lstsq}
+            runs.append(dict(
+                arts=arts, launches=launches, seconds=seconds, records=records, evals=evals,
+                phase_seconds=dict(arts.seconds, fixtures=fixture_s),
+                shards=ShardManifest(os.path.join(out_dir, "refined")).completed(),
+                saved=os.path.exists(os.path.join(out_dir, "retrained_j_regressor.npz")),
+            ))
+        render = check_product_render(model, j_true, cfg.seed, data_root)
+        bins = check_product_bins(model, cfg, data_root)
+    first, resumed = runs
+    _check(first["shards"] == [0, 1], f"product path: manifest shards {first['shards']}")
+    want = _launches(fused_lossgrad=76, fused_alpha_fwd=4,
+                     tiles_alpha_fwd=first["launches"]["tiles_alpha_fwd"])
+    _check(first["launches"] == want and first["launches"]["tiles_alpha_fwd"] >= 1,
+           f"product path launches {first['launches']}, expected 76 fused_lossgrad + "
+           "4 fused_alpha_fwd + at least 1 tiles_alpha_fwd")
+    _check(resumed["launches"] == _launches(),
+           f"resumed product path launched kernels: {resumed['launches']}")
+    _check(len(first["records"]) == 2 and not resumed["records"],
+           "product path: one metrics record per refined shard")
+    values = [v for r in first["records"] for v in r.values() if isinstance(v, float)]
+    values += [getattr(e, k) for run in runs for e in run["evals"].values()
+               for k in ("mpjpe", "pa_mpjpe")]
+    _check(all(math.isfinite(v) for v in values), "product path: non-finite metrics")
+    _check(first["saved"] and resumed["saved"], "product path: no retrained_j_regressor.npz")
+    a, b = first["arts"], resumed["arts"]
+    lstsq_diff = float(np.abs(a.j_reg_lstsq - b.j_reg_lstsq).max())
+    _check(np.array_equal(a.j_reg_final, b.j_reg_final), "resumed Adam-path regressor differs")
+    _check(lstsq_diff == 0.0, f"resumed lstsq regressor differs by {lstsq_diff}")
+    _check(all(first["evals"][k] == resumed["evals"][k] for k in first["evals"]),
+           "resumed evals differ")
+    frames = PRODUCT_FRAMES
+    return dict(
+        frames=frames, batch=BATCH, stage_a_steps=1000, stage_b_steps=100,
+        depth_range=list(PRODUCT_DEPTH), shards=first["shards"],
+        seconds=first["seconds"], phase_seconds=first["phase_seconds"],
+        loader_wait_s=[r["loader_wait_s"] for r in first["records"]],
+        step_s=[r["batch_seconds"] for r in first["records"]],
+        product_frames_per_s=frames / a.seconds["optimize"],
+        end_to_end_frames_per_s=frames / first["seconds"],
+        evals={k: _eval_dict(v) for k, v in first["evals"].items()},
+        launches=first["launches"],
+        resumed=dict(seconds=resumed["seconds"], phase_seconds=resumed["phase_seconds"],
+                     launches=resumed["launches"], lstsq_max_abs_diff=lstsq_diff,
+                     evals_equal=True),
+        render_check=render, bins_check=bins,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, card=_card(),
+    )
+
+
 def _slice_fused_bins(bins, sl):
     return bins._replace(**{
         f: getattr(bins, f)[sl] for f in ("origin", "pages", "idx", "sat_tiles", "core_count")
@@ -1311,6 +1708,9 @@ def main() -> int:
     probe_records, probe_summary = run_probes()
     _emit({"probes": probe_records + probe_summary})
     done("probes")
+    product = run_product_path()
+    _emit({"product_path": product})
+    done("product_path")
     _emit({"kernel_checks": checks})
     _emit({"tile_kernel_checks": tile_checks})
     _emit({"phase_seconds": phases})
@@ -1342,6 +1742,30 @@ def main() -> int:
                       "jrr_tpu/render/silhouette_fused.py:719", launches["fused_alpha_fwd"], checks,
                       "fwd", f"atol {ALPHA_ATOL}; two launches bit for bit; interior-skip "
                              f"decisions flip only within {SKIP_BAND} of their threshold")
+    # The product path's launches; its own inputs in max_abs_err (away from
+    # the decision edges), their flips beside it.
+    prod_bins = product["bins_check"].values()
+    render = product["render_check"]
+    on_product = (f"; on the product's inputs the same away from decisions within "
+                  f"{DECISION_BAND} of their thresholds, within the bounds of their flips there")
+    alpha_fwd.update(product_launches=product["launches"]["fused_alpha_fwd"], max_abs_err=max(
+        alpha_fwd["max_abs_err"], *(r[k] for r in prod_bins
+                                    for k in ("alpha_max_abs_err", "rebin_alpha_max_abs_err"))),
+        product_decision_flips=sum(r["flips"] + r["rebin_flips"] for r in prod_bins),
+        product_flips_nearer_float64=sum(r["flips_kernel_nearer_f64"]
+                                         + r["rebin_flips_kernel_nearer_f64"] for r in prod_bins),
+        tolerance=alpha_fwd["tolerance"] + on_product)
+    lossgrad.update(product_launches=product["launches"]["fused_lossgrad"], max_abs_err=max(
+        lossgrad["max_abs_err"], *(r["grad_max_abs_err"] for r in prod_bins)),
+        tolerance=lossgrad["tolerance"] + "; on the product's bins the same, err on the frames "
+                  "and grads on the entries no decision flip can reach")
+    tiles_fwd = entry("tiles_alpha_fwd", "silhouette_tiles.cu",
+                      "jrr_tpu/render/silhouette_pallas.py:169", round1_launches["tiles_alpha_fwd"],
+                      tile_checks, "fwd", f"atol {ALPHA_ATOL}; two launches bit for bit" + on_product)
+    tiles_fwd.update(product_launches=product["launches"]["tiles_alpha_fwd"], max_abs_err=max(
+        tiles_fwd["max_abs_err"], render["alpha_max_abs_err"]),
+        product_decision_flips=render["flips"],
+        product_flips_nearer_float64=render["flips_kernel_nearer_f64"])
     # The main path launches it on the bins before the skip.
     alpha_fwd.update(rebin_ms=checks["fine"]["fwd_rebin_ms"],
                      coarse_rebin_ms=checks["coarse"]["fwd_rebin_ms"],
@@ -1352,9 +1776,7 @@ def main() -> int:
         alpha_fwd,
         entry("fused_alpha_bwd", "silhouette_fused.cu", "jrr_tpu/render/silhouette_fused.py:814",
               vjp_launches["fused_alpha_bwd"], checks, "bwd", grad_tol),
-        entry("tiles_alpha_fwd", "silhouette_tiles.cu", "jrr_tpu/render/silhouette_pallas.py:169",
-              round1_launches["tiles_alpha_fwd"], tile_checks, "fwd",
-              f"atol {ALPHA_ATOL}; two launches bit for bit"),
+        tiles_fwd,
         entry("tiles_alpha_bwd", "silhouette_tiles.cu", "jrr_tpu/render/silhouette_pallas.py:182",
               round1_launches["tiles_alpha_bwd"], tile_checks, "bwd",
               f"{grad_tol}; two launches bit for bit"),

@@ -7,9 +7,11 @@ under `jrr_tpu` — and keeps its own copies of what it needs.
 
 Entry points that create state (`models.smpl.synthetic_smpl_model`,
 `problem.synthetic_problem`, the discriminator constructors,
-`ops.rotations.random_rotmat`, the probes' input builders) run on "cuda"
-unless the caller passes `device="cpu"`; without a card they raise instead of
-moving to the CPU.
+`ops.rotations.random_rotmat`, the probes' input builders,
+`data.fixtures.write_fixture_dataset`, `pipeline.run_pipeline` and the CLI
+`python -m jrr_tpu_torch.cli`) run on "cuda" unless the caller passes
+`device="cpu"` (`--device cpu`); without a card they raise instead of moving
+to the CPU.
 """
 
 from __future__ import annotations

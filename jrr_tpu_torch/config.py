@@ -1,11 +1,10 @@
 """Frozen dataclass configuration of the refinement path.
 
 Copies of `CameraConfig`, `SilhouetteConfig`, `LossWeights`,
-`RefinerConfig`, `DiscriminatorConfig`, `JRegConfig` and `PipelineConfig`
-from jrr_tpu/config.py with the same defaults; the reasons for each default
-(and the measurements behind them) are documented there. Fields that only
-the product loop reads (`JRegConfig.snapshot_interval`, the data and mesh
-settings) are not copied yet.
+`RefinerConfig`, `DiscriminatorConfig`, `JRegConfig`, `DataConfig`,
+`MeshConfig` and `PipelineConfig` from jrr_tpu/config.py with the same
+defaults; the reasons for each default (and the measurements behind them)
+are documented there.
 """
 
 from __future__ import annotations
@@ -94,6 +93,30 @@ class JRegConfig:
 
     lr: float = 1e-2
     lstsq_ridge: float = 1e-4  # ridge of the least-squares fit path
+    # Every N shards, `run_optimize` snapshots the Adam-path regressor to
+    # out_dir/jreg_snapshots/snap_<shard>.npz on its writer thread. None = off.
+    snapshot_interval: Optional[int] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """Input pipeline (reference: scripts/data.py:28-163)."""
+
+    root: str = "data/human3.6m"
+    batch_size: int = 256  # --batch_size default (scripts/args.py:8)
+    shuffle_seed: int = 0
+    prefetch: int = 2
+    train_epochs: int = 1  # passes over the split, reshuffled per epoch
+    split: str = "validation"  # the reference optimizes over the validation split
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Device settings. The port runs on one card: `num_devices` > 1 raises
+    in `pipeline.run_optimize` (multi-GPU is not ported yet)."""
+
+    data_axis: str = "data"
+    num_devices: Optional[int] = None  # None = one card
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,4 +124,7 @@ class PipelineConfig:
     refiner: RefinerConfig = dataclasses.field(default_factory=RefinerConfig)
     discriminator: DiscriminatorConfig = dataclasses.field(default_factory=DiscriminatorConfig)
     jreg: JRegConfig = dataclasses.field(default_factory=JRegConfig)
+    data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
     seed: int = 0
+    num_betas: int = 10

@@ -25,26 +25,31 @@ def _t(x, dev, dtype=torch.float32):
     return None if x is None else torch.as_tensor(np.array(x), dtype=dtype, device=dev)
 
 
+def _copy(cls, obj):
+    """An instance of the port's dataclass `cls` with `obj`'s field values."""
+    return cls(**{f.name: getattr(obj, f.name) for f in dataclasses.fields(cls)})
+
+
 def refiner_config(src) -> config_lib.RefinerConfig:
     """A JAX `RefinerConfig` (or any object with its fields) → the port's."""
-    def copy(cls, obj):
-        return cls(**{f.name: getattr(obj, f.name) for f in dataclasses.fields(cls)})
-
     return dataclasses.replace(
-        copy(config_lib.RefinerConfig, src),
-        loss_weights=copy(config_lib.LossWeights, src.loss_weights),
-        camera=copy(config_lib.CameraConfig, src.camera),
-        silhouette=copy(config_lib.SilhouetteConfig, src.silhouette),
+        _copy(config_lib.RefinerConfig, src),
+        loss_weights=_copy(config_lib.LossWeights, src.loss_weights),
+        camera=_copy(config_lib.CameraConfig, src.camera),
+        silhouette=_copy(config_lib.SilhouetteConfig, src.silhouette),
     )
 
 
 def pipeline_config(src) -> config_lib.PipelineConfig:
-    """A JAX `PipelineConfig` → the port's (the fields the port has)."""
+    """A JAX `PipelineConfig` → the port's, every field carried across."""
     return config_lib.PipelineConfig(
         refiner=refiner_config(src.refiner),
-        discriminator=config_lib.DiscriminatorConfig(lr=src.discriminator.lr),
-        jreg=config_lib.JRegConfig(lr=src.jreg.lr, lstsq_ridge=src.jreg.lstsq_ridge),
+        discriminator=_copy(config_lib.DiscriminatorConfig, src.discriminator),
+        jreg=_copy(config_lib.JRegConfig, src.jreg),
+        data=_copy(config_lib.DataConfig, src.data),
+        mesh=_copy(config_lib.MeshConfig, src.mesh),
         seed=src.seed,
+        num_betas=src.num_betas,
     )
 
 

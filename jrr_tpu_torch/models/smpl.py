@@ -13,6 +13,7 @@ one seed gives the same arrays in both packages.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional, Tuple
 
 import numpy as np
@@ -235,3 +236,46 @@ def synthetic_smpl_model(
         parents=parents,
         vertex_perm=t(vertex_locality_perm(v_template).astype(np.int64)),
     )
+
+
+def load_smpl_npz(
+    npz_path: str,
+    num_betas: int = constants.NUM_BETAS,
+    j_regressor_extra_path: Optional[str] = None,
+    device="cuda",
+) -> SMPLModel:
+    """Load a converted SMPL model (.npz from jrr_tpu's `convert_smpl_pickle`)."""
+    dev = resolve_device(device)
+    with np.load(npz_path) as data:
+        data = dict(data)
+    posedirs = data["posedirs"]
+    if posedirs.ndim == 3:  # (V, 3, 207) → (207, V*3), smplx storage order
+        posedirs = posedirs.reshape(-1, posedirs.shape[-1]).T
+    parents = data["kintree_parents"].astype(np.int64)
+    parents[0] = -1
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)  # noqa: E731
+    extra = None
+    if j_regressor_extra_path is not None:
+        extra = t(np.load(j_regressor_extra_path))
+    return SMPLModel(
+        v_template=t(data["v_template"]),
+        shapedirs=t(data["shapedirs"][..., :num_betas]),
+        posedirs=t(posedirs),
+        j_regressor=t(data["j_regressor"]),
+        lbs_weights=t(data["lbs_weights"]),
+        faces=torch.as_tensor(np.asarray(data["faces"], np.int64), device=dev),
+        j_regressor_extra=extra,
+        parents=tuple(int(p) for p in parents),
+        vertex_perm=torch.as_tensor(
+            vertex_locality_perm(data["v_template"]).astype(np.int64), device=dev
+        ),
+    )
+
+
+def resolve_smpl_model(config_root: str = "data", device="cuda", **kwargs) -> SMPLModel:
+    """The real converted model at <config_root>/body_model/smpl_neutral.npz
+    if present, else the synthetic stand-in."""
+    npz = os.path.join(config_root, "body_model", "smpl_neutral.npz")
+    if os.path.exists(npz):
+        return load_smpl_npz(npz, device=device, **kwargs)
+    return synthetic_smpl_model(device=device)

@@ -1,0 +1,511 @@
+"""End-to-end product loop (counterpart of jrr_tpu/pipeline.py:27-713;
+reference main.py:13-27): fixtures or the converted dataset → optimize
+(refine + train the regressor and discriminators over the batches) → the
+closed-form regressor fit → protocol-2 evaluation before/after.
+
+`run_optimize` keeps jrr_tpu's structure on one card:
+- a prefetch thread loads each batch and copies it to the card (plain
+  synchronous copies on the default stream, so a batch is complete on the
+  card before the main thread sees it, and ordered after the work already
+  queued there);
+- an ordered writer thread owns every device→host pull: refined shards
+  (with a manifest, so a restart skips completed shards), regressor
+  snapshots and accumulator checkpoints. Its pulls run on the default
+  stream too, so each waits for the step that produced it. A writer error
+  stops the run at the next put or check;
+- a resume replays the completed shards' refined parameters into the lstsq
+  accumulator (or restores its checkpoint, every `ACC_CKPT_EVERY` shards)
+  after checking that each shard's stored gt_j3d pairs with this run's
+  batch, and restores the newest train-state checkpoint.
+
+Not ported yet, and raising `NotImplementedError`: the native pack loader
+(`loader="native"`, or "auto" with a frames.jrrpack present), live SPIN
+initialization, the VIBE/MEVA consumer evals and more than one device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import queue as queue_mod
+import re
+import threading
+import time
+from typing import Dict, Iterable, Optional
+
+import numpy as np
+import torch
+
+from jrr_tpu_torch import constants, resolve_device
+from jrr_tpu_torch.config import PipelineConfig
+from jrr_tpu_torch.data import fixtures, h36m
+from jrr_tpu_torch.evals import harness
+from jrr_tpu_torch.models import smpl as smpl_lib
+from jrr_tpu_torch.refine import engine, losses, trainer
+from jrr_tpu_torch.utils import checkpoint as ckpt_lib
+from jrr_tpu_torch.utils.logging import outer_metrics_record
+
+# Accumulator checkpoint cadence: without it a resume near the end of a long
+# run replays every completed shard's SMPL forward. The gram is (V, V),
+# ~190 MB at V = 6890, so it is written every N shards.
+ACC_CKPT_EVERY = 16
+
+_STATE_FILE = re.compile(r"state_\d{8}\.npz")
+
+# The loader's prefetch thread, reused for the host→device staging.
+_prefetch_iter = h36m.background_iter
+
+
+@dataclasses.dataclass
+class PipelineArtifacts:
+    j_reg_initial: np.ndarray
+    j_reg_final: np.ndarray
+    j_reg_lstsq: Optional[np.ndarray]
+    eval_before_after: harness.BeforeAfter
+    out_dir: str
+    eval_lstsq: Optional[harness.EvalResult] = None
+    # Wall seconds of each phase: fixtures (demo), optimize, fit, eval.
+    seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
+
+
+def _batch_to_device_inputs(batch: Dict[str, np.ndarray], cfg: PipelineConfig, device):
+    """Host batch dict → (FrameParams init, FrameBatch data) on `device`.
+
+    The initial estimates are the stored orient/pose/betas/cam tensors (the
+    reference's precomputed SPIN outputs). When the silhouette term is live
+    at a smaller resolution than the stored mask (e.g. --demo), the mask is
+    mean-pooled down to match; the rasterizer spec scales focal
+    accordingly, so mask and render stay pixel-aligned."""
+    mask = batch.get("mask_rcnn")
+    if mask is not None and mask.ndim == 4:
+        mask = mask[:, 0]
+    if mask is not None and cfg.refiner.use_silhouette:
+        target = cfg.refiner.silhouette.image_size
+        src = mask.shape[-1]
+        if src != target:
+            if src % target != 0:
+                raise ValueError(
+                    f"mask resolution {src} is not an integer multiple of the "
+                    f"silhouette size {target}"
+                )
+            f = src // target
+            mask = mask.reshape(mask.shape[0], target, f, target, f).mean(axis=(2, 4))
+    t = lambda x: torch.as_tensor(np.asarray(x), device=device)  # noqa: E731
+    data = losses.FrameBatch(
+        gt_j2d=t(batch["gt_j2d"]), gt_j3d=t(batch["gt_j3d"]),
+        mask=None if mask is None else t(mask),
+    )
+    init = losses.FrameParams(
+        pose6d=t(batch["pose"]),
+        orient6d=t(batch["orient"]).reshape(-1, 1, 6),
+        betas=t(batch["betas"]),
+        cam_t=t(batch["cam"]),
+    )
+    return init, data
+
+
+@torch.no_grad()
+def _replay_vertices(model, params: losses.FrameParams) -> torch.Tensor:
+    """The refined vertices of saved parameters, computed as `refine_batch`
+    computes its final ones (TF32 off)."""
+    with engine._no_tf32():
+        return losses.forward_frame(model, params).vertices
+
+
+class _OrderedWriter:
+    """A thread that runs `handle(item)` for each put item, in order. A
+    failure is kept and raised by the next `put` or `check`; `put` polls it
+    while the queue is full, so a dead writer cannot block the caller."""
+
+    def __init__(self, handle, depth: int = 2):
+        self._handle = handle
+        self._q: queue_mod.Queue = queue_mod.Queue(maxsize=depth)
+        self._err: list = []
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        while True:
+            item = self._q.get()
+            if item is None:
+                return
+            try:
+                self._handle(item)
+            except BaseException as e:  # raised in the main thread by check()
+                self._err.append(e)
+                return
+
+    def check(self):
+        if self._err:
+            raise RuntimeError("async shard writer failed") from self._err[0]
+
+    def put(self, item):
+        while True:
+            self.check()
+            try:
+                self._q.put(item, timeout=5.0)
+                return
+            except queue_mod.Full:
+                continue
+
+    def close(self):
+        """Let the thread finish what is queued, then stop it."""
+        while self._thread.is_alive():
+            try:
+                self._q.put(None, timeout=0.1)
+                break
+            except queue_mod.Full:
+                continue
+        self._thread.join()
+
+
+def _timed(iterator):
+    """(seconds the consumer waited for the item, item) for each item."""
+    while True:
+        t0 = time.perf_counter()
+        try:
+            item = next(iterator)
+        except StopIteration:
+            return
+        yield time.perf_counter() - t0, item
+
+
+def run_optimize(
+    cfg: PipelineConfig,
+    model,
+    j_reg_initial: np.ndarray,
+    batches: Iterable[Dict[str, np.ndarray]],
+    out_dir: str,
+    logger=None,
+    resume: bool = True,
+):
+    """The `optimize_pose_refiner` equivalent (reference:
+    scripts/optimize.py:88-337), on the model's device: one `outer_step` per
+    batch, shard writes, the lstsq accumulator, resume.
+
+    Returns (final TrainState, JRegLstsqAccumulator, ShardManifest)."""
+    if cfg.mesh.num_devices is not None and cfg.mesh.num_devices > 1:
+        raise NotImplementedError(
+            f"mesh.num_devices={cfg.mesh.num_devices}: multi-GPU is not ported "
+            "(ROADMAP Queue 1, multi-GPU); the port runs on one card"
+        )
+    dev = model.v_template.device
+    manifest = ckpt_lib.ShardManifest(os.path.join(out_dir, "refined"))
+    state = trainer.init_train_state(
+        torch.as_tensor(j_reg_initial, dtype=torch.float32, device=dev), cfg, seed=cfg.seed
+    )
+    ckpt_dir = os.path.join(out_dir, "ckpt")
+    if resume and os.path.isdir(ckpt_dir):
+        existing = sorted(n for n in os.listdir(ckpt_dir) if _STATE_FILE.fullmatch(n))
+        if existing:
+            state = ckpt_lib.restore_train_state(os.path.join(ckpt_dir, existing[-1]), state)
+
+    acc = trainer.JRegLstsqAccumulator.zero(model.num_verts, device=dev)
+    acc_path = os.path.join(out_dir, "jreg_acc_ckpt.npz")
+    acc_upto = -1
+    if resume and os.path.exists(acc_path):
+        with np.load(acc_path) as f:
+            acc = trainer.JRegLstsqAccumulator(
+                *(torch.as_tensor(f[k], device=dev) for k in ("gram", "rhs", "count"))
+            )
+            acc_upto = int(f["upto"])
+
+    def write(item):
+        kind, sid, payload = item
+        if kind == "shard":
+            manifest.write_shard(sid, {
+                k: v.cpu().numpy() if isinstance(v, torch.Tensor) else v
+                for k, v in payload.items()
+            })
+        elif kind == "jreg_snap":
+            snap_dir = os.path.join(out_dir, "jreg_snapshots")
+            os.makedirs(snap_dir, exist_ok=True)
+            np.savez(os.path.join(snap_dir, f"snap_{sid:05d}.npz"),
+                     j_regressor=payload.cpu().numpy(), shard=sid)
+        else:  # "acc_ckpt"
+            host = [x.cpu().numpy() for x in payload]
+            tmp = acc_path + ".tmp.npz"
+            np.savez(tmp, gram=host[0], rhs=host[1], count=host[2], upto=sid)
+            os.replace(tmp, acc_path)
+
+    def maybe_ckpt_acc(shard_id, acc):
+        if shard_id % ACC_CKPT_EVERY == ACC_CKPT_EVERY - 1:
+            # Ordered after this shard's manifest entry: a resume never
+            # counts a shard twice.
+            writer.put(("acc_ckpt", shard_id, acc))
+
+    # JRR_PHASE_TIMING=1 splits each batch's wall time at device barriers
+    # (a diagnostic mode: the barriers change the overlap).
+    phase_timing = os.environ.get("JRR_PHASE_TIMING") == "1"
+
+    def barrier():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    staged = _prefetch_iter(
+        map(lambda b: (b,) + _batch_to_device_inputs(b, cfg, dev), batches), cfg.data.prefetch
+    )
+    writer = _OrderedWriter(write)
+    try:
+        for shard_id, (loader_wait, (batch, init, data)) in enumerate(_timed(staged)):
+            writer.check()
+            if resume and shard_id <= acc_upto and manifest.is_done(shard_id):
+                continue  # already in the checkpointed accumulator
+            if resume and manifest.is_done(shard_id):
+                acc = _replay_shard(manifest, shard_id, batch, model, acc)
+                maybe_ckpt_acc(shard_id, acc)
+                continue
+            t0 = time.time()
+            phases = {}
+            if phase_timing:
+                barrier()
+                phases["prep"] = time.time() - t0
+            t1 = time.time()
+            state, m, result = trainer.outer_step(state, model, init, data, cfg)
+            if phase_timing:
+                barrier()
+                phases["step"] = time.time() - t1
+            t1 = time.time()
+            acc = trainer.jreg_lstsq_accumulate(
+                acc, result.vertices, data.gt_j3d, result.joints3d[:, :1]
+            )
+            if phase_timing:
+                barrier()
+                phases["acc"] = time.time() - t1
+            t1 = time.time()
+            writer.put(("shard", shard_id, {
+                "pose6d": result.params.pose6d,
+                "orient6d": result.params.orient6d,
+                "betas": result.params.betas,
+                "cam_t": result.params.cam_t,
+                "joints3d": result.joints3d,
+                # Frame identity for the resume-time pairing check.
+                "gt_j3d": np.asarray(batch["gt_j3d"]),
+            }))
+            if phase_timing:
+                phases["write_enqueue"] = time.time() - t1
+            t1 = time.time()
+            snap_every = cfg.jreg.snapshot_interval
+            if snap_every and shard_id % snap_every == snap_every - 1:
+                writer.put(("jreg_snap", shard_id, state.j_reg_raw))
+            maybe_ckpt_acc(shard_id, acc)
+            if logger is not None:
+                if phase_timing:
+                    phases["ckpt"] = time.time() - t1
+                t1 = time.time()
+                # One copy for every metric (waits for the step).
+                values = torch.stack([v.to(torch.float64) for v in m]).cpu().tolist()
+                rec = outer_metrics_record(type(m)(*values))
+                if phase_timing:
+                    phases["log_pull"] = time.time() - t1
+                    rec.update({f"phase_{k}_s": round(v, 4) for k, v in phases.items()})
+                rec["shard"] = shard_id
+                rec["batch_seconds"] = time.time() - t0
+                rec["loader_wait_s"] = loader_wait
+                logger.log(rec, step=state.step)
+    finally:
+        staged.close()
+        writer.close()
+    writer.check()
+    ckpt_lib.save_train_state(ckpt_dir, state, state.step)
+    return state, acc, manifest
+
+
+def _replay_shard(manifest, shard_id: int, batch, model, acc):
+    """Add a completed shard to the accumulator from its saved refined
+    parameters, after checking that the shard pairs with this run's batch."""
+    saved = manifest.read_shard(shard_id)
+    # Shards pair with batches by position: a resume under another
+    # shuffle/seed/batch size would cross-pair refined vertices with the
+    # wrong frames' GT. The shard stores its gt_j3d; a mismatch (shape
+    # first, then values) is an error.
+    if "gt_j3d" not in saved:
+        print(
+            f"WARNING: shard {shard_id} predates the gt_j3d identity field — "
+            "resume-time batch/shard pairing cannot be validated; ensure the data "
+            "order (seed/batch-size/split) is unchanged, or clear the output dir."
+        )
+    elif (
+        saved["gt_j3d"].shape != np.asarray(batch["gt_j3d"]).shape
+        or not np.allclose(saved["gt_j3d"], batch["gt_j3d"], atol=1e-5)
+    ):
+        raise ValueError(
+            f"shard {shard_id}: saved gt_j3d does not match this run's batch — "
+            "the data order changed since the manifest was written (different "
+            "seed/batch-size/split/epochs?). Clear the output dir or restore the "
+            "original config."
+        )
+    dev = model.v_template.device
+    t = lambda k: torch.as_tensor(saved[k], device=dev)  # noqa: E731
+    params = losses.FrameParams(*(t(k) for k in losses.FrameParams._fields))
+    return trainer.jreg_lstsq_accumulate(
+        acc, _replay_vertices(model, params),
+        torch.as_tensor(np.asarray(batch["gt_j3d"]), device=dev), t("joints3d")[:, :1],
+    )
+
+
+def load_regressor_file(path: str) -> np.ndarray:
+    """(17, V) regressor from .npy / .npz (key j_regressor) / torch .pt."""
+    if path.endswith(".npy"):
+        return np.load(path).astype(np.float32)
+    if path.endswith(".npz"):
+        with np.load(path) as f:
+            key = "j_regressor" if "j_regressor" in f else f.files[0]
+            return f[key].astype(np.float32)
+    return torch.load(path, map_location="cpu", weights_only=True).numpy().astype(np.float32)
+
+
+def _demo_regressor(num_verts: int, rng: np.random.Generator) -> np.ndarray:
+    """The demo's true regressor: 6 random vertices per joint."""
+    j_reg = np.zeros((constants.NUM_EVAL_JOINTS, num_verts), np.float32)
+    for j in range(constants.NUM_EVAL_JOINTS):
+        j_reg[j, rng.choice(num_verts, 6, replace=False)] = rng.uniform(0.5, 1.0, 6)
+    return j_reg
+
+
+def run_pipeline(
+    cfg: PipelineConfig,
+    data_root: Optional[str] = None,
+    out_dir: str = "output",
+    demo: bool = False,
+    logger=None,
+    jreg_init_path: Optional[str] = None,
+    spin_checkpoint: Optional[str] = None,
+    loader: str = "auto",
+    vibe_checkpoint: Optional[str] = None,
+    meva_checkpoint: Optional[str] = None,
+    model=None,
+    demo_frames: Optional[int] = None,
+    device="cuda",
+) -> PipelineArtifacts:
+    """Full flow: optimize → regressor fit → protocol-2 eval, on `device`
+    (the card unless "cpu" is asked for; `model`, when given, sets it).
+
+    `demo=True` writes synthetic fixtures under out_dir/fixtures (unless
+    `data_root` already holds a split) and trains from a perturbed copy of
+    the regressor that generated them; `model` overrides the demo's
+    256-vertex body and `demo_frames` the fixture count (2 batches by
+    default). Outside the demo the initial regressor is mandatory: an
+    explicit `jreg_init_path` or J_regressor_h36m.{npy,npz} under the data
+    root. `loader`: "python" (H36MDataset + BatchLoader) or "auto"."""
+    if spin_checkpoint is not None:
+        raise NotImplementedError(
+            "spin_checkpoint: live SPIN initialization (make_spin_fn, models/spin.py) is "
+            "not ported (ROADMAP Queue 1, SPIN); the stored precomputed estimates are used "
+            "without it"
+        )
+    for kind, path in (("vibe", vibe_checkpoint), ("meva", meva_checkpoint)):
+        if path is not None:
+            raise NotImplementedError(
+                f"{kind}_checkpoint: the {kind.upper()} consumer eval is not ported "
+                "(ROADMAP Queue 1, the consumers and sequence batches)"
+            )
+    if loader not in ("auto", "python", "native"):
+        raise ValueError(f"unknown loader {loader!r} (auto, python or native)")
+    dev = model.v_template.device if model is not None else resolve_device(device)
+    os.makedirs(out_dir, exist_ok=True)
+    if demo:
+        data_root = data_root or os.path.join(out_dir, "fixtures")
+    sub = "precomputed_train" if cfg.data.split == "train" else "precomputed_val"
+    if loader == "native" or (
+        loader == "auto" and os.path.exists(os.path.join(data_root or "", sub, "frames.jrrpack"))
+    ):
+        raise NotImplementedError(
+            "the native pack loader (data/native_pipeline.py and runtime/) is not ported "
+            "(ROADMAP Queue 1); pass loader='python' and remove frames.jrrpack to read "
+            "the PNG files"
+        )
+
+    seconds: Dict[str, float] = {}
+    if demo:
+        if model is None:
+            model = smpl_lib.synthetic_smpl_model(
+                seed=cfg.seed, num_verts=256, num_faces=500, device=dev
+            )
+        rng = np.random.default_rng(cfg.seed)
+        j_reg_initial = _demo_regressor(model.num_verts, rng)
+        t0 = time.perf_counter()
+        if not os.path.exists(os.path.join(data_root, "precomputed_val")):
+            fixtures.write_fixture_dataset(
+                data_root, num_frames=demo_frames or cfg.data.batch_size * 2,
+                seed=cfg.seed, model=model, j_reg_raw=j_reg_initial,
+            )
+        seconds["fixtures"] = time.perf_counter() - t0
+        # Train from a perturbed regressor so the before/after comparison has
+        # real error to recover (the true regressor generated the fixtures).
+        j_reg_initial = j_reg_initial + np.abs(
+            rng.normal(scale=0.15, size=j_reg_initial.shape)
+        ).astype(np.float32) * (j_reg_initial == 0) * (
+            rng.uniform(size=j_reg_initial.shape) < 0.05
+        ) + rng.normal(scale=0.08, size=j_reg_initial.shape).astype(np.float32) * (
+            j_reg_initial > 0
+        )
+    else:
+        # Training starts from SPIN's original J_regressor_h36m.npy
+        # (reference: scripts/optimize.py:105-107), never from a retrained one.
+        if jreg_init_path is None and data_root:
+            for name in ("J_regressor_h36m.npy", "J_regressor_h36m.npz"):
+                if os.path.exists(os.path.join(data_root, name)):
+                    jreg_init_path = os.path.join(data_root, name)
+                    break
+        if jreg_init_path is None:
+            raise ValueError(
+                "no --jreg-init given and no J_regressor_h36m.{npy,npz} found "
+                "under the data root; training must start from the original "
+                "regressor (reference: scripts/optimize.py:105-107), not the "
+                "shipped retrained artifact"
+            )
+        j_reg_initial = load_regressor_file(jreg_init_path)
+        if model is None:
+            model = smpl_lib.resolve_smpl_model(device=dev)
+
+    dataset = h36m.H36MDataset(data_root, cfg.data.split)
+    batch_loader = h36m.BatchLoader(
+        dataset, cfg.data.batch_size, seed=cfg.data.shuffle_seed,
+        drop_last=True, prefetch=cfg.data.prefetch,
+    )
+
+    def epoch_batches(for_eval: bool = False):
+        """All train epochs back to back, reshuffled per epoch."""
+        for epoch in range(1 if for_eval else max(1, cfg.data.train_epochs)):
+            batch_loader.set_epoch(epoch)
+            yield from iter(batch_loader)
+
+    t0 = time.perf_counter()
+    state, acc, _ = run_optimize(
+        cfg, model, j_reg_initial, epoch_batches(), out_dir, logger=logger
+    )
+    seconds["optimize"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    j_reg_final = state.j_reg_raw.cpu().numpy()
+    j_reg_lstsq = trainer.jreg_lstsq_solve(acc, cfg.jreg.lstsq_ridge).cpu().numpy()
+    seconds["fit"] = time.perf_counter() - t0
+    np.savez(
+        os.path.join(out_dir, "retrained_j_regressor.npz"),
+        j_regressor=j_reg_final, j_regressor_lstsq=j_reg_lstsq,
+    )
+
+    # Protocol-2 eval: the stored initializer predictions through the
+    # initial, Adam-path and lstsq regressors, one pass over the split.
+    def predictions():
+        for batch in epoch_batches(for_eval=True):
+            pose6d = np.concatenate([batch["orient"].reshape(-1, 1, 6), batch["pose"]], axis=1)
+            yield {"pose6d": pose6d, "betas": batch["betas"], "gt_j3d": batch["gt_j3d"]}
+
+    t0 = time.perf_counter()
+    res_init, res_final, res_lstsq = harness.evaluate_regressors(
+        model, predictions(), [j_reg_initial, j_reg_final, j_reg_lstsq]
+    )
+    seconds["eval"] = time.perf_counter() - t0
+    before_after = harness.BeforeAfter(before=res_init, after=res_final)
+    print(before_after.summary())
+    print(f"\nafter (lstsq fit)\nMPJPE\n{res_lstsq.mpjpe:.4f}\nPAMPJPE\n{res_lstsq.pa_mpjpe:.4f}")
+    return PipelineArtifacts(
+        j_reg_initial=j_reg_initial,
+        j_reg_final=j_reg_final,
+        j_reg_lstsq=j_reg_lstsq,
+        eval_before_after=before_after,
+        out_dir=out_dir,
+        eval_lstsq=res_lstsq,
+        seconds=seconds,
+    )

@@ -31,6 +31,7 @@ from jrr_tpu_torch.config import RefinerConfig
 from jrr_tpu_torch.ops import jreg as jreg_lib
 from jrr_tpu_torch.refine import losses
 from jrr_tpu_torch.refine.losses import FrameBatch, FrameParams, LossTerms
+from jrr_tpu_torch.render import camera as camera_lib
 from jrr_tpu_torch.render import silhouette as sil_lib
 from jrr_tpu_torch.render import silhouette_fused as sf
 
@@ -291,3 +292,17 @@ def _refine_coarse_to_fine(
     else:
         stats = sf.BinStats(*(torch.maximum(a, b) for a, b in zip(res1.bin_stats, res2.bin_stats)))
     return res2._replace(stage_a_loss=res1.stage_a_loss, stage_b_terms=terms, bin_stats=stats)
+
+
+def spin_prediction_to_params(
+    spin_pose6d: torch.Tensor, spin_betas: torch.Tensor, spin_camera: torch.Tensor,
+    image_size: int = constants.CROP_RES,
+) -> FrameParams:
+    """SPIN network outputs → initial refinement state
+    (reference: scripts/optimize.py:170-182)."""
+    return FrameParams(
+        pose6d=spin_pose6d[:, 1:],
+        orient6d=spin_pose6d[:, :1],
+        betas=spin_betas,
+        cam_t=camera_lib.weak_perspective_to_translation(spin_camera, image_size),
+    )

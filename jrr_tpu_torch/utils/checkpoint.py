@@ -1,0 +1,152 @@
+"""Checkpoint / resume (counterpart of jrr_tpu/utils/checkpoint.py).
+
+- `save_pytree_npz`/`restore_pytree_npz` write and read a tree of tensors
+  (NamedTuples, tuples, lists, dicts, `nn.Module`s by state_dict, the
+  engine's `_Adam` by count and moments, ints and floats) as one .npz, keyed
+  by the path of each leaf ("jreg_opt/m/0", "pose_disc/fc1.weight"). The
+  key layout is the port's own: the JAX package's checkpoints (orbax
+  directories, or npz keyed by jax keystr) are not read, and a file
+  without the port's keys raises.
+- `save_train_state`/`restore_train_state`: the `TrainState` as
+  <dir>/state_<step:08d>.npz.
+- `ShardManifest`: per-shard refined outputs, one shard_<id:06d>.npz each,
+  and manifest.json listing the completed shards — the same files and keys
+  as jrr_tpu's, so a refined-shard directory written by either package
+  resumes in the other.
+"""
+
+from __future__ import annotations
+
+import copy
+import json
+import os
+from typing import Any, Dict, List
+
+import numpy as np
+import torch
+from torch import nn
+
+from jrr_tpu_torch.refine import engine
+
+
+def _flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
+    key = lambda k: f"{prefix}/{k}" if prefix else str(k)  # noqa: E731
+    if isinstance(tree, torch.Tensor):
+        return {prefix: tree.detach().cpu().numpy()}
+    if isinstance(tree, (int, float, np.ndarray, np.generic)):
+        return {prefix: np.asarray(tree)}
+    if isinstance(tree, nn.Module):
+        return {key(k): v.detach().cpu().numpy() for k, v in tree.state_dict().items()}
+    if isinstance(tree, engine._Adam):
+        out = {key("count"): np.asarray(tree.count)}
+        out.update(_flatten(tree.m, key("m")))
+        out.update(_flatten(tree.v, key("v")))
+        return out
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        items = tree._asdict().items()
+    elif isinstance(tree, (tuple, list)):
+        items = enumerate(tree)
+    elif isinstance(tree, dict):
+        items = tree.items()
+    else:
+        raise TypeError(f"cannot checkpoint a {type(tree).__name__} at {prefix!r}")
+    out: Dict[str, np.ndarray] = {}
+    for k, v in items:
+        out.update(_flatten(v, key(k)))
+    return out
+
+
+def _restore(tree: Any, data: Dict[str, np.ndarray], prefix: str = "") -> Any:
+    key = lambda k: f"{prefix}/{k}" if prefix else str(k)  # noqa: E731
+    if isinstance(tree, torch.Tensor):
+        return torch.as_tensor(data[prefix], dtype=tree.dtype, device=tree.device)
+    if isinstance(tree, (bool, int, float)):
+        return type(tree)(data[prefix])
+    if isinstance(tree, nn.Module):
+        module = copy.deepcopy(tree)
+        state = module.state_dict()
+        module.load_state_dict({k: torch.as_tensor(data[key(k)]) for k in state})
+        return module
+    if isinstance(tree, engine._Adam):
+        opt = copy.copy(tree)
+        opt.count = int(data[key("count")])
+        opt.m = _restore(tree.m, data, key("m"))
+        opt.v = _restore(tree.v, data, key("v"))
+        return opt
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(**{k: _restore(v, data, key(k)) for k, v in tree._asdict().items()})
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_restore(v, data, key(i)) for i, v in enumerate(tree))
+    if isinstance(tree, dict):
+        return {k: _restore(v, data, key(k)) for k, v in tree.items()}
+    raise TypeError(f"cannot restore a {type(tree).__name__} at {prefix!r}")
+
+
+def save_pytree_npz(path: str, tree: Any) -> None:
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez(path, **_flatten(tree))
+
+
+def restore_pytree_npz(path: str, template: Any) -> Any:
+    """The tree of `template` with every leaf read from `path` (each tensor
+    on its template's device and dtype)."""
+    with np.load(path) as f:
+        data = dict(f)
+    missing = sorted(set(_flatten(template)) - set(data))
+    if missing:
+        raise ValueError(
+            f"{path} lacks {len(missing)} of the port's checkpoint keys (first: "
+            f"{missing[0]!r}); it was written by another program or another layout — "
+            "train-state checkpoints do not move between jrr_tpu and jrr_tpu_torch"
+        )
+    return _restore(template, data)
+
+
+def save_train_state(ckpt_dir: str, state, step: int) -> str:
+    """Write `state` to <ckpt_dir>/state_<step:08d>.npz; returns the path."""
+    path = os.path.join(ckpt_dir, f"state_{step:08d}.npz")
+    save_pytree_npz(path, state)
+    return path
+
+
+def restore_train_state(path: str, template):
+    if not path.endswith(".npz"):
+        raise ValueError(
+            f"{path} is not an npz train state (an orbax directory of jrr_tpu?); "
+            "train-state checkpoints do not move between jrr_tpu and jrr_tpu_torch"
+        )
+    return restore_pytree_npz(path, template)
+
+
+class ShardManifest:
+    """Per-shard output bookkeeping: restart = skip completed shards."""
+
+    def __init__(self, out_dir: str):
+        self.out_dir = out_dir
+        os.makedirs(out_dir, exist_ok=True)
+        self.manifest_path = os.path.join(out_dir, "manifest.json")
+
+    def completed(self) -> List[int]:
+        if not os.path.exists(self.manifest_path):
+            return []
+        with open(self.manifest_path) as f:
+            return sorted(json.load(f)["completed"])
+
+    def is_done(self, shard_id: int) -> bool:
+        return shard_id in set(self.completed())
+
+    def write_shard(self, shard_id: int, arrays: Dict[str, np.ndarray]) -> str:
+        path = os.path.join(self.out_dir, f"shard_{shard_id:06d}.npz")
+        tmp = path + ".tmp.npz"
+        np.savez(tmp, **arrays)
+        os.replace(tmp, path)
+        done = set(self.completed()) | {shard_id}
+        tmp_m = self.manifest_path + ".tmp"
+        with open(tmp_m, "w") as f:
+            json.dump({"completed": sorted(done)}, f)
+        os.replace(tmp_m, self.manifest_path)
+        return path
+
+    def read_shard(self, shard_id: int) -> Dict[str, np.ndarray]:
+        with np.load(os.path.join(self.out_dir, f"shard_{shard_id:06d}.npz")) as f:
+            return dict(f)
