@@ -62,7 +62,17 @@
    them apart and α jumps: there each α is held within the bounds of both
    outcomes, the loss kernel's err off those frames and its gradients off
    the entries they reach;
-12. prints the kernels line, the card's name and power limit, and the
+12. drives SPIN initialization and the VIBE/MEVA consumer evals
+   (`consumer_path`): SPIN's hmr, VIBE's and MEVA's checkpoints fabricated
+   at the published shapes from a seeded generator, then
+   `run_pipeline(demo=True, spin_checkpoint=…, vibe_checkpoint=…,
+   meva_checkpoint=…, consumer_seqlen=16)` on the product path's fixtures
+   at full width, batch 256, shipped defaults, with rows 1 and 2 launched
+   76 and 4 times, row 5 never, and finite evals; then holds SPIN
+   (features and estimates, TF32 off as shipped; the TF32-on gap reported)
+   and both consumers of each kind against the port's float32 CPU runs,
+   and rows 1 and 2 on the first SPIN-initialized batch's bins;
+13. prints the kernels line, the card's name and power limit, and the
    contract line `{"ok": true, "device": {...}}` last.
 
 Any failed check raises (non-zero exit, no result line). Needs one CUDA card
@@ -80,6 +90,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -131,6 +142,19 @@ PRODUCT_FRAMES = 2 * BATCH  # fixture frames of the product path: two shards
 # Camera z of the product path's fixtures: SPIN-crop scale, the range of
 # tools/pipeline_bench.py and of the synthetic problem of the other phases.
 PRODUCT_DEPTH = (36.0, 60.0)
+SPIN_CHECK_FRAMES = 8  # SPIN on the card against the CPU on the first batch's first frames
+CONSUMER_SEQLEN = 16  # the reference's chunk length (scripts/test.py:254-273)
+CONSUMER_CHUNKS = 2  # sequence chunks of the consumers' card-against-CPU hold
+# SPIN and the consumers ship with TF32 off: float32 card against float32 CPU,
+# their entry points called with TF32 on for the process, so that the code
+# itself must turn it off. Each limit lies between the gap of that sound
+# path and the gap of the same path with its float32 policy taken out
+# (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md, PR 8): features 3.1e-7 against
+# 5.3e-4 of their largest, estimates 6.0e-8 against 7.6e-6, consumer joints
+# 8.9e-8 m against 3.2e-5 to 4.5e-5 m. Each run reports both readings.
+SPIN_FEATURE_RTOL = 1e-4  # of the largest feature
+SPIN_OUTPUT_ATOL = 1e-6
+CONSUMER_ATOL = 1e-6  # meters
 
 
 def _emit(obj) -> None:
@@ -1457,34 +1481,42 @@ def check_product_render(model, j_true, seed, data_root):
                 **_merge_flip_reports(reports), mask_pngs_equal=len(paths))
 
 
-def check_product_bins(model, cfg, data_root):
-    """Rows 1 and 2 on the product path's own bins (`_hold_fused` with
-    decision flips, both geometries): the first batch the loop refines (epoch 0 of the python
-    loader) at its stored initial estimates, with the mask pooled as the
-    loop pools it."""
+def _first_batch(cfg, data_root):
+    """The first batch the loop refines (epoch 0 of the python loader)."""
     from jrr_tpu_torch.data import h36m
-    from jrr_tpu_torch.pipeline import _batch_to_device_inputs
 
     dataset = h36m.H36MDataset(data_root, cfg.data.split)
     loader = h36m.BatchLoader(dataset, BATCH, seed=cfg.data.shuffle_seed, drop_last=True)
-    init, data = _batch_to_device_inputs(dataset.load_batch(loader._indices()[:BATCH]), cfg, "cuda")
+    return dataset.load_batch(loader._indices()[:BATCH])
+
+
+def check_product_bins(model, cfg, data_root, spin_fn=None, where="product"):
+    """Rows 1 and 2 on the product path's own bins (`_hold_fused` with
+    decision flips, both geometries): the first batch the loop refines at
+    its stored initial estimates, or at SPIN's with `spin_fn`, with the
+    mask pooled as the loop pools it."""
+    from jrr_tpu_torch.pipeline import _batch_to_device_inputs
+
+    init, data = _batch_to_device_inputs(_first_batch(cfg, data_root), cfg, "cuda",
+                                         spin_fn=spin_fn)
     problem = (model, None, cfg.refiner, init, data)
-    return {geometry: _hold_fused(_kernel_inputs(problem, geometry), f"product {geometry}",
+    return {geometry: _hold_fused(_kernel_inputs(problem, geometry), f"{where} {geometry}",
                                   decision_flips=True)
             for geometry in ("fine", "coarse")}
 
 
-def run_product_path():
+def run_product_path(data_root):
     """The product loop through its entry points, as tools/pipeline_bench.py
-    drives jrr_tpu's: the fixtures written at SPIN-crop scale (camera z in
-    PRODUCT_DEPTH) and then `run_pipeline(demo=True)` on them at full width
-    (the 6890-vertex synthetic body, batch 256, shipped defaults, 1000 + 100
-    steps) over PRODUCT_FRAMES frames (two shards), with the python loader;
-    then the same call again on the same out dir, which must resume both
-    shards (no refinement kernel launched) and give the same regressors and
-    evals. The launch counts are set to 0 before each run (the first's
-    fixture write included) and read after it; the directories are
-    temporary. Rows 1, 2 and 5 are then held on the run's own inputs."""
+    drives jrr_tpu's: the fixtures written into `data_root` at SPIN-crop
+    scale (camera z in PRODUCT_DEPTH) and then `run_pipeline(demo=True)` on
+    them at full width (the 6890-vertex synthetic body, batch 256, shipped
+    defaults, 1000 + 100 steps) over PRODUCT_FRAMES frames (two shards),
+    with the python loader; then the same call again on the same out dir,
+    which must resume both shards (no refinement kernel launched) and give
+    the same regressors and evals. The launch counts are set to 0 before
+    each run (the first's fixture write included) and read after it; the
+    out dir is temporary. Rows 1, 2 and 5 are then held on the run's own
+    inputs. Returns the phase's record and the body model."""
     import tempfile
 
     import numpy as np
@@ -1506,7 +1538,7 @@ def run_product_path():
     j_true = _demo_regressor(model.num_verts, np.random.default_rng(cfg.seed))
     runs = []
     with tempfile.TemporaryDirectory() as tmp:
-        data_root, out_dir = os.path.join(tmp, "fixtures"), os.path.join(tmp, "run")
+        out_dir = os.path.join(tmp, "run")
         for name in ("first", "resumed"):
             metrics_path = os.path.join(tmp, f"metrics_{name}.jsonl")
             logger = MetricsLogger(path=metrics_path, echo=False)
@@ -1577,6 +1609,333 @@ def run_product_path():
                      evals_equal=True),
         render_check=render, bins_check=bins,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, card=_card(),
+    ), model
+
+
+def _fabricate(module, gen, skip=(), head=(), head_scale=1e-3, identity=()):
+    """A state dict of `module`'s names and shapes drawn from `gen`: conv
+    and linear weights N(0, 1/fan_in), biases N(0, 0.05²), BatchNorm scale
+    U(0.8, 1.2), shift N(0, 0.1²) and running statistics as
+    tests/test_spin.py randomizes them; the tensors under a `head` prefix
+    scaled by `head_scale`, those in `identity` set to the identity rot6d
+    pose (tiled), the mean camera (0.9, 0, 0), zero mean shape."""
+    import torch
+
+    norms = {n for n, m in module.named_modules() if isinstance(m, torch.nn.BatchNorm2d)}
+    pose6d = torch.tensor([1.0, 0.0, 0.0, 1.0, 0.0, 0.0]).repeat(24)
+    out = {}
+    for name, value in module.state_dict().items():
+        owner, leaf = name.rpartition(".")[::2]
+        shape = value.shape
+        if name.startswith(skip):
+            continue
+        if leaf == "num_batches_tracked":
+            out[name] = torch.zeros_like(value)
+            continue
+        if name in identity:
+            t = pose6d.reshape(shape).clone()
+        elif leaf == "init_cam":
+            t = torch.tensor([[0.9, 0.0, 0.0]])
+        elif leaf == "init_shape":
+            t = torch.zeros(shape)
+        elif leaf == "running_mean":
+            t = torch.rand(shape, generator=gen) * 0.4 - 0.2
+        elif leaf == "running_var":
+            t = torch.rand(shape, generator=gen) * 0.8 + 0.6
+        elif owner in norms:
+            t = (torch.rand(shape, generator=gen) * 0.4 + 0.8 if leaf == "weight"
+                 else torch.randn(shape, generator=gen) * 0.1)
+        elif value.ndim >= 2:
+            t = torch.randn(shape, generator=gen) / math.sqrt(value[0].numel())
+        else:
+            t = torch.randn(shape, generator=gen) * 0.05
+        if name.startswith(head) and name not in identity and "init_" not in name:
+            t = t * head_scale
+        out[name] = t
+    return out
+
+
+def fabricate_checkpoints(root, seed=0):
+    """SPIN's hmr, VIBE's and MEVA's files at the published shapes, in their
+    torch layouts, from one seeded torch.Generator: hmr ResNet-50 + IEF
+    (the dec* heads scaled by 1e-3, so the estimates stay near the mean
+    parameters: cam s ≈ 0.9, t_z ≈ 2·5000/(224·0.9) ≈ 50 m), with an
+    smpl_mean_params.npz (identity pose, zero shape, cam (0.9, 0, 0)); VIBE
+    hidden 1024, 2 layers; MEVA hidden 1024, 2 layers, latent 32, VAE
+    hidden 1024 (tests/test_consumer_full_shape.py:70-82), its VAE decoder
+    biased to the identity pose."""
+    import numpy as np
+    import torch
+
+    from jrr_tpu_torch.models import convert_util, meva, spin, temporal
+
+    gen = torch.Generator().manual_seed(seed)
+    paths = {k: os.path.join(root, name) for k, name in (
+        ("spin", "model_checkpoint.pt"), ("mean", "smpl_mean_params.npz"),
+        ("vibe", "vibe_model_wo_3dpw.pth.tar"), ("meva", "meva_model.pth.tar"))}
+    hmr = convert_util.empty_module(spin.SPIN)
+    torch.save({"model": _fabricate(hmr, gen, head=("dec",), identity=("init_pose",)),
+                "epoch": 0}, paths["spin"])
+    np.savez(paths["mean"], pose=np.tile(np.float32([1, 0, 0, 1, 0, 0]), 24),
+             shape=np.zeros(10, np.float32), cam=np.float32([0.9, 0.0, 0.0]))
+    vibe = convert_util.empty_module(lambda: temporal.TemporalPoseModel(1024, 2))
+    torch.save({"gen_state_dict": _fabricate(vibe, gen, skip=("backbone.",),
+                                             head=("regressor.dec",),
+                                             identity=("regressor.init_pose",)),
+                "performance": 56.5}, paths["vibe"])
+    model = convert_util.empty_module(lambda: meva.MEVAPoseModel(
+        1024, 2, latent_dim=32, vae_hidden=1024))
+    torch.save({"gen_state_dict": _fabricate(
+        model, gen, skip=("backbone.", "regressor.init_pose"),
+        head=("regressor.dec", "vae_model.d_out.weight"), identity=("vae_model.d_out.bias",)),
+        "performance": 60.0}, paths["meva"])
+    return paths
+
+
+def _max_rel(got, want) -> float:
+    """max |got − want| over max |want|."""
+    return float((got.double().cpu() - want.double()).abs().max() / want.double().abs().max())
+
+
+def _tf32(on: bool):
+    """Both TF32 flags set to `on` inside, restored after."""
+    import torch
+
+    @contextlib.contextmanager
+    def flags():
+        saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = on
+        try:
+            yield
+        finally:
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+    return flags()
+
+
+@contextlib.contextmanager
+def _shipped(policy: bool):
+    """TF32 on for the process, as a caller may leave it. With `policy` the
+    port's float32 policy (`utils.precision.float32_products`, which the
+    entry points enter on each call) stays in place: the shipped path.
+    Without it the policy is a null context: the same path in TF32, the
+    gap the holds must tell apart from the shipped one."""
+    from unittest import mock
+
+    from jrr_tpu_torch.utils import precision
+
+    with _tf32(True), (contextlib.nullcontext() if policy else mock.patch.object(
+            precision, "float32_products", contextlib.nullcontext)):
+        yield
+
+
+@contextlib.contextmanager
+def _backbone_features(out: dict):
+    """out["features"]: the backbone features of the last network call
+    inside, the spatial mean of the output of its last bottleneck block
+    (the tensor `ResNet50.forward` pools), caught by a forward hook."""
+    import torch
+
+    from jrr_tpu_torch.models import spin
+
+    def hook(module, args, output):
+        if isinstance(module, spin.Bottleneck):
+            out["last_block"] = output
+
+    handle = torch.nn.modules.module.register_module_forward_hook(hook)
+    try:
+        yield
+    finally:
+        handle.remove()
+    out["features"] = out.pop("last_block").mean(dim=(2, 3))
+
+
+def check_spin(paths, cfg, data_root):
+    """SPIN on the card against the port's own float32 CPU run on the first
+    batch's first SPIN_CHECK_FRAMES crops, through the shipped entry point
+    (`make_spin_fn`) called with TF32 on for the process (`_shipped`): its
+    backbone features (caught by a hook) within SPIN_FEATURE_RTOL of their
+    largest and its (pose6d, betas, cam) within SPIN_OUTPUT_ATOL. The same
+    gaps with the entry point's float32 policy taken out are reported
+    beside them. Then the shipped path's time for the whole 256-frame
+    batch, and that of the path in TF32 (median of three after a
+    warm-up)."""
+    import torch
+
+    from jrr_tpu_torch.models import spin
+    from jrr_tpu_torch.pipeline import make_spin_fn
+
+    batch = _first_batch(cfg, data_root)
+    images = spin.normalize_image(torch.as_tensor(batch["spin_image"]))
+    few = images[:SPIN_CHECK_FRAMES]
+    cpu = spin.load_spin_checkpoint(paths["spin"], paths["mean"], device="cpu")
+    with torch.inference_mode():
+        want_feats = spin.ResNet50.forward(cpu, few)
+        want = cpu(few)
+    shipped = make_spin_fn(paths["spin"], paths["mean"], device="cuda")
+    report = {}
+    for mode, policy in (("shipped", True), ("tf32", False)):
+        caught = {}
+        with _shipped(policy), _backbone_features(caught):
+            got = shipped(few.cuda())
+        errs = {k: float((g.cpu() - w).abs().max())
+                for k, g, w in zip(("pose6d", "betas", "cam"), got, want)}
+        report[mode] = dict(feature_max_rel_err=_max_rel(caught["features"], want_feats),
+                            output_max_abs_err=errs, max_abs_err=max(errs.values()))
+    sound = report["shipped"]
+    _check(sound["feature_max_rel_err"] <= SPIN_FEATURE_RTOL,
+           f"SPIN features on the card differ from the CPU's: {sound}")
+    _check(sound["max_abs_err"] <= SPIN_OUTPUT_ATOL,
+           f"SPIN on the card differs from the CPU's by {sound['max_abs_err']}")
+    batch_images = images.cuda()
+
+    def timed(policy):
+        def call():
+            with _shipped(policy):
+                shipped(batch_images)
+        return _median_seconds(call)
+
+    return dict(frames=SPIN_CHECK_FRAMES,
+                tolerance=f"features rtol {SPIN_FEATURE_RTOL} of max; outputs atol {SPIN_OUTPUT_ATOL}",
+                tf32_caught=(report["tf32"]["feature_max_rel_err"] > SPIN_FEATURE_RTOL
+                             and report["tf32"]["max_abs_err"] > SPIN_OUTPUT_ATOL),
+                seconds_per_batch=timed(True), tf32_seconds_per_batch=timed(False), batch=BATCH,
+                **report)
+
+
+def _median_seconds(fn, runs=3):
+    """Median wall seconds of `runs` calls after a warm-up, each ending in a
+    device synchronize."""
+    import torch
+
+    times = []
+    for _ in range(runs + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return sorted(times[1:])[runs // 2]
+
+
+def check_consumers(paths, cfg, data_root, model, j_regs):
+    """Both consumers of each kind on the card against their CPU runs (the
+    same files, the SMPL model copied to the CPU) on the first
+    CONSUMER_CHUNKS chunks of the ordered sequence batches, with the run's
+    initial and retrained regressors: the joints of the shipped consumers,
+    called with TF32 on for the process (`_shipped`), within CONSUMER_ATOL
+    m; the same gap with their float32 policy taken out beside it."""
+    import dataclasses as dc
+
+    import torch
+
+    from jrr_tpu_torch.data import h36m
+    from jrr_tpu_torch.evals import consumers
+    from jrr_tpu_torch.models import spin
+    from jrr_tpu_torch.ops import jreg
+
+    dataset = h36m.H36MDataset(data_root, cfg.data.split)
+    frames = CONSUMER_CHUNKS * CONSUMER_SEQLEN
+    batch = next(h36m.ordered_sequence_batches(dataset.load_batch, dataset.frame_order(),
+                                               frames, CONSUMER_SEQLEN))
+    images = spin.normalize_image(torch.as_tensor(batch["spin_image"]))
+    video = images.reshape((CONSUMER_CHUNKS, CONSUMER_SEQLEN) + images.shape[1:])
+    model_cpu = dc.replace(model, **{f.name: getattr(model, f.name).cpu()
+                                     for f in dc.fields(model)
+                                     if isinstance(getattr(model, f.name), torch.Tensor)})
+    norms = torch.stack([jreg.normalize_jreg(torch.as_tensor(j)) for j in j_regs])
+    backbone = consumers._spin_backbone_variables(paths["spin"])
+    report = {}
+    for kind in ("vibe", "meva"):
+        built = {dev: consumers.build_consumer(kind, paths[kind], m, backbone=backbone,
+                                               seqlen=CONSUMER_SEQLEN)
+                 for dev, m in (("cuda", model), ("cpu", model_cpu))}
+        for name, index, x in (("frame", 0, images), ("sequence", 1, video)):
+            want = built["cpu"][index](x, norms)
+            for mode, policy in (("", True), ("_tf32", False)):
+                with _shipped(policy):
+                    got = built["cuda"][index](x.cuda(), norms.cuda())
+                report[f"{kind}_{name}{mode}_max_abs_err_m"] = float((got.cpu() - want).abs().max())
+                report[f"{kind}_{name}{mode}_finite"] = bool(torch.isfinite(got).all())
+            err = report[f"{kind}_{name}_max_abs_err_m"]
+            _check(report[f"{kind}_{name}_finite"] and err <= CONSUMER_ATOL,
+                   f"{kind} {name} consumer on the card differs from the CPU's by {err} m")
+            # The network alone on BATCH frames (the chunks repeated), as
+            # the eval calls it per batch.
+            big = x.cuda().repeat((BATCH // frames,) + (1,) * (x.ndim - 1))
+            report[f"{kind}_{name}_seconds_per_batch"] = _median_seconds(
+                lambda: built["cuda"][index](big, norms.cuda()))
+    report["tf32_caught"] = all(v > CONSUMER_ATOL for k, v in report.items()
+                                if k.endswith("_tf32_max_abs_err_m"))
+    return dict(frames=frames, seqlen=CONSUMER_SEQLEN, tolerance_m=CONSUMER_ATOL, **report)
+
+
+def run_consumer_path(data_root, model):
+    """SPIN initialization and the VIBE/MEVA consumer evals through
+    `run_pipeline(demo=True)`: checkpoints fabricated at the published
+    shapes (`fabricate_checkpoints`), the product path's fixture directory
+    (`data_root`: no second fixture write), full width, batch 256, shipped
+    defaults, consumer seqlen 16, its own temporary out dir. The launch
+    counts are set to 0 just before the call and read just after: rows 1
+    and 2 as in the product path (76 and 4), row 5 none. Then SPIN and both
+    consumers are held against the port's CPU runs, and rows 1 and 2 on the
+    first SPIN-initialized batch's bins."""
+    import tempfile
+
+    import torch
+
+    from jrr_tpu_torch import config, kernels
+    from jrr_tpu_torch.pipeline import make_spin_fn, run_pipeline
+    from jrr_tpu_torch.utils.logging import MetricsLogger
+
+    cfg = config.PipelineConfig()
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = fabricate_checkpoints(tmp)
+        logger = MetricsLogger(path=os.path.join(tmp, "metrics.jsonl"), echo=False)
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            arts = run_pipeline(
+                cfg, data_root=data_root, out_dir=os.path.join(tmp, "run"), demo=True,
+                model=model, logger=logger, spin_checkpoint=paths["spin"],
+                spin_mean_params=paths["mean"], vibe_checkpoint=paths["vibe"],
+                meva_checkpoint=paths["meva"], consumer_seqlen=CONSUMER_SEQLEN)
+        finally:
+            logger.close()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = _read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        records = _records(os.path.join(tmp, "metrics.jsonl"))
+        spin_check = check_spin(paths, cfg, data_root)
+        consumer_check = check_consumers(paths, cfg, data_root, model,
+                                         (arts.j_reg_initial, arts.j_reg_final))
+        bins = check_product_bins(model, cfg, data_root, where="spin",
+                                  spin_fn=make_spin_fn(paths["spin"], paths["mean"]))
+    _check(launches == _launches(fused_lossgrad=76, fused_alpha_fwd=4),
+           f"consumer path launches {launches}, expected 76 fused_lossgrad + 4 fused_alpha_fwd")
+    _check(sorted(arts.consumer_evals) == ["meva", "meva (sequence)", "vibe", "vibe (sequence)"],
+           f"consumer evals {sorted(arts.consumer_evals)}")
+    evals = dict(arts.consumer_evals, protocol2=arts.eval_before_after)
+    results = [r for e in evals.values() for r in (e.before, e.after)] + [arts.eval_lstsq]
+    _check(all(math.isfinite(r.mpjpe) and math.isfinite(r.pa_mpjpe) and r.num_frames > 0
+               for r in results), "consumer path: a non-finite or empty eval")
+    frames = PRODUCT_FRAMES
+    return dict(
+        frames=frames, batch=BATCH, consumer_seqlen=CONSUMER_SEQLEN, seconds=seconds,
+        phase_seconds=arts.seconds, step_s=[r["batch_seconds"] for r in records],
+        loader_wait_s=[r["loader_wait_s"] for r in records],
+        spin_seconds_per_batch=spin_check["seconds_per_batch"],
+        consumer_eval_seconds={k.removeprefix("consumer_"): v for k, v in arts.seconds.items()
+                               if k.startswith("consumer_")},
+        product_frames_per_s=frames / arts.seconds["optimize"],
+        end_to_end_frames_per_s=frames / seconds,
+        peak_mem_gb=peak / 1e9, launches=launches,
+        evals={k: {"before": _eval_dict(v.before), "after": _eval_dict(v.after)}
+               for k, v in evals.items()},
+        lstsq=_eval_dict(arts.eval_lstsq),
+        spin_check=spin_check, consumer_check=consumer_check, bins_check=bins, card=_card(),
     )
 
 
@@ -1708,9 +2067,14 @@ def main() -> int:
     probe_records, probe_summary = run_probes()
     _emit({"probes": probe_records + probe_summary})
     done("probes")
-    product = run_product_path()
-    _emit({"product_path": product})
-    done("product_path")
+    with tempfile.TemporaryDirectory() as tmp:
+        data_root = os.path.join(tmp, "fixtures")
+        product, model = run_product_path(data_root)
+        _emit({"product_path": product})
+        done("product_path")
+        consumer = run_consumer_path(data_root, model)
+        _emit({"consumer_path": consumer})
+        done("consumer_path")
     _emit({"kernel_checks": checks})
     _emit({"tile_kernel_checks": tile_checks})
     _emit({"phase_seconds": phases})
@@ -1755,6 +2119,13 @@ def main() -> int:
         product_flips_nearer_float64=sum(r["flips_kernel_nearer_f64"]
                                          + r["rebin_flips_kernel_nearer_f64"] for r in prod_bins),
         tolerance=alpha_fwd["tolerance"] + on_product)
+    spin_bins = consumer["bins_check"].values()
+    for row, name in ((alpha_fwd, "fused_alpha_fwd"), (lossgrad, "fused_lossgrad")):
+        row["spin_product_launches"] = consumer["launches"][name]
+    alpha_fwd.update(max_abs_err=max(alpha_fwd["max_abs_err"], *(
+        r[k] for r in spin_bins for k in ("alpha_max_abs_err", "rebin_alpha_max_abs_err"))))
+    alpha_fwd["spin_decision_flips"] = sum(r["flips"] + r["rebin_flips"] for r in spin_bins)
+    prod_bins = list(prod_bins) + list(spin_bins)
     lossgrad.update(product_launches=product["launches"]["fused_lossgrad"], max_abs_err=max(
         lossgrad["max_abs_err"], *(r["grad_max_abs_err"] for r in prod_bins)),
         tolerance=lossgrad["tolerance"] + "; on the product's bins the same, err on the frames "
@@ -1762,8 +2133,10 @@ def main() -> int:
     tiles_fwd = entry("tiles_alpha_fwd", "silhouette_tiles.cu",
                       "jrr_tpu/render/silhouette_pallas.py:169", round1_launches["tiles_alpha_fwd"],
                       tile_checks, "fwd", f"atol {ALPHA_ATOL}; two launches bit for bit" + on_product)
-    tiles_fwd.update(product_launches=product["launches"]["tiles_alpha_fwd"], max_abs_err=max(
-        tiles_fwd["max_abs_err"], render["alpha_max_abs_err"]),
+    tiles_fwd.update(
+        product_launches=product["launches"]["tiles_alpha_fwd"],
+        spin_product_launches=consumer["launches"]["tiles_alpha_fwd"],
+        max_abs_err=max(tiles_fwd["max_abs_err"], render["alpha_max_abs_err"]),
         product_decision_flips=render["flips"],
         product_flips_nearer_float64=render["flips_kernel_nearer_f64"])
     # The main path launches it on the bins before the skip.

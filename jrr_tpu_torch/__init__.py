@@ -8,10 +8,12 @@ under `jrr_tpu` — and keeps its own copies of what it needs.
 Entry points that create state (`models.smpl.synthetic_smpl_model`,
 `problem.synthetic_problem`, the discriminator constructors,
 `ops.rotations.random_rotmat`, the probes' input builders,
-`data.fixtures.write_fixture_dataset`, `pipeline.run_pipeline` and the CLI
-`python -m jrr_tpu_torch.cli`) run on "cuda" unless the caller passes
-`device="cpu"` (`--device cpu`); without a card they raise instead of moving
-to the CPU.
+`data.fixtures.write_fixture_dataset`, `models.spin.load_spin_checkpoint`,
+`pipeline.make_spin_fn`, `pipeline.run_pipeline`, the `convert` functions
+and the CLI `python -m jrr_tpu_torch.cli`) run on "cuda" unless the caller
+passes `device="cpu"` (`--device cpu`); without a card they raise instead of
+moving to the CPU. `evals.consumers.build_consumer` follows its body
+model's device.
 """
 
 from __future__ import annotations

@@ -5,10 +5,11 @@ Usage:
     python -m jrr_tpu_torch.cli --demo --device cpu    # the same on the CPU
     python -m jrr_tpu_torch.cli --data-root data/h36m --jreg-init J_regressor_h36m.npy
 
+    python -m jrr_tpu_torch.cli --demo --device cpu --vibe-checkpoint vibe_model.pth.tar
+
 Flags follow jrr_tpu's CLI; its `--platform` is `--device {cuda,cpu}` here
-(default cuda, and `--demo` too runs on the card). `--spin-checkpoint`,
-`--vibe-checkpoint`, `--meva-checkpoint` and `--loader native` name parts
-that are not ported yet and raise.
+(default cuda, and `--demo` too runs on the card). `--loader native` names
+a part that is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -57,9 +58,33 @@ def build_parser() -> argparse.ArgumentParser:
         help="initial (17, V) joint regressor file (.npy/.npz/.pt); the "
         "reference uses SPIN's J_regressor_h36m.npy",
     )
-    p.add_argument("--spin-checkpoint", default=None, help="not ported yet (raises)")
-    p.add_argument("--vibe-checkpoint", default=None, help="not ported yet (raises)")
-    p.add_argument("--meva-checkpoint", default=None, help="not ported yet (raises)")
+    p.add_argument(
+        "--spin-checkpoint", default=None,
+        help="SPIN torch checkpoint (model_checkpoint.pt); enables live "
+        "per-batch SPIN initialization (reference: scripts/optimize.py:164-182)",
+    )
+    p.add_argument(
+        "--spin-mean-params", default=None,
+        help="SPIN smpl_mean_params.npz (init_pose/shape/cam buffers)",
+    )
+    p.add_argument(
+        "--vibe-checkpoint", default=None,
+        help="VIBE torch checkpoint (gen_state_dict layout); runs the VIBE "
+        "consumer eval after retraining (reference: main.py:26, "
+        "scripts/test.py:141-166)",
+    )
+    p.add_argument(
+        "--meva-checkpoint", default=None,
+        help="MEVA torch checkpoint (gen_state_dict layout); runs the MEVA "
+        "consumer eval after retraining (reference: main.py:27, "
+        "scripts/test.py:167-195)",
+    )
+    p.add_argument(
+        "--consumer-seqlen", type=int, default=None,
+        help="sequence length for the consumer evals (reference chunks video "
+        "into seqlen-16 sequences, scripts/test.py:254-273); default 16, "
+        "4 under --demo",
+    )
     p.add_argument(
         "--loader", default="auto", choices=["auto", "python", "native"],
         help="host input pipeline: python = H36MDataset + BatchLoader; native "
@@ -138,8 +163,10 @@ def main(argv=None) -> None:
         run_pipeline(
             cfg, data_root=args.data_root, out_dir=args.out, demo=args.demo,
             logger=logger, jreg_init_path=args.jreg_init,
-            spin_checkpoint=args.spin_checkpoint, loader=args.loader,
+            spin_checkpoint=args.spin_checkpoint, spin_mean_params=args.spin_mean_params,
+            loader=args.loader,
             vibe_checkpoint=args.vibe_checkpoint, meva_checkpoint=args.meva_checkpoint,
+            consumer_seqlen=args.consumer_seqlen or (4 if args.demo else 16),
             device=args.device,
         )
     finally:

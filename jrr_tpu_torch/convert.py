@@ -1,6 +1,8 @@
 """Turn the JAX package's parameters, given as array-likes (numpy arrays or
 anything `np.asarray` accepts), into the port's objects — so both packages
-can be run on the same numbers. Only numpy is used on the input side.
+can be run on the same numbers: configs, the SMPL arrays, the
+discriminators and the train state, and the flax variables of the SPIN,
+VIBE-style and MEVA-style networks. Only numpy is used on the input side.
 """
 
 from __future__ import annotations
@@ -14,8 +16,12 @@ from torch import nn
 
 from jrr_tpu_torch import config as config_lib
 from jrr_tpu_torch import resolve_device
+from jrr_tpu_torch.models import convert_util
 from jrr_tpu_torch.models import discriminator as disc_lib
+from jrr_tpu_torch.models import meva as meva_lib
 from jrr_tpu_torch.models import smpl as smpl_lib
+from jrr_tpu_torch.models import spin as spin_lib
+from jrr_tpu_torch.models import temporal as temporal_lib
 from jrr_tpu_torch.refine import engine
 from jrr_tpu_torch.refine import trainer
 from jrr_tpu_torch.refine.losses import FrameBatch, FrameParams
@@ -155,3 +161,137 @@ def train_state(src, cfg: config_lib.PipelineConfig, device="cuda") -> trainer.T
                              as_shape),
         step=int(np.array(src.step)),
     )
+
+
+# --- Flax variables of the SPIN and consumer models (the inverse of
+# jrr_tpu's torch-checkpoint converters, models/{spin,temporal,meva}.py) ---
+
+
+def _np(x) -> np.ndarray:
+    return np.array(x, np.float32)
+
+
+def _conv_weight(kernel) -> np.ndarray:
+    """flax conv kernel (H, W, I, O) → torch (O, I, H, W)."""
+    return np.transpose(_np(kernel), (3, 2, 0, 1))
+
+
+def _dense(sd, key: str, p) -> None:
+    sd[f"{key}.weight"] = _np(p["kernel"]).T
+    sd[f"{key}.bias"] = _np(p["bias"])
+
+
+def _backbone(sd, prefix: str, params, stats) -> None:
+    """flax `ResNet50` params + batch_stats → hmr's names under `prefix`."""
+    def bn(key, p, s):
+        sd[f"{key}.weight"], sd[f"{key}.bias"] = _np(p["scale"]), _np(p["bias"])
+        sd[f"{key}.running_mean"], sd[f"{key}.running_var"] = _np(s["mean"]), _np(s["var"])
+
+    sd[f"{prefix}conv1.weight"] = _conv_weight(params["conv1"]["kernel"])
+    bn(f"{prefix}bn1", params["BatchNorm_0"], stats["BatchNorm_0"])
+    for stage, (blocks, _, _) in enumerate(spin_lib.STAGES):
+        for b in range(blocks):
+            key, name = f"{prefix}layer{stage + 1}.{b}", f"layer{stage + 1}_{b}"
+            p, s = params[name], stats[name]
+            for ci in range(1, 4):
+                sd[f"{key}.conv{ci}.weight"] = _conv_weight(p[f"conv{ci}"]["kernel"])
+                bn(f"{key}.bn{ci}", p[f"BatchNorm_{ci - 1}"], s[f"BatchNorm_{ci - 1}"])
+            if "downsample_conv" in p:
+                sd[f"{key}.downsample.0.weight"] = _conv_weight(p["downsample_conv"]["kernel"])
+                bn(f"{key}.downsample.1", p["BatchNorm_3"], s["BatchNorm_3"])
+
+
+def _head(sd, prefix: str, head) -> None:
+    for lin in ("fc1", "fc2", "decpose", "decshape", "deccam"):
+        _dense(sd, f"{prefix}{lin}", head[lin])
+
+
+def _gru_layer(sd, key: str, suffix: str, cell) -> None:
+    """A flax GRUCell's params → torch's layer tensors, gates in [r, z, n].
+
+    jrr_tpu's converter folds torch's two r and z biases into one,
+    b_ir + b_hr and b_iz + b_hz (temporal.py:138-156); flax adds that one
+    bias on the input side. Here the sum goes to bias_ih and bias_hh's r
+    and z parts are 0: σ(W x + (b_i + b_h) + U h) is the same function. The
+    candidate gate keeps b_in on the input and b_hn inside r·(U_n h + b_hn),
+    as both packages do."""
+    gates = ("r", "z", "n")
+    sd[f"{key}.weight_ih_{suffix}"] = np.concatenate([_np(cell[f"i{g}"]["kernel"]).T for g in gates])
+    sd[f"{key}.weight_hh_{suffix}"] = np.concatenate([_np(cell[f"h{g}"]["kernel"]).T for g in gates])
+    sd[f"{key}.bias_ih_{suffix}"] = np.concatenate([_np(cell[f"i{g}"]["bias"]) for g in gates])
+    hn = _np(cell["hn"]["bias"])
+    sd[f"{key}.bias_hh_{suffix}"] = np.concatenate([np.zeros_like(hn), np.zeros_like(hn), hn])
+
+
+def _encoder(sd, encoder, n_layers: int, bidirectional: bool) -> None:
+    for k in range(n_layers):
+        _gru_layer(sd, "encoder.gru", f"l{k}", encoder[f"gru_l{k}"])
+        if bidirectional:
+            _gru_layer(sd, "encoder.gru", f"l{k}_reverse", encoder[f"gru_l{k}_rev"])
+    _dense(sd, "encoder.linear", encoder["linear"])
+
+
+def _load(module: nn.Module, sd, device) -> nn.Module:
+    convert_util.load_module(module, convert_util.StateDictView(sd, "flax variables"))
+    return module.eval().to(resolve_device(device))
+
+
+def spin_model(variables: Mapping, device="cuda") -> spin_lib.SPIN:
+    """JAX `SPIN` flax variables ({"params", "batch_stats"}, arrays as numpy
+    or anything `np.asarray` takes) → `models.spin.SPIN` on `device`."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd = {}
+    _backbone(sd, "", params["backbone"], stats["backbone"])
+    _head(sd, "", params["head"])
+    for name in ("init_pose", "init_shape", "init_cam"):
+        sd[name] = _np(params[name])
+    return _load(convert_util.empty_module(spin_lib.SPIN), sd, device)
+
+
+def temporal_model(variables: Mapping, meta: Mapping, device="cuda") -> temporal_lib.TemporalPoseModel:
+    """JAX `TemporalPoseModel` flax variables → the port's, with the layout
+    `meta` of `consumers.sniff_temporal_layout` (hidden_size, n_layers,
+    bidirectional)."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd = {}
+    _backbone(sd, "backbone.", params["backbone"], stats["backbone"])
+    _encoder(sd, params["encoder"], meta["n_layers"], meta["bidirectional"])
+    _head(sd, "regressor.", params["head"])
+    for name in ("init_pose", "init_shape", "init_cam"):
+        sd[f"regressor.{name}"] = _np(params[name])
+    model = convert_util.empty_module(lambda: temporal_lib.TemporalPoseModel(
+        hidden_size=meta["hidden_size"], n_layers=meta["n_layers"],
+        bidirectional=meta["bidirectional"]))
+    return _load(model, sd, device)
+
+
+def meva_model(variables: Mapping, meta: Mapping, device="cuda") -> meva_lib.MEVAPoseModel:
+    """JAX `MEVAPoseModel` flax variables → the port's (`meta` as for
+    `temporal_model`, plus latent_dim and vae_hidden). A flax init of
+    MEVAPoseModel holds no VAE encoder (its forward only decodes); then the
+    port's `enc_gru`, `e_mu` and `e_logvar` are zeros, which its forward
+    never reads either."""
+    params, stats = variables["params"], variables["batch_stats"]
+    latent, hidden = meta["latent_dim"], meta["vae_hidden"]
+    sd = {}
+    _backbone(sd, "backbone.", params["backbone"], stats["backbone"])
+    _encoder(sd, params["encoder"], meta["n_layers"], meta["bidirectional"])
+    vae = params["vae_model"]
+    model = convert_util.empty_module(lambda: meva_lib.MEVAPoseModel(
+        hidden_size=meta["hidden_size"], n_layers=meta["n_layers"],
+        bidirectional=meta["bidirectional"], latent_dim=latent, vae_hidden=hidden))
+    for name, value in model.vae_model.state_dict().items():
+        sd[f"vae_model.{name}"] = np.zeros(tuple(value.shape), np.float32)
+    if "enc_gru_l0" in vae:
+        _gru_layer(sd, "vae_model.enc_gru", "l0", vae["enc_gru_l0"])
+        _dense(sd, "vae_model.e_mu", vae["e_mu"])
+        _dense(sd, "vae_model.e_logvar", vae["e_logvar"])
+    _gru_layer(sd, "vae_model.d_gru", "l0", vae["d_gru"])
+    for lin in ("d_init", "d_out"):
+        _dense(sd, f"vae_model.{lin}", vae[lin])
+    _dense(sd, "feat_to_latent", params["feat_to_latent"])
+    _head(sd, "regressor.", params["regressor"])
+    sd["regressor.init_pose"] = np.zeros((1, spin_lib.NUM_POSE_PARAMS), np.float32)
+    for name in ("init_shape", "init_cam"):
+        sd[f"regressor.{name}"] = _np(params[name])
+    return _load(model, sd, device)

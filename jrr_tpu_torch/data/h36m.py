@@ -1,5 +1,5 @@
 """Human3.6M precomputed-tensor dataset reader (counterpart of
-jrr_tpu/data/h36m.py:45-289; reference scripts/data.py:28-163).
+jrr_tpu/data/h36m.py:45-324; reference scripts/data.py:28-163).
 
 A split directory holds per-frame tensors (bboxes, betas,
 estimated_translation, gt_j2d, gt_j3d, intrinsics, orient, pose: N leading)
@@ -282,3 +282,38 @@ def background_iter(iterable, depth: int = 2):
             thread.join()
 
     return consume()
+
+
+def sequence_chunk_indices(
+    seq_ids: np.ndarray, frame_nos: np.ndarray, seqlen: int
+) -> np.ndarray:
+    """(num_chunks, seqlen) dataset indices for the sequence-consumer eval.
+
+    Per sequence: frames sorted by frame number, truncated to a multiple of
+    `seqlen` (the reference's chunking drops remainders too, reference:
+    scripts/test.py:254-273). Chunks never cross a sequence boundary."""
+    chunks = []
+    for s in np.unique(seq_ids):
+        idx = np.nonzero(seq_ids == s)[0]
+        idx = idx[np.argsort(frame_nos[idx], kind="stable")]
+        n = (len(idx) // seqlen) * seqlen
+        if n:
+            chunks.append(idx[:n].reshape(-1, seqlen))
+    if not chunks:
+        return np.zeros((0, seqlen), np.int64)
+    return np.concatenate(chunks, axis=0)
+
+
+def ordered_sequence_batches(
+    load_fn, order: Tuple[np.ndarray, np.ndarray], batch_size: int, seqlen: int
+) -> Iterator[Dict[str, np.ndarray]]:
+    """Non-shuffling batches for `evaluate_consumer_sequences`: each joins
+    whole temporally ordered chunks (a multiple of `seqlen` frames, never
+    crossing a sequence), at most `batch_size` frames per batch.
+
+    `load_fn(indices) -> batch dict`, e.g. `H36MDataset.load_batch`;
+    `order` is the dataset's `frame_order()`."""
+    chunks = sequence_chunk_indices(order[0], order[1], seqlen)
+    per = max(1, batch_size // seqlen)
+    for i in range(0, len(chunks), per):
+        yield load_fn(chunks[i : i + per].reshape(-1))

@@ -36,6 +36,23 @@ _TPOSE_JOINTS = (
     (0.70, 0.45, 0.0), (-0.70, 0.45, 0.0), (0.80, 0.45, 0.0), (-0.80, 0.45, 0.0),
 )
 
+# Extra keypoint vertices appended by smplx's VertexJointSelector (public smplx
+# model facts; order = 5 face, 6 feet, 10 finger tips → smplx joints 24..44).
+EXTRA_JOINT_VERTEX_IDS: Tuple[int, ...] = (
+    332, 6260, 2800, 4071, 583,            # nose, right eye, left eye, right ear, left ear
+    3216, 3226, 3387, 6617, 6624, 6787,    # L big toe, L small toe, L heel, R big toe, R small toe, R heel
+    2746, 2319, 2445, 2556, 2673,          # left thumb/index/middle/ring/pinky tips
+    6191, 5782, 5905, 6016, 6133,          # right thumb/index/middle/ring/pinky tips
+)
+
+# SPIN's 49-joint gather over [45 smplx joints ++ 9 extra-regressor joints]
+# (reference: scripts/smpl.py:12-49 JOINT_MAP/JOINT_NAMES order).
+SPIN_49_JOINT_MAP: Tuple[int, ...] = (
+    24, 12, 17, 19, 21, 16, 18, 20, 0, 2, 5, 8, 1, 4, 7, 25, 26, 27, 28, 29, 30,
+    31, 32, 33, 34, 8, 5, 45, 46, 4, 7, 21, 19, 17, 16, 18, 20, 47, 48, 49, 50,
+    51, 52, 53, 24, 26, 25, 28, 27,
+)
+
 
 @dataclasses.dataclass(frozen=True)
 class SMPLModel:
@@ -113,6 +130,20 @@ def smpl_forward(
     rot_v = t_vert[..., :9].reshape(b, model.num_verts, 3, 3)
     verts = torch.einsum("bvik,bvk->bvi", rot_v, v_posed) + t_vert[..., 9:]
     return SMPLOutput(vertices=verts, joints=t_glob, v_shaped=v_shaped)
+
+
+def smpl_joints49(
+    model: SMPLModel, output: SMPLOutput, joint_map: Tuple[int, ...] = SPIN_49_JOINT_MAP
+) -> torch.Tensor:
+    """SPIN-convention 49-joint output (reference: scripts/smpl.py:72-85):
+    a gather over [FK24 ++ 21 selected vertices ++ 9 extra-regressor joints].
+    Requires `model.j_regressor_extra`."""
+    if model.j_regressor_extra is None:
+        raise ValueError("model has no j_regressor_extra; load it to use 49-joint output")
+    vertex_joints = output.vertices[:, list(EXTRA_JOINT_VERTEX_IDS)]
+    extra = torch.einsum("jv,bvc->bjc", model.j_regressor_extra, output.vertices)
+    all_joints = torch.cat([output.joints, vertex_joints, extra], dim=1)
+    return all_joints[:, list(joint_map)]
 
 
 def _part1by2(x: np.ndarray) -> np.ndarray:

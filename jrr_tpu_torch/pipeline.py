@@ -18,9 +18,16 @@ closed-form regressor fit → protocol-2 evaluation before/after.
   after checking that each shard's stored gt_j3d pairs with this run's
   batch, and restores the newest train-state checkpoint.
 
+With a SPIN checkpoint every batch's initial estimates come from the
+network on its 224² crop (`make_spin_fn`), run by the main thread just
+before the batch's outer step, so the launch order stays that of one
+thread; with VIBE/MEVA checkpoints the retrained regressor is also scored
+through those video models, frame by frame and over real sequences
+(`evals/consumers.py`).
+
 Not ported yet, and raising `NotImplementedError`: the native pack loader
-(`loader="native"`, or "auto" with a frames.jrrpack present), live SPIN
-initialization, the VIBE/MEVA consumer evals and more than one device.
+(`loader="native"`, or "auto" with a frames.jrrpack present) and more than
+one device.
 """
 
 from __future__ import annotations
@@ -39,10 +46,12 @@ import torch
 from jrr_tpu_torch import constants, resolve_device
 from jrr_tpu_torch.config import PipelineConfig
 from jrr_tpu_torch.data import fixtures, h36m
-from jrr_tpu_torch.evals import harness
+from jrr_tpu_torch.evals import consumers, harness
 from jrr_tpu_torch.models import smpl as smpl_lib
+from jrr_tpu_torch.models import spin as spin_lib
 from jrr_tpu_torch.refine import engine, losses, trainer
 from jrr_tpu_torch.utils import checkpoint as ckpt_lib
+from jrr_tpu_torch.utils import precision
 from jrr_tpu_torch.utils.logging import outer_metrics_record
 
 # Accumulator checkpoint cadence: without it a resume near the end of a long
@@ -64,16 +73,22 @@ class PipelineArtifacts:
     eval_before_after: harness.BeforeAfter
     out_dir: str
     eval_lstsq: Optional[harness.EvalResult] = None
-    # Wall seconds of each phase: fixtures (demo), optimize, fit, eval.
+    # Wall seconds of each phase: fixtures (demo), optimize, fit, eval, and
+    # with consumers consumer_frame (their build and the frame-level pass)
+    # and consumer_sequence.
     seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
+    # kind ("vibe"/"meva" [+ " (sequence)"]) → BeforeAfter, when consumer
+    # checkpoints were given (reference: main.py:26-27 runs both).
+    consumer_evals: Dict[str, harness.BeforeAfter] = dataclasses.field(default_factory=dict)
 
 
-def _batch_to_device_inputs(batch: Dict[str, np.ndarray], cfg: PipelineConfig, device):
-    """Host batch dict → (FrameParams init, FrameBatch data) on `device`.
+def _to_device(x, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(x), device=device)
 
-    The initial estimates are the stored orient/pose/betas/cam tensors (the
-    reference's precomputed SPIN outputs). When the silhouette term is live
-    at a smaller resolution than the stored mask (e.g. --demo), the mask is
+
+def _frame_batch(batch: Dict[str, np.ndarray], cfg: PipelineConfig, device) -> losses.FrameBatch:
+    """The batch's targets on `device`. When the silhouette term is live at
+    a smaller resolution than the stored mask (e.g. --demo), the mask is
     mean-pooled down to match; the rasterizer spec scales focal
     accordingly, so mask and render stay pixel-aligned."""
     mask = batch.get("mask_rcnn")
@@ -90,25 +105,46 @@ def _batch_to_device_inputs(batch: Dict[str, np.ndarray], cfg: PipelineConfig, d
                 )
             f = src // target
             mask = mask.reshape(mask.shape[0], target, f, target, f).mean(axis=(2, 4))
-    t = lambda x: torch.as_tensor(np.asarray(x), device=device)  # noqa: E731
-    data = losses.FrameBatch(
-        gt_j2d=t(batch["gt_j2d"]), gt_j3d=t(batch["gt_j3d"]),
-        mask=None if mask is None else t(mask),
+    return losses.FrameBatch(
+        gt_j2d=_to_device(batch["gt_j2d"], device), gt_j3d=_to_device(batch["gt_j3d"], device),
+        mask=None if mask is None else _to_device(mask, device),
     )
-    init = losses.FrameParams(
-        pose6d=t(batch["pose"]),
-        orient6d=t(batch["orient"]).reshape(-1, 1, 6),
-        betas=t(batch["betas"]),
-        cam_t=t(batch["cam"]),
+
+
+def _stored_init(batch: Dict[str, np.ndarray], device) -> losses.FrameParams:
+    """The stored orient/pose/betas/cam tensors (the reference's precomputed
+    SPIN outputs) as the initial estimates."""
+    return losses.FrameParams(
+        pose6d=_to_device(batch["pose"], device),
+        orient6d=_to_device(batch["orient"], device).reshape(-1, 1, 6),
+        betas=_to_device(batch["betas"], device),
+        cam_t=_to_device(batch["cam"], device),
     )
-    return init, data
+
+
+def _spin_init(spin_fn, spin_image01: torch.Tensor) -> losses.FrameParams:
+    """SPIN's estimates on the [0, 1] crops as the initial estimates
+    (reference: scripts/optimize.py:164-182)."""
+    return engine.spin_prediction_to_params(*spin_fn(spin_lib.normalize_image(spin_image01)))
+
+
+def _batch_to_device_inputs(batch: Dict[str, np.ndarray], cfg: PipelineConfig, device,
+                            spin_fn=None):
+    """Host batch dict → (FrameParams init, FrameBatch data) on `device`.
+
+    With `spin_fn` (`make_spin_fn`) the initial estimates come from the
+    network on the 224² crop; otherwise from the stored tensors."""
+    data = _frame_batch(batch, cfg, device)
+    if spin_fn is not None:
+        return _spin_init(spin_fn, _to_device(batch["spin_image"], device)), data
+    return _stored_init(batch, device), data
 
 
 @torch.no_grad()
 def _replay_vertices(model, params: losses.FrameParams) -> torch.Tensor:
     """The refined vertices of saved parameters, computed as `refine_batch`
     computes its final ones (TF32 off)."""
-    with engine._no_tf32():
+    with precision.float32_products():
         return losses.forward_frame(model, params).vertices
 
 
@@ -178,10 +214,17 @@ def run_optimize(
     out_dir: str,
     logger=None,
     resume: bool = True,
+    spin_fn=None,
 ):
     """The `optimize_pose_refiner` equivalent (reference:
     scripts/optimize.py:88-337), on the model's device: one `outer_step` per
     batch, shard writes, the lstsq accumulator, resume.
+
+    With `spin_fn` (`make_spin_fn`) each refined batch starts from SPIN's
+    estimates on its crops: the prefetch thread stages the crops, and the
+    main thread runs the network just before the batch's outer step, so
+    every launch comes from one thread in a fixed order (a resumed shard
+    needs no estimates and runs no network).
 
     Returns (final TrainState, JRegLstsqAccumulator, ShardManifest)."""
     if cfg.mesh.num_devices is not None and cfg.mesh.num_devices > 1:
@@ -242,9 +285,12 @@ def run_optimize(
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
-    staged = _prefetch_iter(
-        map(lambda b: (b,) + _batch_to_device_inputs(b, cfg, dev), batches), cfg.data.prefetch
-    )
+    def stage(batch):
+        init = (_stored_init(batch, dev) if spin_fn is None
+                else _to_device(batch["spin_image"], dev))
+        return batch, init, _frame_batch(batch, cfg, dev)
+
+    staged = _prefetch_iter(map(stage, batches), cfg.data.prefetch)
     writer = _OrderedWriter(write)
     try:
         for shard_id, (loader_wait, (batch, init, data)) in enumerate(_timed(staged)):
@@ -257,6 +303,8 @@ def run_optimize(
                 continue
             t0 = time.time()
             phases = {}
+            if spin_fn is not None:
+                init = _spin_init(spin_fn, init)
             if phase_timing:
                 barrier()
                 phases["prep"] = time.time() - t0
@@ -344,6 +392,33 @@ def _replay_shard(manifest, shard_id: int, batch, model, acc):
     )
 
 
+def make_spin_fn(checkpoint_path: str, mean_params_path: Optional[str] = None, device="cuda"):
+    """A SPIN torch checkpoint → the initializer fn: ImageNet-normalized
+    (B, 3, 224, 224) crops → (pose6d (B, 24, 6), betas (B, 10), cam (B, 3)).
+
+    The reference builds hmr, loads `model_checkpoint.pt` and runs it per
+    batch (reference: scripts/optimize.py:90-94,164-168). Any torch file
+    whose ['model'] (or root) is hmr's state dict loads, with or without
+    DataParallel `module.` prefixes; `mean_params_path` is SPIN's
+    smpl_mean_params.npz. A drifted key layout raises
+    `CheckpointLayoutError` with a diff report.
+
+    The network runs in inference mode with float32 products (TF32 off in
+    cuBLAS and cuDNN, the caller's flags restored after); its outputs are
+    returned as ordinary tensors, so refinement can take gradients from
+    them."""
+    if checkpoint_path.endswith((".npz", ".npy")):
+        raise ValueError("pass the torch SPIN checkpoint (.pt); it loads by name")
+    model = spin_lib.load_spin_checkpoint(checkpoint_path, mean_params_path, device=device)
+
+    def spin_fn(image: torch.Tensor):
+        with torch.inference_mode(), precision.float32_products():
+            out = model(image)
+        return tuple(x.clone() for x in out)
+
+    return spin_fn
+
+
 def load_regressor_file(path: str) -> np.ndarray:
     """(17, V) regressor from .npy / .npz (key j_regressor) / torch .pt."""
     if path.endswith(".npy"):
@@ -371,15 +446,18 @@ def run_pipeline(
     logger=None,
     jreg_init_path: Optional[str] = None,
     spin_checkpoint: Optional[str] = None,
+    spin_mean_params: Optional[str] = None,
     loader: str = "auto",
     vibe_checkpoint: Optional[str] = None,
     meva_checkpoint: Optional[str] = None,
+    consumer_seqlen: int = 16,
     model=None,
     demo_frames: Optional[int] = None,
     device="cuda",
 ) -> PipelineArtifacts:
-    """Full flow: optimize → regressor fit → protocol-2 eval, on `device`
-    (the card unless "cpu" is asked for; `model`, when given, sets it).
+    """Full flow: [SPIN init →] optimize → regressor fit → protocol-2 eval
+    [→ VIBE/MEVA consumer evals], on `device` (the card unless "cpu" is
+    asked for; `model`, when given, sets it).
 
     `demo=True` writes synthetic fixtures under out_dir/fixtures (unless
     `data_root` already holds a split) and trains from a perturbed copy of
@@ -387,19 +465,15 @@ def run_pipeline(
     256-vertex body and `demo_frames` the fixture count (2 batches by
     default). Outside the demo the initial regressor is mandatory: an
     explicit `jreg_init_path` or J_regressor_h36m.{npy,npz} under the data
-    root. `loader`: "python" (H36MDataset + BatchLoader) or "auto"."""
-    if spin_checkpoint is not None:
-        raise NotImplementedError(
-            "spin_checkpoint: live SPIN initialization (make_spin_fn, models/spin.py) is "
-            "not ported (ROADMAP Queue 1, SPIN); the stored precomputed estimates are used "
-            "without it"
-        )
-    for kind, path in (("vibe", vibe_checkpoint), ("meva", meva_checkpoint)):
-        if path is not None:
-            raise NotImplementedError(
-                f"{kind}_checkpoint: the {kind.upper()} consumer eval is not ported "
-                "(ROADMAP Queue 1, the consumers and sequence batches)"
-            )
+    root. `loader`: "python" (H36MDataset + BatchLoader) or "auto".
+
+    `spin_checkpoint` (+ `spin_mean_params`) initializes every batch from
+    SPIN on its crop (reference: scripts/optimize.py:164-182), and the eval
+    scores SPIN's predictions, instead of the stored estimates.
+    `vibe_checkpoint` / `meva_checkpoint` score the initial and retrained
+    regressors through those video models after retraining (reference:
+    main.py:26-27 → scripts/test.py:141-301): frame by frame, and over
+    `consumer_seqlen`-frame sequences in the dataset's temporal order."""
     if loader not in ("auto", "python", "native"):
         raise ValueError(f"unknown loader {loader!r} (auto, python or native)")
     dev = model.v_template.device if model is not None else resolve_device(device)
@@ -459,6 +533,10 @@ def run_pipeline(
         if model is None:
             model = smpl_lib.resolve_smpl_model(device=dev)
 
+    spin_fn = None
+    if spin_checkpoint is not None:
+        spin_fn = make_spin_fn(spin_checkpoint, spin_mean_params, device=dev)
+
     dataset = h36m.H36MDataset(data_root, cfg.data.split)
     batch_loader = h36m.BatchLoader(
         dataset, cfg.data.batch_size, seed=cfg.data.shuffle_seed,
@@ -473,7 +551,7 @@ def run_pipeline(
 
     t0 = time.perf_counter()
     state, acc, _ = run_optimize(
-        cfg, model, j_reg_initial, epoch_batches(), out_dir, logger=logger
+        cfg, model, j_reg_initial, epoch_batches(), out_dir, logger=logger, spin_fn=spin_fn
     )
     seconds["optimize"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -485,12 +563,19 @@ def run_pipeline(
         j_regressor=j_reg_final, j_regressor_lstsq=j_reg_lstsq,
     )
 
-    # Protocol-2 eval: the stored initializer predictions through the
-    # initial, Adam-path and lstsq regressors, one pass over the split.
+    # Protocol-2 eval: the initializer's predictions (SPIN on the crops, or
+    # the stored ones) through the initial, Adam-path and lstsq regressors,
+    # one pass over the split.
     def predictions():
         for batch in epoch_batches(for_eval=True):
-            pose6d = np.concatenate([batch["orient"].reshape(-1, 1, 6), batch["pose"]], axis=1)
-            yield {"pose6d": pose6d, "betas": batch["betas"], "gt_j3d": batch["gt_j3d"]}
+            if spin_fn is not None:
+                pose6d, betas, _ = spin_fn(
+                    spin_lib.normalize_image(_to_device(batch["spin_image"], dev)))
+            else:
+                pose6d = np.concatenate(
+                    [batch["orient"].reshape(-1, 1, 6), batch["pose"]], axis=1)
+                betas = batch["betas"]
+            yield {"pose6d": pose6d, "betas": betas, "gt_j3d": batch["gt_j3d"]}
 
     t0 = time.perf_counter()
     res_init, res_final, res_lstsq = harness.evaluate_regressors(
@@ -500,6 +585,58 @@ def run_pipeline(
     before_after = harness.BeforeAfter(before=res_init, after=res_final)
     print(before_after.summary())
     print(f"\nafter (lstsq fit)\nMPJPE\n{res_lstsq.mpjpe:.4f}\nPAMPJPE\n{res_lstsq.pa_mpjpe:.4f}")
+
+    # Consumer evals (reference: main.py:26-27 → scripts/test.py:141-301):
+    # the retrained regressor plugged into the VIBE/MEVA video models.
+    def norm_batch(batch):
+        return dict(batch, spin_image=spin_lib.normalize_image(
+            _to_device(batch["spin_image"], dev)))
+
+    # Both models are built first, then scored together: one loader pass
+    # for the frame-level evals and one for the sequence evals (jrr_tpu
+    # makes two passes per model).
+    consumer_evals: Dict[str, harness.BeforeAfter] = {}
+    paths = {kind: path for kind, path in (("vibe", vibe_checkpoint), ("meva", meva_checkpoint))
+             if path is not None}
+    if paths:
+        t0 = time.perf_counter()
+        backbone = (None if spin_checkpoint is None
+                    else consumers._spin_backbone_variables(spin_checkpoint))
+        built = {}
+        for kind, path in paths.items():
+            built[kind] = consumers.build_consumer(kind, path, model, backbone=backbone,
+                                                   seqlen=consumer_seqlen)
+            print(f"\n[{kind.upper()}] checkpoint layout: {built[kind][2]}")
+        frame_evals = harness.evaluate_consumer(
+            {kind: b[0] for kind, b in built.items()},
+            map(norm_batch, epoch_batches(for_eval=True)), j_reg_initial, j_reg_final, device=dev,
+        )
+        seconds["consumer_frame"] = time.perf_counter() - t0
+        order = dataset.frame_order()
+        seq_evals = {}
+        if order is not None:
+            t0 = time.perf_counter()
+            seq_batches = h36m.background_iter(h36m.ordered_sequence_batches(
+                dataset.load_batch, order, cfg.data.batch_size, consumer_seqlen),
+                cfg.data.prefetch)
+            seq_evals = harness.evaluate_consumer_sequences(
+                {kind: b[1] for kind, b in built.items()}, map(norm_batch, seq_batches),
+                j_reg_initial, j_reg_final, seqlen=consumer_seqlen, device=dev,
+            )
+            seconds["consumer_sequence"] = time.perf_counter() - t0
+        for kind in paths:
+            print(f"\n{kind.upper()}\n{frame_evals[kind].summary()}")
+            consumer_evals[kind] = frame_evals[kind]
+            if order is None:
+                print(
+                    f"{kind.upper()}: no temporal order available in the dataset "
+                    "(no seq_id/frame_id tensors and no image paths) — sequence "
+                    "eval skipped; frame-level consumer eval above is complete."
+                )
+                continue
+            print(f"\n{kind.upper()} (sequence)\n{seq_evals[kind].summary()}")
+            consumer_evals[f"{kind} (sequence)"] = seq_evals[kind]
+
     return PipelineArtifacts(
         j_reg_initial=j_reg_initial,
         j_reg_final=j_reg_final,
@@ -508,4 +645,5 @@ def run_pipeline(
         out_dir=out_dir,
         eval_lstsq=res_lstsq,
         seconds=seconds,
+        consumer_evals=consumer_evals,
     )

@@ -20,7 +20,6 @@ m̂ = m/(1−b1^t), v̂ = v/(1−b2^t), b1 0.9, b2 0.999, eps 1e-8 after the sqr
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import List, NamedTuple, Optional
 
@@ -34,6 +33,7 @@ from jrr_tpu_torch.refine.losses import FrameBatch, FrameParams, LossTerms
 from jrr_tpu_torch.render import camera as camera_lib
 from jrr_tpu_torch.render import silhouette as sil_lib
 from jrr_tpu_torch.render import silhouette_fused as sf
+from jrr_tpu_torch.utils import precision
 
 
 class RefineResult(NamedTuple):
@@ -77,20 +77,7 @@ def _leaves(params: FrameParams) -> List[torch.Tensor]:
     return [x.detach().clone().requires_grad_(True) for x in params]
 
 
-@contextlib.contextmanager
-def _no_tf32():
-    """TF32 off for matmuls and cuDNN inside; the caller's flags restored
-    on every exit, exceptions included."""
-    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
-
-
-@_no_tf32()
+@precision.float32_products()
 def refine_batch(
     model,
     j_reg_raw: torch.Tensor,

@@ -19,13 +19,23 @@ the port one device, so sums are reordered. Tolerances:
   its float64 one, the port's 1.3e-5 from its own, and the two float64
   refinements 1.4e-7 apart (interior skip off: JAX's float64 path does not
   run with it); over the two outer steps the float32 gap reaches 4.8e-4.
-  tests/torch_pipeline_report.py measures these numbers.
+  tests/torch_pipeline_report.py measures these numbers;
+- with SPIN initialization (a numpy-seeded SPIN checkpoint whose heads sit
+  near the mean parameters) and the VIBE consumer (GRU hidden 8, seqlen 2),
+  without the silhouette: refined parameters 1e-4 (the report measures
+  1.2e-5), the Adam-path regressor 1e-5 relative, the protocol-2 and both
+  consumer evals 1e-3 mm (8.4e-5).
+Each configuration runs once per module (`runs`); the tests share it.
 
-Port-only: a second run resumes both shards (by replay, or from the
-accumulator checkpoint) with no outer step and the same regressors and
-evals; a changed data order, a failing shard writer and a failing loader
-raise; unported options raise NotImplementedError; the CLI runs the demo on
-the CPU and refuses a missing card. chip_smoke.py's holds of the kernels on
+Port-only, on the demo fixtures as the port writes them (faster to read,
+and the same otherwise but for the poses' draws): a second run resumes
+both shards (by replay, or from the
+accumulator checkpoint; with SPIN initialization too, consumer evals
+included) with no outer step and the same regressors and evals; a changed
+data order, a failing shard writer and a failing loader raise; unported
+options (the native loader, more than one device) raise
+NotImplementedError; the CLI runs the demo on the CPU and refuses a missing
+card. chip_smoke.py's holds of the kernels on
 the product path's own inputs: the bounds of coverage decisions at their
 thresholds on constructed tiles, and the gradient entries a flip reaches.
 """
@@ -49,6 +59,9 @@ from jrr_tpu_torch import config as cfg_lib
 from jrr_tpu_torch import convert
 from jrr_tpu_torch import pipeline
 from jrr_tpu_torch.refine import trainer
+
+from tests.test_torch_consumers import gen_state_dict
+from tests.test_torch_spin import _few_threads, write_spin_checkpoint  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PARAMS = ("pose6d", "orient6d", "betas", "cam_t", "joints3d")
@@ -95,9 +108,26 @@ def data_root(tmp_path_factory):
     return root
 
 
-def _run_both(tmp_path, monkeypatch, jcfg, data_root):
+@pytest.fixture(scope="module")
+def port_root(tmp_path_factory):
+    """The same demo fixtures written by the port (its own PNG writer reads
+    back ~6× faster than imageio's filtered rows), for the port-only tests."""
+    from jrr_tpu_torch.data import fixtures
+    from jrr_tpu_torch.models import smpl
+
+    root = str(tmp_path_factory.mktemp("port_fixtures"))
+    model = smpl.synthetic_smpl_model(seed=0, num_verts=256, num_faces=500, device="cpu")
+    j_true = pipeline._demo_regressor(model.num_verts, np.random.default_rng(0))
+    return fixtures.write_fixture_dataset(root, num_frames=8, seed=0, model=model,
+                                          j_reg_raw=j_true, device="cpu")
+
+
+def _run_both(tmp_path, monkeypatch, jcfg, data_root, **options):
+    """Both packages' run_pipeline(demo=True, **options) on `data_root`, the
+    port from JAX's initial TrainState; with JAX's lstsq eval when the
+    stored estimates initialize the run."""
     jarts = jpipeline.run_pipeline(jcfg, data_root=data_root, out_dir=str(tmp_path / "jax"),
-                                   demo=True)
+                                   demo=True, **options)
     tcfg = convert.pipeline_config(jcfg)
 
     def jax_initial_state(j_reg_init, cfg, seed=0):
@@ -108,8 +138,43 @@ def _run_both(tmp_path, monkeypatch, jcfg, data_root):
 
     monkeypatch.setattr(trainer, "init_train_state", jax_initial_state)
     arts = pipeline.run_pipeline(tcfg, data_root=data_root, out_dir=str(tmp_path / "port"),
-                                 demo=True, device="cpu")
-    return jarts, arts, _jax_lstsq_eval(jarts, data_root, jcfg)
+                                 demo=True, device="cpu", **options)
+    jlstsq = None if "spin_checkpoint" in options else _jax_lstsq_eval(jarts, data_root, jcfg)
+    return jarts, arts, jlstsq
+
+
+@pytest.fixture(scope="module")
+def consumer_files(tmp_path_factory):
+    """A SPIN checkpoint (heads near the mean parameters) and a VIBE
+    gen_state_dict (GRU hidden 8), as tests/test_torch_consumers.py makes them."""
+    root = tmp_path_factory.mktemp("consumer_files")
+    vibe = str(root / "vibe.pth.tar")
+    torch.save({"gen_state_dict": gen_state_dict("vibe"), "performance": np.float64(56.5)}, vibe)
+    return {"spin_checkpoint": write_spin_checkpoint(str(root / "spin.pt"), head_scale=1e-3),
+            "vibe_checkpoint": vibe}
+
+
+@pytest.fixture(scope="module")
+def runs(data_root, consumer_files, tmp_path_factory):
+    """`_run_both` once per configuration for the whole module: stored
+    estimates without and with the silhouette, and SPIN initialization with
+    the VIBE consumer (seqlen 2) without it."""
+    configs = {
+        "no_silhouette": (_jax_cfg(False, 15), {}),
+        "silhouette_112": (_jax_cfg(True, 3, image_size=112), {}),
+        "spin_vibe": (_jax_cfg(False, 15), dict(consumer_files, consumer_seqlen=2)),
+    }
+    done = {}
+
+    def run(name):
+        if name not in done:
+            jcfg, options = configs[name]
+            with pytest.MonkeyPatch.context() as mp:
+                done[name] = _run_both(tmp_path_factory.mktemp(name), mp, jcfg, data_root,
+                                       **options)
+        return done[name]
+
+    return run
 
 
 def _shards(out_dir):
@@ -137,8 +202,8 @@ def _assert_evals(arts, jarts, jlstsq, tol_adam, tol_lstsq):
         np.testing.assert_allclose(got.pa_mpjpe, want.pa_mpjpe, atol=tol)
 
 
-def test_pipeline_matches_jax_without_silhouette(tmp_path, monkeypatch, data_root):
-    jarts, arts, jlstsq = _run_both(tmp_path, monkeypatch, _jax_cfg(False, 15), data_root)
+def test_pipeline_matches_jax_without_silhouette(runs):
+    jarts, arts, jlstsq = runs("no_silhouette")
     np.testing.assert_array_equal(arts.j_reg_initial, jarts.j_reg_initial)
     for got, want in zip(_shards(arts.out_dir), _shards(jarts.out_dir)):
         np.testing.assert_array_equal(got["gt_j3d"], want["gt_j3d"])
@@ -150,9 +215,8 @@ def test_pipeline_matches_jax_without_silhouette(tmp_path, monkeypatch, data_roo
     assert arts.eval_before_after.summary().count("\n") == jarts.eval_before_after.summary().count("\n")
 
 
-def test_pipeline_matches_jax_with_silhouette(tmp_path, monkeypatch, data_root):
-    jarts, arts, jlstsq = _run_both(tmp_path, monkeypatch, _jax_cfg(True, 3, image_size=112),
-                                    data_root)
+def test_pipeline_matches_jax_with_silhouette(runs):
+    jarts, arts, jlstsq = runs("silhouette_112")
     np.testing.assert_array_equal(arts.j_reg_initial, jarts.j_reg_initial)
     for got, want in zip(_shards(arts.out_dir), _shards(jarts.out_dir)):
         for k in PARAMS:
@@ -181,13 +245,13 @@ def _no_outer_step(*args, **kwargs):
 
 
 @pytest.mark.parametrize("via", ["replay", "acc_checkpoint"])
-def test_resume_skips_completed_shards(tmp_path, monkeypatch, data_root, via):
+def test_resume_skips_completed_shards(tmp_path, monkeypatch, port_root, via):
     """The second run refines nothing and gives the same regressors and evals,
     bit for bit: the replayed vertices are the refinement's own."""
     if via == "acc_checkpoint":
         monkeypatch.setattr(pipeline, "ACC_CKPT_EVERY", 1)
     out = str(tmp_path / "run")
-    first = _port_run(_port_cfg(), data_root, out)
+    first = _port_run(_port_cfg(), port_root, out)
     assert sorted(os.listdir(os.path.join(out, "jreg_snapshots"))) == [
         "snap_00000.npz", "snap_00001.npz"]
     assert os.listdir(os.path.join(out, "ckpt")) == ["state_00000002.npz"]
@@ -195,38 +259,84 @@ def test_resume_skips_completed_shards(tmp_path, monkeypatch, data_root, via):
         with np.load(os.path.join(out, "jreg_acc_ckpt.npz")) as f:
             assert int(f["upto"]) == 1 and float(f["count"]) == 8
     monkeypatch.setattr(trainer, "outer_step", _no_outer_step)
-    second = _port_run(_port_cfg(), data_root, out)
+    second = _port_run(_port_cfg(), port_root, out)
     np.testing.assert_array_equal(second.j_reg_lstsq, first.j_reg_lstsq)
     np.testing.assert_array_equal(second.j_reg_final, first.j_reg_final)
     assert second.eval_before_after == first.eval_before_after
     assert second.eval_lstsq == first.eval_lstsq
 
 
-def test_resume_refuses_another_data_order(tmp_path, data_root):
+def test_resume_refuses_another_data_order(tmp_path, port_root):
     out = str(tmp_path / "run")
-    _port_run(_port_cfg(use_silhouette=False), data_root, out)
+    _port_run(_port_cfg(use_silhouette=False), port_root, out)
     other = _port_cfg(use_silhouette=False)
     other = dataclasses.replace(other, data=dataclasses.replace(other.data, shuffle_seed=1))
     with pytest.raises(ValueError, match="saved gt_j3d does not match"):
-        _port_run(other, data_root, out)
+        _port_run(other, port_root, out)
 
 
-def test_a_failing_shard_writer_stops_the_run(tmp_path, monkeypatch, data_root):
+def test_pipeline_with_spin_and_vibe_matches_jax(runs):
+    """SPIN initialization (the network on each batch's crops, main thread)
+    and the VIBE consumer evals, frame-level and over real sequences."""
+    jarts, arts, _ = runs("spin_vibe")
+    for got, want in zip(_shards(arts.out_dir), _shards(jarts.out_dir)):
+        for k in PARAMS:
+            np.testing.assert_allclose(got[k], want[k], atol=1e-4, err_msg=k)
+    _close_rel(arts.j_reg_final, jarts.j_reg_final, 1e-5)
+    for got, want in ((arts.eval_before_after.before, jarts.eval_before_after.before),
+                      (arts.eval_before_after.after, jarts.eval_before_after.after)):
+        np.testing.assert_allclose([got.mpjpe, got.pa_mpjpe], [want.mpjpe, want.pa_mpjpe],
+                                   atol=1e-3)
+    assert sorted(arts.consumer_evals) == sorted(jarts.consumer_evals) == ["vibe",
+                                                                         "vibe (sequence)"]
+    for kind, want in jarts.consumer_evals.items():
+        got = arts.consumer_evals[kind]
+        for g, w in ((got.before, want.before), (got.after, want.after)):
+            assert g.num_frames == w.num_frames > 0
+            np.testing.assert_allclose([g.mpjpe, g.pa_mpjpe], [w.mpjpe, w.pa_mpjpe], atol=1e-3)
+    assert {"consumer_frame", "consumer_sequence"} <= set(arts.seconds)
+
+
+def test_pipeline_spin_init_differs_from_the_stored_estimates(runs):
+    """The shards start from SPIN's estimates: near the mean camera's depth
+    (2·5000 / (224·0.9) ≈ 50 m for these near-mean heads), not the stored
+    fixtures' 18-28 m."""
+    _, arts, _ = runs("spin_vibe")
+    first = _shards(arts.out_dir)[0]
+    assert np.all(first["cam_t"][:, 2] > 30.0)
+
+
+def test_resume_with_spin_repeats_bit_for_bit(runs, monkeypatch, consumer_files, data_root):
+    """A second port run on the same out dir resumes both shards (no outer
+    step, no SPIN on a resumed shard) and repeats the regressors and every
+    eval, the consumer evals included."""
+    _, first, _ = runs("spin_vibe")
+    monkeypatch.setattr(trainer, "outer_step", _no_outer_step)
+    cfg = convert.pipeline_config(_jax_cfg(False, 15))
+    second = pipeline.run_pipeline(cfg, data_root=data_root, out_dir=first.out_dir, demo=True,
+                                   device="cpu", consumer_seqlen=2, **consumer_files)
+    np.testing.assert_array_equal(second.j_reg_final, first.j_reg_final)
+    np.testing.assert_array_equal(second.j_reg_lstsq, first.j_reg_lstsq)
+    assert second.eval_before_after == first.eval_before_after
+    assert second.consumer_evals == first.consumer_evals
+
+
+def test_a_failing_shard_writer_stops_the_run(tmp_path, monkeypatch, port_root):
     def broken(self, shard_id, arrays):
         raise OSError("disk full")
 
     monkeypatch.setattr(pipeline.ckpt_lib.ShardManifest, "write_shard", broken)
     with pytest.raises(RuntimeError, match="async shard writer failed") as info:
-        _port_run(_port_cfg(use_silhouette=False), data_root, str(tmp_path / "run"))
+        _port_run(_port_cfg(use_silhouette=False), port_root, str(tmp_path / "run"))
     assert isinstance(info.value.__cause__, OSError)
 
 
-def test_a_failing_loader_stops_the_run(tmp_path, data_root):
+def test_a_failing_loader_stops_the_run(tmp_path, port_root):
     from jrr_tpu_torch.data import h36m
     from jrr_tpu_torch.models import smpl
 
     cfg = _port_cfg(use_silhouette=False)
-    batches = list(h36m.BatchLoader(h36m.H36MDataset(data_root), 4, drop_last=True))
+    batches = list(h36m.BatchLoader(h36m.H36MDataset(port_root), 4, drop_last=True))
 
     def source():
         yield batches[0]
@@ -244,21 +354,16 @@ def test_outside_the_demo_an_initial_regressor_is_required(tmp_path):
                               out_dir=str(tmp_path / "out"), device="cpu")
 
 
-@pytest.mark.parametrize("option", [
-    "spin_checkpoint", "vibe_checkpoint", "meva_checkpoint", "loader_native", "loader_auto_pack",
-    "mesh",
-])
-def test_unported_options_raise(tmp_path, data_root, option):
+@pytest.mark.parametrize("option", ["loader_native", "loader_auto_pack", "mesh"])
+def test_unported_options_raise(tmp_path, port_root, option):
     import shutil
 
-    cfg, kw, root = _port_cfg(use_silhouette=False), {}, data_root
-    if option.endswith("checkpoint"):
-        kw[option] = "model.pt"
-    elif option == "loader_native":
+    cfg, kw, root = _port_cfg(use_silhouette=False), {}, port_root
+    if option == "loader_native":
         kw["loader"] = "native"
     elif option == "loader_auto_pack":
         root = str(tmp_path / "fixtures")
-        shutil.copytree(data_root, root)
+        shutil.copytree(port_root, root)
         open(os.path.join(root, "precomputed_val", "frames.jrrpack"), "w").close()
     else:
         cfg = dataclasses.replace(cfg, mesh=cfg_lib.MeshConfig(num_devices=2))
@@ -266,11 +371,11 @@ def test_unported_options_raise(tmp_path, data_root, option):
         _port_run(cfg, root, str(tmp_path / "run"), **kw)
 
 
-def test_cli_demo_runs_on_the_cpu(tmp_path, data_root):
+def test_cli_demo_runs_on_the_cpu(tmp_path, port_root):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run(
         [sys.executable, "-m", "jrr_tpu_torch.cli", "--demo", "--device", "cpu",
-         "--data-root", data_root, "--out", str(tmp_path / "out"),
+         "--data-root", port_root, "--out", str(tmp_path / "out"),
          "--stage-a-steps", "3", "--stage-b-steps", "2", "--batch-size", "4"],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
     )

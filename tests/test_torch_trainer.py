@@ -74,8 +74,10 @@ def outer_pair():
     model, j_reg, gt, init, data, cfg = _setup()
     j_reg0 = j_reg + 0.05 * jnp.abs(jax.random.normal(jax.random.PRNGKey(9), j_reg.shape))
     state0 = trainer.init_train_state(jax.random.PRNGKey(0), j_reg0, cfg)
-    state1, _, _ = trainer.outer_step(state0, model, init, data, cfg)
-    want_state, want_m, want_res = trainer.outer_step(state1, model, init, data, cfg)
+    # Jitted as jrr_tpu's run_optimize runs it: one compile for both steps.
+    step = jax.jit(lambda s, m, i, d: trainer.outer_step(s, m, i, d, cfg))
+    state1, _, _ = step(state0, model, init, data)
+    want_state, want_m, want_res = step(state1, model, init, data)
 
     tcfg = convert.pipeline_config(cfg)
     tstate1 = convert.train_state(state1, tcfg, device="cpu")

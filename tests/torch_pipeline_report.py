@@ -1,7 +1,7 @@
 """Measure, on the CPU, how far the port's product loop lies from jrr_tpu's,
 and the host costs of its data path. Prints one JSON line per section:
 
-    python tests/torch_pipeline_report.py      (~3 minutes)
+    python tests/torch_pipeline_report.py      (~6 minutes)
 
 - `host` (in a process without JAX): the zlib compression of a 1000²
   fixture-like frame at levels 1 and 6, and the milliseconds per dataset
@@ -18,9 +18,16 @@ and the host costs of its data path. Prints one JSON line per section:
 - `float_spread`: the first batch refined at 112² with 3 stage-B steps by
   both packages in float32 and float64 (interior skip off: JAX's float64
   path does not run with it): each package's float32-float64 spread and
-  the gap between the two float64 runs.
+  the gap between the two float64 runs;
+- `consumers`: the largest gaps between the packages' SPIN (one
+  checkpoint file, 64², batch 2), frame-level and sequence consumers (per
+  kind, tests/test_torch_consumers.py's files and inputs), MEVA's motion
+  VAE, the consumer harness (mm, on the JAX-written directory), and
+  `run_pipeline(demo=True)` with SPIN initialization and the VIBE consumer
+  (refined parameters, every eval in mm).
 
-The numbers back the tolerances of tests/test_torch_{data,pipeline}.py.
+The numbers back the tolerances of tests/test_torch_{data,pipeline,spin,
+consumers}.py.
 The script sits beside them because it drives both packages through their
 helpers (tests/conftest.py, test_torch_pipeline.py); the port's own tools
 (tools/torch_*.py) import no JAX.
@@ -242,6 +249,107 @@ def float_spread(root, jmodel, j_true):
     }
 
 
+def _gap(a, b) -> float:
+    return float(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64)).max())
+
+
+def _eval_gap(got, want) -> float:
+    return max(abs(got.mpjpe - want.mpjpe), abs(got.pa_mpjpe - want.pa_mpjpe))
+
+
+def consumers(tmp, root):
+    import jax.numpy as jnp
+    from jrr_tpu import pipeline as jpipeline
+    from jrr_tpu.evals import consumers as jconsumers
+    from jrr_tpu.evals import harness as jharness
+    from jrr_tpu.models import meva as jmeva
+    from jrr_tpu.models import smpl as jsmpl
+
+    import test_torch_consumers as tc
+    import test_torch_spin as ts
+    from jrr_tpu_torch.evals import consumers as tconsumers
+    from jrr_tpu_torch.evals import harness
+    from jrr_tpu_torch.models import convert_util, meva, spin
+
+    tp = _jax()
+    files = {"spin": ts.write_spin_checkpoint(os.path.join(tmp, "spin.pt"), head_scale=1e-3)}
+    for seed, kind in enumerate(tc.KINDS, start=1):
+        files[kind] = os.path.join(tmp, f"{kind}.pth.tar")
+        torch.save({"gen_state_dict": tc.gen_state_dict(kind, seed)}, files[kind])
+    out = {}
+    spin_path = ts.write_spin_checkpoint(os.path.join(tmp, "spin_full_heads.pt"))
+    img = spin.normalize_image(torch.as_tensor(
+        np.random.default_rng(1).uniform(size=(2, 3, ts.SIZE, ts.SIZE)).astype(np.float32)))
+    want = jpipeline.make_spin_fn(spin_path)(jnp.asarray(img.numpy()))
+    got = pipeline.make_spin_fn(spin_path, device="cpu")(img)
+    out["spin"] = max(_gap(g, w) for g, w in zip(got, want))
+
+    jmodel = jsmpl.synthetic_smpl_model(seed=0, num_verts=64, num_faces=100)
+    model = convert.smpl_model(jmodel, device="cpu")
+    rng = np.random.default_rng(7)
+    j_reg = np.abs(rng.normal(size=(17, 64))).astype(np.float32)
+    inputs = {"img": rng.normal(size=(2, 3, tc.SIZE, tc.SIZE)).astype(np.float32),
+              "video": rng.normal(size=(2, tc.SEQLEN, 3, tc.SIZE, tc.SIZE)).astype(np.float32),
+              "j_regs": (j_reg, j_reg * rng.uniform(0.5, 1.5, j_reg.shape).astype(np.float32))}
+    backbone = tconsumers._spin_backbone_variables(files["spin"])
+    for kind in tc.KINDS:
+        name = "meva" if kind == "meva" else "vibe"
+        jc, js, _ = jconsumers.build_consumer(name, files[kind], jmodel,
+                                              spin_checkpoint=files["spin"], seqlen=tc.SEQLEN)
+        c, sc, _ = tconsumers.build_consumer(name, files[kind], model, backbone=backbone,
+                                             seqlen=tc.SEQLEN)
+        norms = tc._norms(inputs["j_regs"], jnp.asarray)
+        want = (jc(jnp.asarray(inputs["img"]), norms), js(jnp.asarray(inputs["video"]), norms))
+        got = tc._port_outputs(c, sc, inputs)
+        out[f"{kind}_frame_m"], out[f"{kind}_sequence_m"] = (_gap(g, w) for g, w in zip(got, want))
+
+    sd = jconsumers.load_gen_state_dict(files["meva"])
+    vae = jmeva.convert_torch_meva_checkpoint(sd, hidden_size=tc.H, n_layers=2,
+                                              vae_hidden=tc.H)["params"]["vae_model"]
+    seq = np.random.default_rng(9).normal(size=(2, 5, 2048)).astype(np.float32)
+    want = jmeva.MotionVAE(latent_dim=tc.H, hidden_size=tc.H).apply({"params": vae},
+                                                                    jnp.asarray(seq))
+    port_vae = meva.MotionVAE(latent_dim=tc.H, hidden_size=tc.H)
+    convert_util.load_module(port_vae, convert_util.StateDictView(
+        torch.load(files["meva"], weights_only=False)["gen_state_dict"]), prefix="vae_model.")
+    with torch.no_grad():
+        out["motion_vae"] = max(_gap(g, w) for g, w in zip(port_vae(torch.as_tensor(seq)), want))
+
+    j_regs = inputs["j_regs"]
+    ds = h36m.H36MDataset(root)
+    batches = [tc._normalized(b) for b in h36m.BatchLoader(ds, 2, drop_last=True)]
+    seq_batches = [tc._normalized(b) for b in h36m.ordered_sequence_batches(
+        ds.load_batch, ds.frame_order(), 2 * tc.SEQLEN, tc.SEQLEN)]
+    jc, js, _ = jconsumers.build_consumer("vibe", files["vibe"], jmodel,
+                                          spin_checkpoint=files["spin"], seqlen=tc.SEQLEN)
+    c, sc, _ = tconsumers.build_consumer("vibe", files["vibe"], model, backbone=backbone,
+                                         seqlen=tc.SEQLEN)
+    pairs = (
+        (harness.evaluate_consumer({"vibe": c}, batches, *j_regs, device="cpu")["vibe"],
+         jharness.evaluate_consumer(jc, batches, *map(jnp.asarray, j_regs))),
+        (harness.evaluate_consumer_sequences({"vibe": sc}, seq_batches, *j_regs,
+                                             seqlen=tc.SEQLEN, device="cpu")["vibe"],
+         jharness.evaluate_consumer_sequences(js, seq_batches, *map(jnp.asarray, j_regs),
+                                              seqlen=tc.SEQLEN)),
+    )
+    out["harness_mm"] = max(_eval_gap(g.before, w.before) for g, w in pairs)
+    out["harness_mm"] = max(out["harness_mm"], *(_eval_gap(g.after, w.after) for g, w in pairs))
+
+    run_dir = os.path.join(tmp, "spin_vibe")
+    os.makedirs(run_dir)
+    jarts, arts, _ = tp._run_both(Path(run_dir), _Patch(), tp._jax_cfg(False, 15), root,
+                                  spin_checkpoint=files["spin"], vibe_checkpoint=files["vibe"],
+                                  consumer_seqlen=tc.SEQLEN)
+    out["pipeline_params"] = max(_gap(g[k], w[k]) for g, w in zip(
+        tp._shards(arts.out_dir), tp._shards(jarts.out_dir)) for k in tp.PARAMS)
+    evals = [(arts.eval_before_after.before, jarts.eval_before_after.before),
+             (arts.eval_before_after.after, jarts.eval_before_after.after)]
+    evals += [(getattr(arts.consumer_evals[k], side), getattr(jarts.consumer_evals[k], side))
+              for k in jarts.consumer_evals for side in ("before", "after")]
+    out["pipeline_evals_mm"] = max(_eval_gap(g, w) for g, w in evals)
+    return out
+
+
 def main():
     if sys.argv[1:2] == ["--host"]:
         print(json.dumps(_host(sys.argv[2])))
@@ -253,6 +361,7 @@ def main():
         print(json.dumps({"grids": grids()}), flush=True)
         print(json.dumps({"pipeline": pipelines(tmp, root)}), flush=True)
         print(json.dumps({"float_spread": float_spread(root, jmodel, j_true)}), flush=True)
+        print(json.dumps({"consumers": consumers(tmp, root)}), flush=True)
 
 
 if __name__ == "__main__":
