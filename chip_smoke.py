@@ -48,13 +48,22 @@
    against its plain version at the probe tools' shapes, timed beside one
    PyTorch call for the same function (the RMW probe's int64 sums equal its
    fixed-point plain version's exactly);
-11. drives the product loop (`product_path`): 512 fixture frames written at
-   SPIN-crop scale, then `run_pipeline(demo=True)` on them at full width
-   (two shards of 256, shipped defaults, the python loader, temporary
-   directories), with rows 1, 2 and 5 launched 76, 4 and at least 1 times
+11. builds the host runtime (jrr_tpu_torch/runtime/jrr_runtime.cc) with
+   g++ on this host and decodes the committed JPEGs of tests/data/jpeg
+   (`jpeg_check`): each within 1 level of its committed imageio decode (the
+   1000² frame's SHA-256 equal), the values that differ counted, the
+   1000² frame's decode timed;
+12. drives the product loop (`product_path`) as tools/pipeline_bench.py
+   drives jrr_tpu's: 512 fixture frames written at SPIN-crop scale, the v1
+   pack and the pre-warped v2 pack built from them (each timed), then
+   `run_pipeline(demo=True, loader="auto")` on them at full width (two
+   shards of 256, shipped defaults, temporary directories), which must read
+   the v2 pack, with rows 1, 2 and 5 launched 76, 4 and at least 1 times
    and finite evals, then the same call again, which must resume both
    shards, launch no kernel and give the same regressors and evals bit for
-   bit; then holds row 5 on the fixture render's own tiles (against its
+   bit; then loads the loop's first batch through the python loader, the
+   v1 pack and the v2 pack (`loader_check`: jrr_tpu's tolerances, ms per
+   batch each), holds row 5 on the fixture render's own tiles (against its
    plain version, its repeat and the mask PNGs) and rows 1 and 2 on the
    bins of the loop's first batch. On these inputs some coverage decisions
    lie within float32 rounding of their thresholds, where the kernels'
@@ -62,17 +71,18 @@
    them apart and α jumps: there each α is held within the bounds of both
    outcomes, the loss kernel's err off those frames and its gradients off
    the entries they reach;
-12. drives SPIN initialization and the VIBE/MEVA consumer evals
+13. drives SPIN initialization and the VIBE/MEVA consumer evals
    (`consumer_path`): SPIN's hmr, VIBE's and MEVA's checkpoints fabricated
    at the published shapes from a seeded generator, then
    `run_pipeline(demo=True, spin_checkpoint=…, vibe_checkpoint=…,
    meva_checkpoint=…, consumer_seqlen=16)` on the product path's fixtures
-   at full width, batch 256, shipped defaults, with rows 1 and 2 launched
+   and their v2 pack at full width, batch 256, shipped defaults, with rows
+   1 and 2 launched
    76 and 4 times, row 5 never, and finite evals; then holds SPIN
    (features and estimates, TF32 off as shipped; the TF32-on gap reported)
    and both consumers of each kind against the port's float32 CPU runs,
    and rows 1 and 2 on the first SPIN-initialized batch's bins;
-13. prints the kernels line, the card's name and power limit, and the
+14. prints the kernels line, the card's name and power limit, and the
    contract line `{"ok": true, "device": {...}}` last.
 
 Any failed check raises (non-zero exit, no result line). Needs one CUDA card
@@ -143,6 +153,14 @@ PRODUCT_FRAMES = 2 * BATCH  # fixture frames of the product path: two shards
 # tools/pipeline_bench.py and of the synthetic problem of the other phases.
 PRODUCT_DEPTH = (36.0, 60.0)
 SPIN_CHECK_FRAMES = 8  # SPIN on the card against the CPU on the first batch's first frames
+# jrr_tpu's loader tolerances (tests/test_native_pipeline.py): the v1 pack's
+# crops against the python loader's (its C++ warp against the torch one) and
+# gt_j2d in px; the v2 pack against the v1 (u8 quantization of the crops);
+# the tensors both copy from tensors.npz.
+LOADER_IMAGE_ATOL, LOADER_J2D_ATOL = 2e-2, 0.5
+LOADER_V2_ATOL = 1.01 / 255
+LOADER_STORED_ATOL = 1e-6
+JPEG_DIR = os.path.join(ROOT, "tests", "data", "jpeg")
 CONSUMER_SEQLEN = 16  # the reference's chunk length (scripts/test.py:254-273)
 CONSUMER_CHUNKS = 2  # sequence chunks of the consumers' card-against-CPU hold
 # SPIN and the consumers ship with TF32 off: float32 card against float32 CPU,
@@ -1481,13 +1499,126 @@ def check_product_render(model, j_true, seed, data_root):
                 **_merge_flip_reports(reports), mask_pngs_equal=len(paths))
 
 
-def _first_batch(cfg, data_root):
-    """The first batch the loop refines (epoch 0 of the python loader)."""
+def _first_indices(cfg, data_root):
+    """The frames of the first batch the loop refines (epoch 0's order)."""
     from jrr_tpu_torch.data import h36m
 
     dataset = h36m.H36MDataset(data_root, cfg.data.split)
-    loader = h36m.BatchLoader(dataset, BATCH, seed=cfg.data.shuffle_seed, drop_last=True)
-    return dataset.load_batch(loader._indices()[:BATCH])
+    return h36m.BatchLoader(dataset, BATCH, seed=cfg.data.shuffle_seed,
+                            drop_last=True)._indices()[:BATCH]
+
+
+def _first_batch(cfg, data_root):
+    """The first batch the loop refines, from the loader it reads ("auto":
+    the v2 pack the product path builds)."""
+    from jrr_tpu_torch.data import native_pipeline
+
+    dataset = native_pipeline.PackedH36MDataset(data_root, cfg.data.split)
+    _check(dataset.prewarped, "the loop's first batch: no v2 pack")
+    return dataset.load_batch(_first_indices(cfg, data_root))
+
+
+def _max_gap(a, b) -> float:
+    import numpy as np
+
+    return float(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64)).max())
+
+
+def check_loaders(cfg, data_root):
+    """`loader_check`: the loop's first batch through the python loader
+    (H36MDataset), the v1 pack and the v2 pack, each key's largest gap held
+    to jrr_tpu's tolerances (v1 against python: the crops and mask within
+    LOADER_IMAGE_ATOL, gt_j2d within LOADER_J2D_ATOL px; v2 against v1:
+    crops and mask within LOADER_V2_ATOL; the stored tensors within
+    LOADER_STORED_ATOL; the intrinsics not against python, whose are the
+    crop's), and ms per 256-frame batch of each: python one load, the packs
+    the median of three after a warm-up."""
+    import numpy as np
+
+    from jrr_tpu_torch import runtime
+    from jrr_tpu_torch.data import h36m, native_pipeline
+
+    idx = _first_indices(cfg, data_root)
+    loaders = {
+        "python": h36m.H36MDataset(data_root, cfg.data.split),
+        "v1": native_pipeline.PackedH36MDataset(data_root, cfg.data.split, prewarped=False),
+        "v2": native_pipeline.PackedH36MDataset(data_root, cfg.data.split, prewarped=True),
+    }
+    batches, ms = {}, {}
+    for name, loader in loaders.items():
+        times = []
+        for _ in range(1 if name == "python" else 4):
+            t0 = time.perf_counter()
+            batches[name] = loader.load_batch(idx)
+            times.append(time.perf_counter() - t0)
+        ms[name] = 1e3 * (times[0] if name == "python" else sorted(times[1:])[1])
+    py, v1, v2 = batches["python"], batches["v1"], batches["v2"]
+    crops = ("image", "spin_image", "mask_rcnn")
+    stored = ("bboxes", "betas", "cam", "gt_j3d", "orient", "pose")
+    gaps = {
+        "v1_vs_python": {k: _max_gap(v1[k], py[k]) for k in crops + stored + ("gt_j2d",)},
+        "v2_vs_v1": {k: _max_gap(v2[k], v1[k]) for k in crops + stored + ("gt_j2d", "intrinsics")},
+    }
+    limits = {
+        "v1_vs_python": dict({k: LOADER_IMAGE_ATOL for k in crops}, gt_j2d=LOADER_J2D_ATOL),
+        "v2_vs_v1": {k: LOADER_V2_ATOL for k in crops},
+    }
+    for pair, row in gaps.items():
+        for key, gap in row.items():
+            limit = limits[pair].get(key, LOADER_STORED_ATOL)
+            _check(gap <= limit, f"loader_check {pair} {key}: {gap} > {limit}")
+    _check(np.array_equal(py["valid"], v1["valid"]) and np.array_equal(v1["valid"], v2["valid"]),
+           "loader_check: the valid flags differ")
+    return dict(frames=len(idx), max_abs_gap=gaps, ms_per_batch=ms,
+                tolerance=dict(image_v1_vs_python=LOADER_IMAGE_ATOL, gt_j2d_px=LOADER_J2D_ATOL,
+                               v2_vs_v1=LOADER_V2_ATOL, stored=LOADER_STORED_ATOL),
+                runtime_threads=runtime.default_threads(), cpu_count=os.cpu_count())
+
+
+def check_jpeg():
+    """`jpeg_check`: the host runtime built with g++ on this host from the
+    checkout's source, then the committed test JPEGs decoded, each within 1
+    level of its committed imageio decode (the frame's SHA-256 and channel
+    sums equal), with the count of values that differ; and the 1000² 4:2:0
+    frame's decode timed from its bytes (median of 20 after a warm-up)."""
+    import hashlib
+
+    import numpy as np
+
+    from jrr_tpu_torch import runtime
+
+    t0 = time.perf_counter()
+    runtime.build_library(force=True)
+    build_s = time.perf_counter() - t0
+    report = {}
+    with np.load(os.path.join(JPEG_DIR, "decodes.npz")) as f:
+        for name in f.files:
+            got = runtime.decode_jpeg(os.path.join(JPEG_DIR, f"{name}.jpg"))
+            want = f[name]
+            _check(got.shape == want.shape, f"jpeg_check {name}: shape {got.shape}")
+            gap = np.abs(got.astype(np.int16) - want.astype(np.int16))
+            report[name] = dict(shape=list(got.shape), max_gap=int(gap.max()),
+                                differing_values=int((gap > 0).sum()))
+            _check(gap.max() <= 1, f"jpeg_check {name}: {report[name]}")
+    with open(os.path.join(JPEG_DIR, "decodes.json")) as f:
+        frames = json.load(f)
+    for name, want in frames.items():
+        with open(os.path.join(JPEG_DIR, f"{name}.jpg"), "rb") as f:
+            data = f.read()
+        got = runtime.decode_jpeg(data)
+        sums = got.sum(axis=(0, 1), dtype=np.int64).tolist()
+        report[name] = dict(shape=list(got.shape), channel_sums=sums,
+                            sha256_equal=hashlib.sha256(got.tobytes()).hexdigest() == want["sha256"])
+        _check(list(got.shape) == want["shape"] and sums == want["channel_sums"]
+               and report[name]["sha256_equal"], f"jpeg_check {name}: {report[name]}")
+        times = []
+        for _ in range(21):
+            t0 = time.perf_counter()
+            runtime.decode_jpeg(data)
+            times.append(time.perf_counter() - t0)
+        report[name]["decode_ms"] = 1e3 * sorted(times[1:])[10]
+        report[name]["bytes"] = len(data)
+    return dict(build_seconds=build_s, files=report, tolerance="1 level; the frame bit for bit")
 
 
 def check_product_bins(model, cfg, data_root, spin_fn=None, where="product"):
@@ -1508,22 +1639,25 @@ def check_product_bins(model, cfg, data_root, spin_fn=None, where="product"):
 def run_product_path(data_root):
     """The product loop through its entry points, as tools/pipeline_bench.py
     drives jrr_tpu's: the fixtures written into `data_root` at SPIN-crop
-    scale (camera z in PRODUCT_DEPTH) and then `run_pipeline(demo=True)` on
-    them at full width (the 6890-vertex synthetic body, batch 256, shipped
+    scale (camera z in PRODUCT_DEPTH), the v1 pack and the v2 pack built
+    from them, and then `run_pipeline(demo=True, loader="auto")` on them at
+    full width (the 6890-vertex synthetic body, batch 256, shipped
     defaults, 1000 + 100 steps) over PRODUCT_FRAMES frames (two shards),
-    with the python loader; then the same call again on the same out dir,
-    which must resume both shards (no refinement kernel launched) and give
-    the same regressors and evals. The launch counts are set to 0 before
-    each run (the first's fixture write included) and read after it; the
-    out dir is temporary. Rows 1, 2 and 5 are then held on the run's own
-    inputs. Returns the phase's record and the body model."""
+    which must read the v2 pack; then the same call again on the same out
+    dir, which must resume both shards (no refinement kernel launched) and
+    give the same regressors and evals. The launch counts are set to 0
+    before each run (the first's fixture write and pack builds included)
+    and read after it; the out dir is temporary. The three loaders are then
+    held against each other on the first batch (`check_loaders`), and rows
+    1, 2 and 5 on the run's own inputs. Returns the phase's record and the
+    body model."""
     import tempfile
 
     import numpy as np
     import torch
 
     from jrr_tpu_torch import config, kernels
-    from jrr_tpu_torch.data import fixtures
+    from jrr_tpu_torch.data import fixtures, native_pipeline
     from jrr_tpu_torch.models import smpl
     from jrr_tpu_torch.pipeline import _demo_regressor, run_pipeline
     from jrr_tpu_torch.utils.checkpoint import ShardManifest
@@ -1544,7 +1678,7 @@ def run_product_path(data_root):
             logger = MetricsLogger(path=metrics_path, echo=False)
             kernels.reset_launches()
             t0 = time.perf_counter()
-            fixture_s = 0.0
+            once = {}
             try:
                 if name == "first":
                     fixtures.write_fixture_dataset(
@@ -1552,9 +1686,15 @@ def run_product_path(data_root):
                         depth_range=PRODUCT_DEPTH,
                     )
                     torch.cuda.synchronize()
-                    fixture_s = time.perf_counter() - t0
+                    once["fixtures"] = time.perf_counter() - t0
+                    t1 = time.perf_counter()
+                    native_pipeline.pack_dataset(data_root)
+                    once["pack_build"] = time.perf_counter() - t1
+                    t1 = time.perf_counter()
+                    native_pipeline.build_pack2(data_root)
+                    once["pack2_build"] = time.perf_counter() - t1
                 arts = run_pipeline(cfg, data_root=data_root, out_dir=out_dir, demo=True,
-                                    model=model, logger=logger)
+                                    model=model, logger=logger, loader="auto")
             finally:
                 logger.close()
             torch.cuda.synchronize()
@@ -1565,13 +1705,16 @@ def run_product_path(data_root):
                      "adam_final": arts.eval_before_after.after, "lstsq": arts.eval_lstsq}
             runs.append(dict(
                 arts=arts, launches=launches, seconds=seconds, records=records, evals=evals,
-                phase_seconds=dict(arts.seconds, fixtures=fixture_s),
+                phase_seconds=dict(arts.seconds, **{"fixtures": 0.0, **once}),
                 shards=ShardManifest(os.path.join(out_dir, "refined")).completed(),
                 saved=os.path.exists(os.path.join(out_dir, "retrained_j_regressor.npz")),
             ))
+        loaders = check_loaders(cfg, data_root)
         render = check_product_render(model, j_true, cfg.seed, data_root)
         bins = check_product_bins(model, cfg, data_root)
     first, resumed = runs
+    _check(first["arts"].loader == resumed["arts"].loader == "pack2",
+           f"product path read {first['arts'].loader}, {resumed['arts'].loader}: not the v2 pack")
     _check(first["shards"] == [0, 1], f"product path: manifest shards {first['shards']}")
     want = _launches(fused_lossgrad=76, fused_alpha_fwd=4,
                      tiles_alpha_fwd=first["launches"]["tiles_alpha_fwd"])
@@ -1596,7 +1739,7 @@ def run_product_path(data_root):
     frames = PRODUCT_FRAMES
     return dict(
         frames=frames, batch=BATCH, stage_a_steps=1000, stage_b_steps=100,
-        depth_range=list(PRODUCT_DEPTH), shards=first["shards"],
+        depth_range=list(PRODUCT_DEPTH), shards=first["shards"], loader=a.loader,
         seconds=first["seconds"], phase_seconds=first["phase_seconds"],
         loader_wait_s=[r["loader_wait_s"] for r in first["records"]],
         step_s=[r["batch_seconds"] for r in first["records"]],
@@ -1607,7 +1750,7 @@ def run_product_path(data_root):
         resumed=dict(seconds=resumed["seconds"], phase_seconds=resumed["phase_seconds"],
                      launches=resumed["launches"], lstsq_max_abs_diff=lstsq_diff,
                      evals_equal=True),
-        render_check=render, bins_check=bins,
+        loader_check=loaders, render_check=render, bins_check=bins,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, card=_card(),
     ), model
 
@@ -1877,7 +2020,8 @@ def run_consumer_path(data_root, model):
     (`data_root`: no second fixture write), full width, batch 256, shipped
     defaults, consumer seqlen 16, its own temporary out dir. The launch
     counts are set to 0 just before the call and read just after: rows 1
-    and 2 as in the product path (76 and 4), row 5 none. Then SPIN and both
+    and 2 as in the product path (76 and 4), row 5 none. "auto" must read
+    the product path's v2 pack. Then SPIN and both
     consumers are held against the port's CPU runs, and rows 1 and 2 on the
     first SPIN-initialized batch's bins."""
     import tempfile
@@ -1915,6 +2059,7 @@ def run_consumer_path(data_root, model):
                                   spin_fn=make_spin_fn(paths["spin"], paths["mean"]))
     _check(launches == _launches(fused_lossgrad=76, fused_alpha_fwd=4),
            f"consumer path launches {launches}, expected 76 fused_lossgrad + 4 fused_alpha_fwd")
+    _check(arts.loader == "pack2", f"consumer path read {arts.loader}, not the v2 pack")
     _check(sorted(arts.consumer_evals) == ["meva", "meva (sequence)", "vibe", "vibe (sequence)"],
            f"consumer evals {sorted(arts.consumer_evals)}")
     evals = dict(arts.consumer_evals, protocol2=arts.eval_before_after)
@@ -1924,6 +2069,7 @@ def run_consumer_path(data_root, model):
     frames = PRODUCT_FRAMES
     return dict(
         frames=frames, batch=BATCH, consumer_seqlen=CONSUMER_SEQLEN, seconds=seconds,
+        loader=arts.loader,
         phase_seconds=arts.seconds, step_s=[r["batch_seconds"] for r in records],
         loader_wait_s=[r["loader_wait_s"] for r in records],
         spin_seconds_per_batch=spin_check["seconds_per_batch"],
@@ -2067,6 +2213,8 @@ def main() -> int:
     probe_records, probe_summary = run_probes()
     _emit({"probes": probe_records + probe_summary})
     done("probes")
+    _emit({"jpeg_check": check_jpeg()})
+    done("jpeg_check")
     with tempfile.TemporaryDirectory() as tmp:
         data_root = os.path.join(tmp, "fixtures")
         product, model = run_product_path(data_root)

@@ -8,8 +8,10 @@ Usage:
     python -m jrr_tpu_torch.cli --demo --device cpu --vibe-checkpoint vibe_model.pth.tar
 
 Flags follow jrr_tpu's CLI; its `--platform` is `--device {cuda,cpu}` here
-(default cuda, and `--demo` too runs on the card). `--loader native` names
-a part that is not ported yet and raises.
+(default cuda, and `--demo` too runs on the card). `--loader native` reads
+the split through the host runtime's pack loader: frames.jrrpack (raw
+frames, built on first use) or, when it exists, the pre-warped
+frames.jrrpack2 (`data/native_pipeline.build_pack2`).
 """
 
 from __future__ import annotations
@@ -87,9 +89,10 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--loader", default="auto", choices=["auto", "python", "native"],
-        help="host input pipeline: python = H36MDataset + BatchLoader; native "
-        "(the C++ pack loader) is not ported yet and raises, as does auto when "
-        "a frames.jrrpack exists",
+        help="host input pipeline: python = H36MDataset + BatchLoader; native = "
+        "the C++ pack loader (builds frames.jrrpack on first use; reads the "
+        "pre-warped frames.jrrpack2 when it exists); auto = native when the "
+        "split has a frames.jrrpack, else python",
     )
     p.add_argument("--metrics-jsonl", default=None)
     p.add_argument("--wandb-log", action="store_true")

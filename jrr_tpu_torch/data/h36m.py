@@ -10,9 +10,10 @@ two bilinear crops (224 SPIN crop, 256 image crop), GT 2D joints moved into
 crop coordinates, intrinsics updated for the crop, and the `valid` flag
 read from the mask's top-left marker pixel (the marker then zeroed).
 
-Host side only: everything returns numpy, crops run on the CPU. PNG frames
-only (`data/png.py`; no image library): JPEG frames and the single-file
-HDF5 mode raise.
+Host side only: everything returns numpy, crops run on the CPU. Frames and
+masks are PNG (`data/png.py`) or baseline JPEG (`runtime.decode_jpeg`, the
+real dataset's format), read without an image library; the single-file
+HDF5 mode raises.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
-from jrr_tpu_torch import constants
+from jrr_tpu_torch import constants, runtime
 from jrr_tpu_torch.data import crop as crop_lib
 from jrr_tpu_torch.data import png
 
@@ -70,13 +71,15 @@ def _crop_np(image_chw: np.ndarray, bbox: np.ndarray, intrinsics: np.ndarray, im
     )
 
 
-def _read_png(path: str) -> np.ndarray:
-    if not path.lower().endswith(".png"):
-        raise NotImplementedError(
-            f"{path}: only PNG frames are read (jrr_tpu_torch/data/png.py); JPEG frames "
-            "need a decoder the port does not have yet (ROADMAP Queue 1)"
-        )
-    return png.read(path)
+def read_image(path: str) -> np.ndarray:
+    """A frame or mask file → uint8 (H, W[, C]), as imageio.v2.imread reads
+    it: .png through data/png.py, .jpg/.jpeg through the runtime's decoder."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext == ".png":
+        return png.read(path)
+    if ext in (".jpg", ".jpeg"):
+        return runtime.decode_jpeg(path)
+    raise NotImplementedError(f"{path}: frames are read from .png, .jpg or .jpeg files")
 
 
 class H36MDataset:
@@ -126,19 +129,23 @@ class H36MDataset:
         """Stack arbitrary frame indices into one batch dict."""
         return _stack([self[int(i)] for i in indices])
 
-    def _read_frame_images(self, index: int):
-        """Returns (image (3, 1000, 1000) float [0,1], mask (1, Hm, Wm))."""
+    def read_frame_u8(self, index: int):
+        """(image (H, W, C) uint8 cut to the first 1000² pixels, mask (Hm, Wm)
+        uint8 as stored); zeros when the split lists no image files."""
         if self.images is None:
             r = constants.IMG_RES
-            return (
-                np.zeros((3, r, r), np.float32),
-                np.zeros((1, constants.CROP_RES, constants.CROP_RES), np.float32),
-            )
+            return (np.zeros((r, r, 3), np.uint8),
+                    np.zeros((constants.CROP_RES, constants.CROP_RES), np.uint8))
         path = self.images[index]
-        image = np.transpose(_read_png(path), (2, 0, 1)).astype(np.float32)
-        image = image[:, : constants.IMG_RES, : constants.IMG_RES] / 255.0
+        image = read_image(path)[: constants.IMG_RES, : constants.IMG_RES]
         head, tail = path.split("imageSequence")
-        mask = _read_png(f"{head}maskSequence{tail}").astype(np.float32) / 255.0
+        return image, read_image(f"{head}maskSequence{tail}")
+
+    def _read_frame_images(self, index: int):
+        """Returns (image (3, 1000, 1000) float [0,1], mask (1, Hm, Wm))."""
+        image, mask = self.read_frame_u8(index)
+        image = np.transpose(image, (2, 0, 1)).astype(np.float32) / 255.0
+        mask = mask.astype(np.float32) / 255.0
         if mask.ndim == 2:
             mask = mask[None]
         return image.astype(np.float32), mask.astype(np.float32)

@@ -25,9 +25,11 @@ thread; with VIBE/MEVA checkpoints the retrained regressor is also scored
 through those video models, frame by frame and over real sequences
 (`evals/consumers.py`).
 
-Not ported yet, and raising `NotImplementedError`: the native pack loader
-(`loader="native"`, or "auto" with a frames.jrrpack present) and more than
-one device.
+The batches come from the host runtime's pack loader
+(`data/native_pipeline.py`) with `loader="native"`, or with "auto" when the
+split has a frames.jrrpack (the pre-warped frames.jrrpack2 is read when it
+exists); otherwise from H36MDataset + BatchLoader. Not ported yet, and
+raising `NotImplementedError`: more than one device.
 """
 
 from __future__ import annotations
@@ -45,7 +47,7 @@ import torch
 
 from jrr_tpu_torch import constants, resolve_device
 from jrr_tpu_torch.config import PipelineConfig
-from jrr_tpu_torch.data import fixtures, h36m
+from jrr_tpu_torch.data import fixtures, h36m, native_pipeline
 from jrr_tpu_torch.evals import consumers, harness
 from jrr_tpu_torch.models import smpl as smpl_lib
 from jrr_tpu_torch.models import spin as spin_lib
@@ -77,6 +79,9 @@ class PipelineArtifacts:
     # with consumers consumer_frame (their build and the frame-level pass)
     # and consumer_sequence.
     seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
+    # The batches' source: "python" (H36MDataset + BatchLoader), "pack" (the
+    # raw v1 pack) or "pack2" (the pre-warped v2 pack).
+    loader: str = "python"
     # kind ("vibe"/"meva" [+ " (sequence)"]) → BeforeAfter, when consumer
     # checkpoints were given (reference: main.py:26-27 runs both).
     consumer_evals: Dict[str, harness.BeforeAfter] = dataclasses.field(default_factory=dict)
@@ -465,7 +470,9 @@ def run_pipeline(
     256-vertex body and `demo_frames` the fixture count (2 batches by
     default). Outside the demo the initial regressor is mandatory: an
     explicit `jreg_init_path` or J_regressor_h36m.{npy,npz} under the data
-    root. `loader`: "python" (H36MDataset + BatchLoader) or "auto".
+    root. `loader`: "python" (H36MDataset + BatchLoader), "native" (the
+    runtime's pack loader, `PackedH36MDataset`, which builds frames.jrrpack
+    if it is missing) or "auto" (native when the split has a frames.jrrpack).
 
     `spin_checkpoint` (+ `spin_mean_params`) initializes every batch from
     SPIN on its crop (reference: scripts/optimize.py:164-182), and the eval
@@ -480,15 +487,6 @@ def run_pipeline(
     os.makedirs(out_dir, exist_ok=True)
     if demo:
         data_root = data_root or os.path.join(out_dir, "fixtures")
-    sub = "precomputed_train" if cfg.data.split == "train" else "precomputed_val"
-    if loader == "native" or (
-        loader == "auto" and os.path.exists(os.path.join(data_root or "", sub, "frames.jrrpack"))
-    ):
-        raise NotImplementedError(
-            "the native pack loader (data/native_pipeline.py and runtime/) is not ported "
-            "(ROADMAP Queue 1); pass loader='python' and remove frames.jrrpack to read "
-            "the PNG files"
-        )
 
     seconds: Dict[str, float] = {}
     if demo:
@@ -537,17 +535,32 @@ def run_pipeline(
     if spin_checkpoint is not None:
         spin_fn = make_spin_fn(spin_checkpoint, spin_mean_params, device=dev)
 
-    dataset = h36m.H36MDataset(data_root, cfg.data.split)
-    batch_loader = h36m.BatchLoader(
-        dataset, cfg.data.batch_size, seed=cfg.data.shuffle_seed,
-        drop_last=True, prefetch=cfg.data.prefetch,
-    )
+    # The host input pipeline: the runtime's pack loader (no Python per
+    # frame; its calls release the interpreter lock), or the python loader.
+    sub = "precomputed_train" if cfg.data.split == "train" else "precomputed_val"
+    pack_path = os.path.join(data_root or "", sub, "frames.jrrpack")
+    if loader == "native" or (loader == "auto" and os.path.exists(pack_path)):
+        packed = native_pipeline.PackedH36MDataset(data_root, cfg.data.split)
+        index_source, source = packed, "pack2" if packed.prewarped else "pack"
 
-    def epoch_batches(for_eval: bool = False):
-        """All train epochs back to back, reshuffled per epoch."""
-        for epoch in range(1 if for_eval else max(1, cfg.data.train_epochs)):
-            batch_loader.set_epoch(epoch)
-            yield from iter(batch_loader)
+        def epoch_batches(for_eval: bool = False):
+            """All train epochs back to back, reshuffled per epoch."""
+            for epoch in range(1 if for_eval else max(1, cfg.data.train_epochs)):
+                yield from packed.batches(cfg.data.batch_size, seed=cfg.data.shuffle_seed,
+                                          epoch=epoch, drop_last=True)
+    else:
+        dataset = h36m.H36MDataset(data_root, cfg.data.split)
+        index_source, source = dataset, "python"
+        batch_loader = h36m.BatchLoader(
+            dataset, cfg.data.batch_size, seed=cfg.data.shuffle_seed,
+            drop_last=True, prefetch=cfg.data.prefetch,
+        )
+
+        def epoch_batches(for_eval: bool = False):
+            """All train epochs back to back, reshuffled per epoch."""
+            for epoch in range(1 if for_eval else max(1, cfg.data.train_epochs)):
+                batch_loader.set_epoch(epoch)
+                yield from iter(batch_loader)
 
     t0 = time.perf_counter()
     state, acc, _ = run_optimize(
@@ -612,12 +625,12 @@ def run_pipeline(
             map(norm_batch, epoch_batches(for_eval=True)), j_reg_initial, j_reg_final, device=dev,
         )
         seconds["consumer_frame"] = time.perf_counter() - t0
-        order = dataset.frame_order()
+        order = index_source.frame_order()
         seq_evals = {}
         if order is not None:
             t0 = time.perf_counter()
             seq_batches = h36m.background_iter(h36m.ordered_sequence_batches(
-                dataset.load_batch, order, cfg.data.batch_size, consumer_seqlen),
+                index_source.load_batch, order, cfg.data.batch_size, consumer_seqlen),
                 cfg.data.prefetch)
             seq_evals = harness.evaluate_consumer_sequences(
                 {kind: b[1] for kind, b in built.items()}, map(norm_batch, seq_batches),
@@ -646,4 +659,5 @@ def run_pipeline(
         eval_lstsq=res_lstsq,
         seconds=seconds,
         consumer_evals=consumer_evals,
+        loader=source,
     )

@@ -304,8 +304,3 @@ def test_unported_frame_sources_raise(tmp_path, port_fixture_root):
     open(os.path.join(root, "data.h5"), "w").close()
     with pytest.raises(NotImplementedError, match="h5py"):
         h36m.H36MDataset(root)
-    os.remove(os.path.join(root, "data.h5"))
-    ds = h36m.H36MDataset(root)
-    ds.images = [p.replace(".png", ".jpg") for p in ds.images]
-    with pytest.raises(NotImplementedError, match="JPEG"):
-        ds[0]

@@ -32,9 +32,8 @@ and the same otherwise but for the poses' draws): a second run resumes
 both shards (by replay, or from the
 accumulator checkpoint; with SPIN initialization too, consumer evals
 included) with no outer step and the same regressors and evals; a changed
-data order, a failing shard writer and a failing loader raise; unported
-options (the native loader, more than one device) raise
-NotImplementedError; the CLI runs the demo on the CPU and refuses a missing
+data order, a failing shard writer and a failing loader raise; the
+unported option (more than one device) raises NotImplementedError; the CLI runs the demo on the CPU and refuses a missing
 card. chip_smoke.py's holds of the kernels on
 the product path's own inputs: the bounds of coverage decisions at their
 thresholds on constructed tiles, and the gradient entries a flip reaches.
@@ -354,21 +353,12 @@ def test_outside_the_demo_an_initial_regressor_is_required(tmp_path):
                               out_dir=str(tmp_path / "out"), device="cpu")
 
 
-@pytest.mark.parametrize("option", ["loader_native", "loader_auto_pack", "mesh"])
+@pytest.mark.parametrize("option", ["mesh"])
 def test_unported_options_raise(tmp_path, port_root, option):
-    import shutil
-
-    cfg, kw, root = _port_cfg(use_silhouette=False), {}, port_root
-    if option == "loader_native":
-        kw["loader"] = "native"
-    elif option == "loader_auto_pack":
-        root = str(tmp_path / "fixtures")
-        shutil.copytree(port_root, root)
-        open(os.path.join(root, "precomputed_val", "frames.jrrpack"), "w").close()
-    else:
-        cfg = dataclasses.replace(cfg, mesh=cfg_lib.MeshConfig(num_devices=2))
+    cfg = _port_cfg(use_silhouette=False)
+    cfg = dataclasses.replace(cfg, mesh=cfg_lib.MeshConfig(num_devices=2))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port_run(cfg, root, str(tmp_path / "run"), **kw)
+        _port_run(cfg, port_root, str(tmp_path / "run"))
 
 
 def test_cli_demo_runs_on_the_cpu(tmp_path, port_root):
