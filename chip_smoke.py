@@ -37,31 +37,49 @@
    `refine_batch` at batch 256, full width and depth (warm-up, one timed
    run, one profiled run), and two short kernel refinements that must
    agree bit for bit;
-8. holds the gradient of Σ w·`silhouette_tiles_fused` (the α VJP kernel)
+8. drives the XLA tile loop (`silhouette.backend="xla"`, `xla_path`):
+   `render_mesh_silhouette` at batch 256 against row 5's render of the
+   same vertices (α within 1e-5; seconds and peak memory, forward and
+   backward), its gradient against the plain round-1 route's on 8 frames,
+   `refine_batch(backend="xla")` at the shipped defaults equal to step 7's
+   round-1 run bit for bit with the same launches, and a
+   `rebin_interval=1` refinement at batch 16 through the tile loop (finite,
+   falling, no kernel launched);
+9. holds the gradient of Σ w·`silhouette_tiles_fused` (the α VJP kernel)
    against the plain version at batch 256, both geometries;
-9. drives the lane-packed configuration (`silhouette.lane_pack=True`):
+10. drives the lane-packed configuration (`silhouette.lane_pack=True`):
    `refine_batch` at batch 256, full width and depth (warm-up, two timed
    runs with every active silhouette step through the packed kernel, in
    turns A B B A with two unpacked runs to compare with), and two short
    kernel refinements that must agree bit for bit;
-10. runs the primitive probes (jrr_tpu_torch/probes/): each probe kernel
+11. runs the primitive probes (jrr_tpu_torch/probes/): each probe kernel
    against its plain version at the probe tools' shapes, timed beside one
    PyTorch call for the same function (the RMW probe's int64 sums equal its
    fixed-point plain version's exactly);
-11. builds the host runtime (jrr_tpu_torch/runtime/jrr_runtime.cc) with
+12. builds the host runtime (jrr_tpu_torch/runtime/jrr_runtime.cc) with
    g++ on this host and decodes the committed JPEGs of tests/data/jpeg
    (`jpeg_check`): each within 1 level of its committed imageio decode (the
    1000² frame's SHA-256 equal), the values that differ counted, the
    1000² frame's decode timed;
-12. drives the product loop (`product_path`) as tools/pipeline_bench.py
+13. reads the committed HDF5 files of tests/data/h5 (`h5_check`): every
+   in-scope layout equal to its committed h5py decode (0 values differ),
+   two out-of-scope files refused, the 4-frame data.h5 dataset in
+   H36MDataset's h5 mode held to jrr_tpu's committed batch, one 1000²
+   frame's read timed, `load_raw_h36m` on the committed annot.h5 tree
+   equal to jrr_tpu's committed output, and `run_pipeline(demo=True)` over
+   the dataset at full width (batch 4), which must read through the
+   reader and launch rows 1 and 2 38 and 2 times;
+14. drives the product loop (`product_path`) as tools/pipeline_bench.py
    drives jrr_tpu's: 512 fixture frames written at SPIN-crop scale, the v1
    pack and the pre-warped v2 pack built from them (each timed), then
    `run_pipeline(demo=True, loader="auto")` on them at full width (two
    shards of 256, shipped defaults, temporary directories), which must read
    the v2 pack, with rows 1, 2 and 5 launched 76, 4 and at least 1 times
    and finite evals, then the same call again, which must resume both
-   shards, launch no kernel and give the same regressors and evals bit for
-   bit; then loads the loop's first batch through the python loader, the
+   shards, launch no kernel, give the same regressors and evals bit for
+   bit and save the train state it restored, in jrr_tpu's layout, equal;
+   restores the committed jrr_tpu-written train state of tests/data
+   (V = 96) equal to its file; then loads the loop's first batch through the python loader, the
    v1 pack and the v2 pack (`loader_check`: jrr_tpu's tolerances, ms per
    batch each), holds row 5 on the fixture render's own tiles (against its
    plain version, its repeat and the mask PNGs) and rows 1 and 2 on the
@@ -71,7 +89,7 @@
    them apart and α jumps: there each α is held within the bounds of both
    outcomes, the loss kernel's err off those frames and its gradients off
    the entries they reach;
-13. drives SPIN initialization and the VIBE/MEVA consumer evals
+15. drives SPIN initialization and the VIBE/MEVA consumer evals
    (`consumer_path`): SPIN's hmr, VIBE's and MEVA's checkpoints fabricated
    at the published shapes from a seeded generator, then
    `run_pipeline(demo=True, spin_checkpoint=…, vibe_checkpoint=…,
@@ -82,7 +100,7 @@
    (features and estimates, TF32 off as shipped; the TF32-on gap reported)
    and both consumers of each kind against the port's float32 CPU runs,
    and rows 1 and 2 on the first SPIN-initialized batch's bins;
-14. prints the kernels line, the card's name and power limit, and the
+16. prints the kernels line, the card's name and power limit, and the
    contract line `{"ok": true, "device": {...}}` last.
 
 Any failed check raises (non-zero exit, no result line). Needs one CUDA card
@@ -161,6 +179,17 @@ LOADER_IMAGE_ATOL, LOADER_J2D_ATOL = 2e-2, 0.5
 LOADER_V2_ATOL = 1.01 / 255
 LOADER_STORED_ATOL = 1e-6
 JPEG_DIR = os.path.join(ROOT, "tests", "data", "jpeg")
+H5_DIR = os.path.join(ROOT, "tests", "data", "h5")  # tests/make_h5_fixtures.py
+# A jrr_tpu TrainState one Adam step in, V = 96 (tests/make_state_fixture.py).
+JAX_STATE = os.path.join(ROOT, "tests", "data", "train_state", "state_00000001.npz")
+H5_FRAMES = 4  # frames of the committed data.h5 dataset: one batch
+H5_FRAME_READS = 11  # reads of one 1000² frame timed (median)
+# The CPU tolerances of an h5-mode batch against jrr_tpu's committed one
+# (tests/test_torch_hdf5.py): warped crops, crop intrinsics, gt_j2d in px;
+# every other key equal.
+H5_BATCH_ATOL = {"image": 2e-4, "spin_image": 2e-4, "intrinsics": 1e-3, "gt_j2d": 1e-4}
+XLA_GRAD_FRAMES = PLAIN_FRAMES  # the tile loop's gradient against the plain round-1 route's
+XLA_REFINE_BATCH = 16  # the tile loop's refinement (rebin_interval 1)
 CONSUMER_SEQLEN = 16  # the reference's chunk length (scripts/test.py:254-273)
 CONSUMER_CHUNKS = 2  # sequence chunks of the consumers' card-against-CPU hold
 # SPIN and the consumers ship with TF32 off: float32 card against float32 CPU,
@@ -1163,7 +1192,121 @@ def run_round1_path(problem, pose_disc, shape_disc):
         frames_per_s=BATCH / seconds, launches=launches,
         stage_b_total_first_last=[first, last], short_repeat_diff=repeat, profile=prof,
         card=_card(),
-    ), launches
+    ), launches, res
+
+
+def run_xla_path(problem, pose_disc, shape_disc, round1_res, round1_launches):
+    """`xla_path`: silhouette.backend="xla", the XLA tile loop (top-K bins,
+    plain PyTorch coverage over checkpointed chunks of tiles) and its
+    dispatch.
+    - `render_mesh_silhouette` at batch 256, full width, 224², with no bin
+      margin: α against row 5's render of the same vertices (round-1
+      binning with the tile cap the widest face needs, so that both list
+      the same faces) within ALPHA_ATOL; seconds and peak memory of its
+      forward and of forward + backward;
+    - the vertex gradient of Σ w·α on the first XLA_GRAD_FRAMES frames
+      against the plain round-1 route's (the kernel gradient tolerance);
+    - `refine_batch(backend="xla")` at the shipped defaults (rebin 50: the
+      round-1 bins and route) equal to round1_path's run bit for bit, with
+      the same row 5 and 6 launches;
+    - a rebin_interval=1 refinement at batch XLA_REFINE_BATCH, 1000 + 100
+      steps, every active step through the tile loop: seconds, no kernel
+      launched, finite parameters, a falling stage-B loss."""
+    import torch
+
+    from jrr_tpu_torch import kernels
+    from jrr_tpu_torch.refine import engine, losses
+    from jrr_tpu_torch.render import camera
+    from jrr_tpu_torch.render import silhouette as sil
+
+    model, j_reg, cfg, init, data = problem
+    spec = losses.rasterizer_spec(cfg)._replace(bin_margin_px=0.0)
+    with torch.no_grad():
+        verts = losses.forward_frame(model, init).vertices
+        # Round-1 binning drops the faces whose padded bbox spans more than
+        # max_tiles_per_face tiles on an axis; top-K binning has no cap. Row
+        # 5 is held with the cap the widest face here needs.
+        xy = camera.project_points_screen(verts, init.cam_t, spec.image_size,
+                                          spec.focal_length)[:, model.faces, :2]
+        pad, t = 0.5 + spec.image_size / 2 * spec.blur_radius ** 0.5, spec.tile_size
+        span = torch.floor((xy.amax(2) + pad) / t) - torch.floor((xy.amin(2) - pad) / t) + 1
+        cap = int(span.clamp(1, spec.image_size // t).max())
+        del xy, span
+    xla = spec._replace(backend="xla")
+    round1 = spec._replace(backend="pallas", max_tiles_per_face=max(cap, spec.max_tiles_per_face))
+    weights = _seeded_uniform((BATCH, spec.image_size, spec.image_size), 3)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, (torch.cuda.max_memory_allocated() - base) / 1e9
+
+    with torch.no_grad():
+        alpha, fwd_s, fwd_gb = timed(lambda: sil.render_mesh_silhouette(
+            verts, model.faces, init.cam_t, xla))
+        kernels.reset_launches()
+        alpha_r1 = sil.render_mesh_silhouette(verts, model.faces, init.cam_t, round1)
+        _check(_read_launches() == _launches(tiles_alpha_fwd=1), "xla_path: row 5 not launched")
+    err = float((alpha - alpha_r1).abs().max())
+    _check(err <= ALPHA_ATOL and float(alpha.sum()) > 0,
+           f"xla_path: tile-loop α differs from row 5's by {err}")
+
+    def grad(v, s):
+        v = v.detach().requires_grad_(True)
+        a = sil.render_mesh_silhouette(v, model.faces, init.cam_t[: v.shape[0]], s)
+        (g,) = torch.autograd.grad((a * weights[: v.shape[0]]).sum(), [v])
+        return g
+
+    _, bwd_s, bwd_gb = timed(lambda: grad(verts, xla))
+    sub = verts[:XLA_GRAD_FRAMES]
+    got = grad(sub, xla)
+    with _plain_versions():
+        want = grad(sub, round1)
+    viol = _max_rel_violation(got, want, GRAD_ATOL_REL * float(want.abs().max()), GRAD_RTOL)
+    _check(viol <= 1.0, f"xla_path: tile-loop gradient beyond tolerance ({viol})")
+
+    full = dataclasses.replace(_with_backend(cfg, "xla"), stage_a_steps=1000, stage_b_steps=100)
+    _check(full.silhouette.rebin_interval > 1, "xla_path: shipped rebin_interval changed")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = engine.refine_batch(model, j_reg, init, data, full, pose_disc, shape_disc)
+    torch.cuda.synchronize()
+    binned_s = time.perf_counter() - t0
+    launches = _read_launches()
+    _check(launches == round1_launches, f"xla_path launches {launches}, round-1 {round1_launches}")
+    same = all(torch.equal(a, b) for a, b in zip(res.params, round1_res.params))
+    _check(same and torch.equal(res.stage_b_terms.total, round1_res.stage_b_terms.total),
+           "xla_path: backend='xla' with bins differs from backend='pallas'")
+
+    sl = slice(0, XLA_REFINE_BATCH)
+    small = (type(init)(*(x[sl] for x in init)), type(data)(*(x[sl] for x in data)))
+    loop = dataclasses.replace(full, silhouette=dataclasses.replace(full.silhouette, rebin_interval=1))
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = engine.refine_batch(model, j_reg, *small, loop, pose_disc, shape_disc)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    _check(_read_launches() == _launches(), "xla_path: the tile loop launched a kernel")
+    total = res.stage_b_terms.total
+    first, last = float(total[0]), float(total[-1])
+    _check(all(bool(torch.isfinite(p).all()) for p in res.params) and last < first,
+           f"xla_path: tile-loop refinement non-finite or not falling ({first} -> {last})")
+    return dict(
+        render=dict(batch=BATCH, alpha_max_abs_err_vs_row5=err, tolerance=ALPHA_ATOL,
+                    row5_max_tiles_per_face=round1.max_tiles_per_face,
+                    fwd_seconds=fwd_s, fwd_peak_gb=fwd_gb, fwd_bwd_seconds=bwd_s,
+                    fwd_bwd_peak_gb=bwd_gb, grad_frames=XLA_GRAD_FRAMES,
+                    grad_tolerance_use=viol),
+        binned=dict(batch=BATCH, seconds=binned_s, launches=launches, equal_to_round1=True),
+        tile_loop=dict(batch=XLA_REFINE_BATCH, stage_a_steps=1000, stage_b_steps=100,
+                       seconds=loop_s, silhouette_steps=int((res.stage_b_terms.silhouette != 0).sum()),
+                       stage_b_total_first_last=[first, last]),
+        card=_card(),
+    )
 
 
 def _active_steps(steps: int, stride: int) -> int:
@@ -1621,6 +1764,115 @@ def check_jpeg():
     return dict(build_seconds=build_s, files=report, tolerance="1 level; the frame bit for bit")
 
 
+def check_h5():
+    """`h5_check`: the HDF5 reader (data/hdf5.py) on the committed files of
+    tests/data/h5 (tests/make_h5_fixtures.py):
+    - layouts.h5 equal to its committed h5py decodes, 0 values differ;
+      latest.h5 and compound.h5 refused (NotImplementedError);
+    - the 4-frame data.h5 dataset through H36MDataset in h5 mode, its batch
+      held to jrr_tpu's committed one at the CPU tolerances, and the ms to
+      read one 1000² frame (deflate + shuffle chunks, median of
+      H5_FRAME_READS);
+    - `load_raw_h36m` on the committed annot.h5 tree equal to jrr_tpu's
+      committed output;
+    - `run_pipeline(demo=True)` over the dataset at full width (batch 4,
+      shipped stage lengths): the python loader reads through the reader,
+      rows 1 and 2 launch 38 and 2 times, the evals are finite."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from jrr_tpu_torch import config, kernels
+    from jrr_tpu_torch.data import h36m, hdf5, raw_h36m
+    from jrr_tpu_torch.models import smpl
+    from jrr_tpu_torch.pipeline import run_pipeline
+
+    layouts = hdf5.File(os.path.join(H5_DIR, "layouts.h5"))
+    with open(os.path.join(H5_DIR, "layouts_decodes.json")) as f:
+        names = json.load(f)
+    differ = values = 0
+    with np.load(os.path.join(H5_DIR, "layouts_decodes.npz")) as decodes:
+        for key, name in names.items():
+            want = decodes[key]
+            got = (np.stack([layouts.read(f"big/e{i:04d}") for i in range(len(want))])
+                   if name == "big/*" else layouts.read(name))
+            _check(got.dtype == want.dtype and got.shape == want.shape,
+                   f"h5_check {name}: {got.dtype} {got.shape}, h5py {want.dtype} {want.shape}")
+            differ += int(np.count_nonzero(got != want))
+            values += want.size
+    _check(differ == 0, f"h5_check: {differ} values differ from h5py's")
+    refused = {}
+    for name in ("latest.h5", "compound.h5"):
+        try:
+            hdf5.File(os.path.join(H5_DIR, name)).read("x")
+        except NotImplementedError as e:
+            refused[name] = str(e)[len(H5_DIR) + 1 :]
+        _check(name in refused, f"h5_check: {name} was read")
+
+    raw = {}
+    with np.load(os.path.join(H5_DIR, "raw_expected.npz")) as f:
+        for split in ("train", "validation"):
+            out = raw_h36m.load_raw_h36m(os.path.join(H5_DIR, "raw"), split)
+            out["images"] = np.asarray([os.path.relpath(p, os.path.join(H5_DIR, "raw"))
+                                        for p in out["images"]])
+            for key, got in out.items():
+                want = f[f"{split}/{key}"]
+                _check(got.dtype == want.dtype and np.array_equal(got, want),
+                       f"h5_check: load_raw_h36m {split} {key} differs from jrr_tpu's")
+            raw[split] = len(out["images"])
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "dataset")
+        shutil.copytree(os.path.join(H5_DIR, "dataset"), root)
+        ds = h36m.H36MDataset(root)
+        _check(ds.use_h5 and len(ds) == H5_FRAMES, "h5_check: the dataset is not in h5 mode")
+        batch = ds.load_batch(np.arange(H5_FRAMES))
+        gaps = {}
+        with np.load(os.path.join(H5_DIR, "dataset_batch.npz")) as f:
+            _check(set(f.files) == set(batch), "h5_check: batch keys differ")
+            for key in f.files:
+                gaps[key] = _max_gap(batch[key], f[key])
+                _check(gaps[key] <= H5_BATCH_ATOL.get(key, 0.0),
+                       f"h5_check: h5 batch {key} {gaps[key]} from jrr_tpu's")
+        frame_key = "/".join(ds.images[0].split("/")[-5:])
+        times = []
+        for _ in range(H5_FRAME_READS):
+            t0 = time.perf_counter()
+            frame = ds.h5.read(frame_key)
+            times.append(time.perf_counter() - t0)
+        _check(frame.shape == (3, 1000, 1000), f"h5_check: frame {frame.shape}")
+
+        cfg = config.PipelineConfig()
+        cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, batch_size=H5_FRAMES))
+        model = smpl.synthetic_smpl_model(seed=0, device="cuda")
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        arts = run_pipeline(cfg, data_root=root, out_dir=os.path.join(tmp, "run"), demo=True,
+                            model=model, loader="auto")
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = _read_launches()
+    _check(arts.loader == "python", f"h5_check: run_pipeline read {arts.loader}")
+    _check(launches == _launches(fused_lossgrad=38, fused_alpha_fwd=2),
+           f"h5_check run launches {launches}, expected 38 fused_lossgrad + 2 fused_alpha_fwd")
+    evals = {"initial": arts.eval_before_after.before, "adam_final": arts.eval_before_after.after,
+             "lstsq": arts.eval_lstsq}
+    _check(all(math.isfinite(getattr(e, k)) for e in evals.values() for k in ("mpjpe", "pa_mpjpe")),
+           "h5_check: non-finite evals")
+    return dict(
+        layouts=dict(datasets=len(layouts.datasets()), values=values, differing_values=differ),
+        refused=refused, raw_h36m_frames=raw,
+        dataset=dict(frames=H5_FRAMES, batch_max_gap=gaps, tolerance=H5_BATCH_ATOL,
+                     frame_read_ms=1e3 * sorted(times)[len(times) // 2],
+                     frame_bytes=int(frame.nbytes)),
+        run=dict(batch=H5_FRAMES, stage_a_steps=cfg.refiner.stage_a_steps,
+                 stage_b_steps=cfg.refiner.stage_b_steps, seconds=run_s,
+                 phase_seconds=arts.seconds, loader=arts.loader, launches=launches,
+                 evals={k: _eval_dict(v) for k, v in evals.items()}),
+    )
+
+
 def check_product_bins(model, cfg, data_root, spin_fn=None, where="product"):
     """Rows 1 and 2 on the product path's own bins (`_hold_fused` with
     decision flips, both geometries): the first batch the loop refines at
@@ -1703,11 +1955,14 @@ def run_product_path(data_root):
             records = _records(metrics_path)
             evals = {"initial": arts.eval_before_after.before,
                      "adam_final": arts.eval_before_after.after, "lstsq": arts.eval_lstsq}
+            with np.load(os.path.join(out_dir, "ckpt", "state_00000002.npz")) as f:
+                state = dict(f)
             runs.append(dict(
                 arts=arts, launches=launches, seconds=seconds, records=records, evals=evals,
                 phase_seconds=dict(arts.seconds, **{"fixtures": 0.0, **once}),
                 shards=ShardManifest(os.path.join(out_dir, "refined")).completed(),
                 saved=os.path.exists(os.path.join(out_dir, "retrained_j_regressor.npz")),
+                state=state,
             ))
         loaders = check_loaders(cfg, data_root)
         render = check_product_render(model, j_true, cfg.seed, data_root)
@@ -1736,6 +1991,14 @@ def run_product_path(data_root):
     _check(lstsq_diff == 0.0, f"resumed lstsq regressor differs by {lstsq_diff}")
     _check(all(first["evals"][k] == resumed["evals"][k] for k in first["evals"]),
            "resumed evals differ")
+    # The train state is saved in jrr_tpu's layout and the resume restored it
+    # (the resumed run saves what it restored).
+    _check(all(k.startswith(".") for k in first["state"]) and ".step" in first["state"],
+           "product path: the train state is not in jrr_tpu's layout")
+    _check(first["state"].keys() == resumed["state"].keys() and all(
+        np.array_equal(first["state"][k], resumed["state"][k]) for k in first["state"]),
+        "product path: the resumed run's train state differs from the one it restored")
+    jax_state = check_jax_state()
     frames = PRODUCT_FRAMES
     return dict(
         frames=frames, batch=BATCH, stage_a_steps=1000, stage_b_steps=100,
@@ -1749,10 +2012,35 @@ def run_product_path(data_root):
         launches=first["launches"],
         resumed=dict(seconds=resumed["seconds"], phase_seconds=resumed["phase_seconds"],
                      launches=resumed["launches"], lstsq_max_abs_diff=lstsq_diff,
-                     evals_equal=True),
+                     evals_equal=True, state_layout="jrr_tpu", state_keys=len(first["state"]),
+                     state_restored_equal=True),
+        jax_state=jax_state,
         loader_check=loaders, render_check=render, bins_check=bins,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, card=_card(),
     ), model
+
+
+def check_jax_state():
+    """The committed jrr_tpu-written train state (JAX_STATE, V = 96)
+    restored on the card: every array of the port's state equal to the
+    file's."""
+    import numpy as np
+    import torch
+
+    from jrr_tpu_torch import config, convert
+    from jrr_tpu_torch.refine import trainer
+    from jrr_tpu_torch.utils.checkpoint import restore_train_state
+
+    template = trainer.init_train_state(torch.zeros(17, 96, device="cuda"), config.PipelineConfig())
+    back = restore_train_state(JAX_STATE, template)
+    got = convert.train_state_arrays(back)
+    with np.load(JAX_STATE) as f:
+        _check(set(f.files) == set(got), "jax_state: keys differ")
+        differ = sum(int(np.count_nonzero(got[k] != f[k])) for k in f.files)
+    _check(differ == 0 and back.j_reg_raw.is_cuda and back.step == 1,
+           f"jax_state: {differ} values differ from the file's")
+    return dict(file=os.path.relpath(JAX_STATE, ROOT), keys=len(got), differing_values=differ,
+                step=back.step, pose_disc_adam_count=back.pose_disc_opt.count)
 
 
 def _fabricate(module, gen, skip=(), head=(), head_scale=1e-3, identity=()):
@@ -2200,9 +2488,12 @@ def main() -> int:
     done("silhouette_gradients")
     _emit({"training_path": run_training()})
     done("training_path")
-    round1, round1_launches = run_round1_path(problem, pose_disc, shape_disc)
+    round1, round1_launches, round1_res = run_round1_path(problem, pose_disc, shape_disc)
     _emit({"round1_path": round1})
     done("round1_path")
+    _emit({"xla_path": run_xla_path(problem, pose_disc, shape_disc, round1_res, round1_launches)})
+    del round1_res
+    done("xla_path")
     vjp, vjp_launches = check_fused_alpha_vjp_api(problem)
     _emit({"fused_alpha_vjp_api": vjp})
     done("fused_alpha_vjp_api")
@@ -2215,6 +2506,8 @@ def main() -> int:
     done("probes")
     _emit({"jpeg_check": check_jpeg()})
     done("jpeg_check")
+    _emit({"h5_check": check_h5()})
+    done("h5_check")
     with tempfile.TemporaryDirectory() as tmp:
         data_root = os.path.join(tmp, "fixtures")
         product, model = run_product_path(data_root)

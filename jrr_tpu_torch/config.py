@@ -36,8 +36,8 @@ class SilhouetteConfig:
     max_tiles_per_face: int = 4
     pages_per_tile: int = 16
     # "auto"/"fused": fused page-gather path; "pallas": round-1 tile path
-    # (CUDA kernels for CUDA tensors, plain versions for CPU tensors).
-    # "xla" is not ported and raises.
+    # (CUDA kernels for CUDA tensors, plain versions for CPU tensors);
+    # "xla": the round-1 path when stage B rebins, else the XLA tile loop.
     backend: str = "auto"
     step_stride: int = 2
     coarse_step_stride: Optional[int] = 4

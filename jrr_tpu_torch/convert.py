@@ -2,13 +2,16 @@
 anything `np.asarray` accepts), into the port's objects — so both packages
 can be run on the same numbers: configs, the SMPL arrays, the
 discriminators and the train state, and the flax variables of the SPIN,
-VIBE-style and MEVA-style networks. Only numpy is used on the input side.
+VIBE-style and MEVA-style networks. The train state also goes back:
+`train_state_arrays` gives jrr_tpu's checkpoint arrays of a port state,
+`train_state_from_arrays` reads them. Only numpy is used on the JAX side.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping
+import types
+from typing import Dict, Mapping
 
 import numpy as np
 import torch
@@ -76,33 +79,49 @@ def smpl_model(src, device="cuda") -> smpl_lib.SMPLModel:
     )
 
 
-def _load_linear(layer: nn.Linear, w, b) -> None:
-    """JAX (in, out) weight + (out,) bias → nn.Linear's (out, in)."""
+# The port's discriminator parameter names → (jrr_tpu's key, stored
+# transposed): nn.Linear keeps (out, in) where jrr_tpu keeps (in, out).
+_POSE_DISC_KEYS = {
+    "joint_w": ("wj", False), "joint_b": ("bj", False),
+    "conv1.weight": ("w1", True), "conv1.bias": ("b1", False),
+    "conv2.weight": ("w2", True), "conv2.bias": ("b2", False),
+    "fc1.weight": ("wg1", True), "fc1.bias": ("bg1", False),
+    "fc2.weight": ("wg2", True), "fc2.bias": ("bg2", False),
+    "fc3.weight": ("wg3", True), "fc3.bias": ("bg3", False),
+}
+_SHAPE_DISC_KEYS = {f"fc{i}.{kind}": (f"{kind[0]}{i}", kind == "weight")
+                    for i in (1, 2, 3) for kind in ("weight", "bias")}
+
+
+def _disc_from_jax(disc: nn.Module, params: Mapping, keys, device) -> nn.Module:
     with torch.no_grad():
-        layer.weight.copy_(torch.as_tensor(np.array(w, np.float32).T))
-        layer.bias.copy_(torch.as_tensor(np.array(b, np.float32)))
+        for name, p in disc.named_parameters():
+            key, transposed = keys[name]
+            a = np.array(params[key], np.float32)
+            p.copy_(torch.as_tensor(a.T if transposed else a))
+    return disc.to(resolve_device(device))
+
+
+def _disc_to_jax(disc: nn.Module, tensors, keys) -> Dict[str, np.ndarray]:
+    """Tensors laid out like `disc.parameters()` (the parameters, or an
+    `_Adam`'s moments) → jrr_tpu's param dict."""
+    out = {}
+    for (name, _), t in zip(disc.named_parameters(), tensors):
+        key, transposed = keys[name]
+        a = t.detach().cpu().numpy()
+        out[key] = np.ascontiguousarray(a.T) if transposed else a
+    return out
 
 
 def pose_discriminator(params: Mapping, device="cuda") -> disc_lib.PoseDiscriminator:
     """JAX pose-discriminator param dict (w1, b1, w2, b2, wj, bj, wg1…bg3)."""
-    d = disc_lib.PoseDiscriminator(device="cpu")
-    _load_linear(d.conv1, params["w1"], params["b1"])
-    _load_linear(d.conv2, params["w2"], params["b2"])
-    _load_linear(d.fc1, params["wg1"], params["bg1"])
-    _load_linear(d.fc2, params["wg2"], params["bg2"])
-    _load_linear(d.fc3, params["wg3"], params["bg3"])
-    with torch.no_grad():
-        d.joint_w.copy_(torch.as_tensor(np.array(params["wj"], np.float32)))
-        d.joint_b.copy_(torch.as_tensor(np.array(params["bj"], np.float32)))
-    return d.to(resolve_device(device))
+    return _disc_from_jax(disc_lib.PoseDiscriminator(device="cpu"), params, _POSE_DISC_KEYS, device)
 
 
 def shape_discriminator(params: Mapping, device="cuda") -> disc_lib.ShapeDiscriminator:
     """JAX shape-discriminator param dict (w1, b1, w2, b2, w3, b3)."""
-    d = disc_lib.ShapeDiscriminator(device="cpu")
-    for i, layer in enumerate((d.fc1, d.fc2, d.fc3), start=1):
-        _load_linear(layer, params[f"w{i}"], params[f"b{i}"])
-    return d.to(resolve_device(device))
+    return _disc_from_jax(disc_lib.ShapeDiscriminator(device="cpu"), params, _SHAPE_DISC_KEYS,
+                          device)
 
 
 def frame_params(src, device="cuda") -> FrameParams:
@@ -161,6 +180,56 @@ def train_state(src, cfg: config_lib.PipelineConfig, device="cuda") -> trainer.T
                              as_shape),
         step=int(np.array(src.step)),
     )
+
+
+_DISCS = (("pose_disc", _POSE_DISC_KEYS), ("shape_disc", _SHAPE_DISC_KEYS))
+
+
+def train_state_arrays(state: trainer.TrainState) -> Dict[str, np.ndarray]:
+    """The port's `TrainState` → the arrays of jrr_tpu's TrainState
+    (jrr_tpu/refine/trainer.py:45-52) as its npz checkpoint holds them,
+    keyed by `jax.tree_util.keystr` of each leaf: ".j_reg_raw", ".step",
+    ".jreg_opt[0].count" / ".mu" / ".nu" (optax's ScaleByAdamState, the
+    first entry of adam's chain), ".pose_disc['w1']",
+    ".pose_disc_opt[0].mu['w1']", ... Counts and the step are int32."""
+    i32 = lambda x: np.asarray(x, np.int32)  # noqa: E731
+    opt = state.jreg_opt
+    out = {
+        ".j_reg_raw": state.j_reg_raw.detach().cpu().numpy(), ".step": i32(state.step),
+        ".jreg_opt[0].count": i32(opt.count),
+        ".jreg_opt[0].mu": opt.m[0].detach().cpu().numpy(),
+        ".jreg_opt[0].nu": opt.v[0].detach().cpu().numpy(),
+    }
+    for field, keys in _DISCS:
+        disc, opt = getattr(state, field), getattr(state, f"{field}_opt")
+        out[f".{field}_opt[0].count"] = i32(opt.count)
+        for prefix, tensors in ((f".{field}", list(disc.parameters())),
+                                (f".{field}_opt[0].mu", opt.m), (f".{field}_opt[0].nu", opt.v)):
+            out.update({f"{prefix}['{k}']": a for k, a in _disc_to_jax(disc, tensors, keys).items()})
+    return out
+
+
+def train_state_from_arrays(arrays: Mapping, cfg: config_lib.PipelineConfig,
+                            device="cuda") -> trainer.TrainState:
+    """jrr_tpu's TrainState arrays, keyed as `train_state_arrays` writes them
+    (e.g. np.load of a jrr_tpu `state_<step>.npz`) → the port's, with the
+    learning rates of `cfg`."""
+
+    def tree(prefix, keys):
+        return {key: arrays[f"{prefix}['{key}']"] for key, _ in keys.values()}
+
+    def adam(prefix, keys=None):
+        get = (lambda m: arrays[f"{prefix}[0].{m}"]) if keys is None else (  # noqa: E731
+            lambda m: tree(f"{prefix}[0].{m}", keys))
+        return (types.SimpleNamespace(count=arrays[f"{prefix}[0].count"], mu=get("mu"),
+                                      nu=get("nu")),)
+
+    src = types.SimpleNamespace(
+        j_reg_raw=arrays[".j_reg_raw"], jreg_opt=adam(".jreg_opt"), step=arrays[".step"],
+        **{f: tree(f".{f}", keys) for f, keys in _DISCS},
+        **{f"{f}_opt": adam(f".{f}_opt", keys) for f, keys in _DISCS},
+    )
+    return train_state(src, cfg, device=device)
 
 
 # --- Flax variables of the SPIN and consumer models (the inverse of

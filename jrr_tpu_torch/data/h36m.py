@@ -12,8 +12,12 @@ read from the mask's top-left marker pixel (the marker then zeroed).
 
 Host side only: everything returns numpy, crops run on the CPU. Frames and
 masks are PNG (`data/png.py`) or baseline JPEG (`runtime.decode_jpeg`, the
-real dataset's format), read without an image library; the single-file
-HDF5 mode raises.
+real dataset's format), read without an image library. When the root holds
+a `data.h5` beside a split that lists images.json, frames and masks come
+from that one file instead (the reference's --compute_canada layout,
+scripts/data.py:92-107), read by `data/hdf5.py`: the image at the key of
+the image path's last five parts, stored (C, H, W) and used as stored, the
+mask at the same key with maskSequence in its third part, divided by 255.
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ import torch
 
 from jrr_tpu_torch import constants, runtime
 from jrr_tpu_torch.data import crop as crop_lib
-from jrr_tpu_torch.data import png
+from jrr_tpu_torch.data import hdf5, png
 
 TENSOR_KEYS = (
     "bboxes", "betas", "estimated_translation", "gt_j2d", "gt_j3d",
@@ -96,11 +100,9 @@ class H36MDataset:
             with open(img_json) as f:
                 self.images = json.load(f)
         self.h5_path = os.path.join(root, "data.h5")
-        if os.path.exists(self.h5_path) and self.images is not None:
-            raise NotImplementedError(
-                f"{self.h5_path} is present: the single-file HDF5 mode (h5py) is not "
-                "ported (ROADMAP Queue 1); remove or move data.h5 to read the PNG files"
-            )
+        self.use_h5 = os.path.exists(self.h5_path) and self.images is not None
+        # Indexed once here; group tables and dataset headers fill in as read.
+        self.h5 = hdf5.File(self.h5_path) if self.use_h5 else None
 
     def __len__(self) -> int:
         return self.tensors["gt_j3d"].shape[0]
@@ -131,18 +133,36 @@ class H36MDataset:
 
     def read_frame_u8(self, index: int):
         """(image (H, W, C) uint8 cut to the first 1000² pixels, mask (Hm, Wm)
-        uint8 as stored); zeros when the split lists no image files."""
+        uint8 as stored); zeros when the split lists no image files. In the
+        h5 mode: jrr_tpu's pack conversion of the float frame,
+        (image · 255) and (mask · 255) truncated to uint8, the mask (1, Hm, Wm)."""
         if self.images is None:
             r = constants.IMG_RES
             return (np.zeros((r, r, 3), np.uint8),
                     np.zeros((constants.CROP_RES, constants.CROP_RES), np.uint8))
+        if self.use_h5:
+            image, mask = self._read_h5(index)
+            return ((np.transpose(image, (1, 2, 0)) * 255).astype(np.uint8),
+                    (mask * 255).astype(np.uint8))
         path = self.images[index]
         image = read_image(path)[: constants.IMG_RES, : constants.IMG_RES]
         head, tail = path.split("imageSequence")
         return image, read_image(f"{head}maskSequence{tail}")
 
+    def _read_h5(self, index: int):
+        """(image as stored, float32; mask / 255, float32, (1, Hm, Wm))
+        from data.h5 (jrr_tpu/data/h36m.py:152-161)."""
+        parts = self.images[index].split("/")[-5:]
+        image = self.h5.read("/".join(parts)).astype(np.float32)
+        mask = self.h5.read("/".join(parts[:2] + ["maskSequence"] + parts[3:])) / 255.0
+        if mask.ndim == 2:
+            mask = mask[None]
+        return image, mask.astype(np.float32)
+
     def _read_frame_images(self, index: int):
         """Returns (image (3, 1000, 1000) float [0,1], mask (1, Hm, Wm))."""
+        if self.use_h5:
+            return self._read_h5(index)
         image, mask = self.read_frame_u8(index)
         image = np.transpose(image, (2, 0, 1)).astype(np.float32) / 255.0
         mask = mask.astype(np.float32) / 255.0

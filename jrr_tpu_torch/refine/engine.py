@@ -8,7 +8,9 @@ five-term loss, with fresh Adam state per stage and per coarse-to-fine phase.
 
 Stage B rebins every `rebin_interval` steps (candidate lists with
 `bin_margin_px` of slack: fused bins, or round-1 `BinState`s under
-`silhouette.backend="pallas"`), marks α-saturated tiles kernel-empty
+`silhouette.backend="pallas"` or "xla", which then render alike through
+the round-1 tile path; "xla" with `rebin_interval=1` renders every step
+through the XLA tile loop, as jrr_tpu :238-300 does), marks α-saturated tiles kernel-empty
 (interior skip, fused path only) and, with `lane_pack`, packs the bins
 (fused path only), strides the silhouette term (a Python `if` replaces `lax.cond`) and,
 with `coarse_frac > 0`, runs its first steps at image_size/coarse_factor.

@@ -97,28 +97,30 @@ def rasterizer_spec(cfg: RefinerConfig) -> sil_lib.RasterizerSpec:
 
 def resolve_silhouette_backend(spec: sil_lib.RasterizerSpec) -> str:
     """"auto"/"fused" → the fused page-gather path; "pallas" → the round-1
-    tile path (jrr_tpu :114-117). "xla" is not ported."""
+    tile path; "xla" → the XLA tile loop, or the round-1 route where the
+    engine passes bins (jrr_tpu :114-117)."""
     if spec.backend in ("auto", "fused"):
         return "fused"
-    if spec.backend == "pallas":
-        return "pallas"
-    raise NotImplementedError(
-        f"silhouette backend {spec.backend!r} is not ported (auto/fused, pallas)"
-    )
+    if spec.backend in ("pallas", "xla"):
+        return spec.backend
+    raise ValueError(f"silhouette backend {spec.backend!r}: one of 'auto', 'fused', "
+                     "'pallas', 'xla'")
 
 
 def silhouette_loss(model, vertices, cam_t, mask, cfg: RefinerConfig, bins=None) -> torch.Tensor:
     """Per-frame MSE between the soft silhouette and the GT mask
     (reference: scripts/optimize.py:234-247): in tile space on the fused
-    path, in image space on the round-1 path (`bins` is then a
-    `silhouette.BinState`). The mask is supervision: its gradient is
-    stopped."""
+    path, in image space through `render_mesh_silhouette` on the others
+    (`bins` is then a `silhouette.BinState`). The mask is supervision: its
+    gradient is stopped."""
     mask = mask.detach()
     spec = rasterizer_spec(cfg)
-    if resolve_silhouette_backend(spec) == "fused":
+    backend = resolve_silhouette_backend(spec)
+    if backend == "fused":
         mask_tiles = sf.image_to_tiles(mask, spec.tile_size)
         return sf.silhouette_sq_err_fused(vertices, model, cam_t, mask_tiles, spec, bins=bins)
-    render = sil_lib.render_mesh_silhouette(vertices, model.faces, cam_t, spec, bins=bins)
+    render = sil_lib.render_mesh_silhouette(vertices, model.faces, cam_t,
+                                            spec._replace(backend=backend), bins=bins)
     return torch.mean((render - mask) ** 2, dim=(-1, -2))  # (B,)
 
 

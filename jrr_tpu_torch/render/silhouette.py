@@ -6,18 +6,23 @@ SoftSilhouetteShader (scripts/mesh_renderer.py:23-79): per pixel and face
 p = sigmoid(−d²_ndc/σ) inside the blur band, α = 1 − Π(1 − p) — a union, so
 no depth order is needed.
 
-Two rasterizers share this math:
+Three rasterizers share this math:
 - the fused page-gather path (render/silhouette_fused.py), which the
   refinement loss uses by default (`backend="auto"`/"fused");
 - the round-1 tile path here: sort-based binning of each face's ≤ cap² tiles
   (`compute_bins`, `BinState`), a gather of each tile's candidate triangles
   with a scatter-free backward (`_slot_gather`), and the tile kernel
   (render/silhouette_pallas.py). `render_mesh_silhouette` runs it for
-  `backend="auto"`/"pallas", and so does the loss for `backend="pallas"`.
+  `backend="auto"`/"pallas" and whenever it is given bins, and so does the
+  loss for `backend="pallas"`;
+- the XLA tile loop (`backend="xla"` without bins): top-K binning from the
+  (G², F) hit matrix (`_bin_faces`) and plain PyTorch coverage over chunks
+  of tiles (`render_silhouette`), each chunk recomputed in the backward
+  pass. jrr_tpu runs it off the TPU, also for "auto"; here "auto" takes the
+  round-1 route, the card's counterpart of JAX on the TPU.
 
 `render_silhouette_dense` (every pixel against every face) is the oracle of
-the tests. Not ported: `backend="xla"` (the top-k binning `_bin_faces` and
-the lax.map tile loop `render_silhouette`).
+the tests.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+from torch.utils import checkpoint as checkpoint_lib
 
 from jrr_tpu_torch import constants
 from jrr_tpu_torch.render import camera as camera_lib
@@ -32,6 +38,9 @@ from jrr_tpu_torch.render import coverage
 
 # Frames binned at once: bounds the (frames, F·cap²) sort intermediates.
 _BIN_FRAMES = 32
+# Frames binned at once by the top-K binning: bounds its (frames, G², F)
+# hit matrix and the sort's int64 indices (~100 MB a frame at full width).
+_TOPK_FRAMES = 8
 
 
 class RasterizerSpec(NamedTuple):
@@ -42,8 +51,9 @@ class RasterizerSpec(NamedTuple):
     faces_per_tile: int = 96
     focal_length: float = constants.FOCAL_LENGTH
     # The loss: "auto"/"fused" = fused page-gather path, "pallas" = round-1
-    # tile path. `render_mesh_silhouette`: "auto"/"pallas" = round-1 tile
-    # path. Kernels for CUDA tensors, plain versions for CPU tensors.
+    # tile path, "xla" = the XLA tile loop (round-1 route when given bins).
+    # `render_mesh_silhouette`: "auto"/"pallas" = round-1 tile path, "xla" =
+    # the tile loop. Kernels for CUDA tensors, plain versions for CPU tensors.
     backend: str = "auto"
     max_tiles_per_face: int = 4  # max tiles per axis a face's padded bbox spans
     bin_margin_px: float = 0.0  # bbox slack for rebin amortization
@@ -304,6 +314,81 @@ def render_silhouette_batch_pallas(verts_screen: torch.Tensor, faces: torch.Tens
     return _tiles_to_image(alphas.reshape(b, g * g, t * t), g, t)
 
 
+# ---------------------------------------------------------------------------
+# The XLA tile loop
+# ---------------------------------------------------------------------------
+
+
+def _bin_faces(verts_screen: torch.Tensor, faces: torch.Tensor, spec: RasterizerSpec):
+    """Top-K candidate lists per tile (jrr_tpu `_bin_faces`, :145-181) for
+    frames (b, V, 3): the faces whose padded bbox touches the tile, in face
+    order, the first K kept; a tile with fewer is filled with the
+    lowest-index faces that miss it, marked invalid. jax.lax.top_k breaks
+    the ties of the 0/1 hit scores to the lowest face index, as a stable
+    descending sort does; torch.topk promises no order among ties.
+
+    Returns (origin (G², 2), sel_xy (b, G², K, 3, 2), differentiable in the
+    vertices, and sel_valid (b, G², K))."""
+    s, t = spec.image_size, spec.tile_size
+    if s % t:
+        raise ValueError(f"image_size {s} must be divisible by tile_size {t}")
+    dev = verts_screen.device
+    g = s // t
+    k = min(spec.faces_per_tile, faces.shape[0])
+    xy, valid = _face_screen_verts(verts_screen, faces)  # (b, F, 3, 2), (b, F)
+    box = xy.detach()
+    pad = 0.5 + s / 2.0 * max(spec.blur_radius, 0.0) ** 0.5
+    tmin = torch.floor((box.amin(dim=2) - pad) / t).to(torch.int32)[:, None]  # (b, 1, F, 2)
+    tmax = torch.floor((box.amax(dim=2) + pad) / t).to(torch.int32)[:, None]
+    ar = torch.arange(g, dtype=torch.int32, device=dev)
+    tile_x = ar.repeat(g)[:, None]  # (G², 1)
+    tile_y = ar.repeat_interleave(g)[:, None]
+    hit = (
+        valid[:, None, :]
+        & (tile_x >= tmin[..., 0]) & (tile_x <= tmax[..., 0])
+        & (tile_y >= tmin[..., 1]) & (tile_y <= tmax[..., 1])
+    )  # (b, G², F)
+    order = torch.sort(hit.to(torch.uint8), dim=-1, descending=True, stable=True).indices
+    face_idx = order[..., :k]
+    sel_valid = torch.gather(hit, -1, face_idx)
+    batch = torch.arange(xy.shape[0], device=dev)[:, None, None]
+    origin = torch.stack([tile_x[:, 0], tile_y[:, 0]], dim=-1).to(xy.dtype) * t
+    return origin, xy[batch, face_idx], sel_valid
+
+
+def render_silhouette(verts_screen: torch.Tensor, faces: torch.Tensor,
+                      spec: RasterizerSpec) -> torch.Tensor:
+    """The XLA tile loop (jrr_tpu `render_silhouette`, :353-389) over a
+    batch: screen vertices (B, V, 3) → α (B, S, S). Binning by `_bin_faces`
+    (`_TOPK_FRAMES` frames at a time), then the plain tile α
+    (`_tiles_alpha_xla`: the coverage helpers and the lane product) over
+    chunks of G tiles of every frame, as jrr_tpu maps over tiles in chunks
+    of G. Under autograd each chunk runs in `torch.utils.checkpoint`, so the
+    backward pass keeps the (B, G², T²) α and recomputes a chunk's
+    (tiles, T², K) intermediates instead of storing them."""
+    b = verts_screen.shape[0]
+    t = spec.tile_size
+    g = spec.image_size // t
+    parts = [_bin_faces(verts_screen[lo : lo + _TOPK_FRAMES], faces, spec)
+             for lo in range(0, b, _TOPK_FRAMES)]
+    origin = parts[0][0]
+    sel_xy = torch.cat([p[1] for p in parts])  # (B, G², K, 3, 2)
+    k = sel_xy.shape[2]
+    tri = sel_xy.reshape(b, g * g, k, 6).transpose(-1, -2)  # (B, G², 6, K)
+    valid = torch.cat([p[2] for p in parts])[:, :, None, :].to(sel_xy.dtype)  # (B, G², 1, K)
+    consts = tile_constants(spec)
+    remat = torch.is_grad_enabled() and tri.requires_grad
+    alphas = []
+    for lo in range(0, g * g, g):
+        args = (origin[lo : lo + g].expand(b, -1, -1).reshape(-1, 2),
+                tri[:, lo : lo + g].reshape(-1, 6, k), valid[:, lo : lo + g].reshape(-1, 1, k),
+                t, *consts)
+        alpha = (checkpoint_lib.checkpoint(_tiles_alpha_xla, *args, use_reentrant=False)
+                 if remat else _tiles_alpha_xla(*args))
+        alphas.append(alpha.reshape(b, -1, t * t))
+    return _tiles_to_image(torch.cat(alphas, dim=1), g, t)
+
+
 def render_mesh_silhouette(
     vertices_smpl: torch.Tensor,
     faces: torch.Tensor,
@@ -313,16 +398,18 @@ def render_mesh_silhouette(
     bins: Optional[BinState] = None,
 ) -> torch.Tensor:
     """SMPL-frame vertices (B, V, 3) + camera (B, 3) → α image (B, S, S),
-    the reference's render_mesh chain (scripts/optimize.py:77-85). `bins`
-    (from `compute_bins`) reuses candidate lists across steps."""
+    the reference's render_mesh chain (scripts/optimize.py:77-85), routed as
+    jrr_tpu routes it (:476-504): `dense` → the oracle; `bins` (from
+    `compute_bins`, reused across steps) or backend "auto"/"pallas" → the
+    round-1 tile path; backend "xla" without bins → the XLA tile loop."""
+    if spec.backend not in ("auto", "pallas", "xla"):
+        raise ValueError(f"render_mesh_silhouette backend {spec.backend!r}: "
+                         "one of 'auto', 'pallas', 'xla'")
     verts_screen = camera_lib.project_points_screen(
         vertices_smpl, cam_t, spec.image_size, spec.focal_length
     )
     if dense:
         return torch.stack([render_silhouette_dense(v, faces, spec) for v in verts_screen])
-    if spec.backend not in ("auto", "pallas"):
-        raise NotImplementedError(
-            f"render_mesh_silhouette backend {spec.backend!r} is not ported (auto/pallas: "
-            "the round-1 tile path); backend='xla' (top-k binning + tile loop) waits"
-        )
+    if spec.backend == "xla" and bins is None:
+        return render_silhouette(verts_screen, faces, spec)
     return render_silhouette_batch_pallas(verts_screen, faces, spec, bins=bins)

@@ -1,14 +1,18 @@
 """Checkpoint / resume (counterpart of jrr_tpu/utils/checkpoint.py).
 
-- `save_pytree_npz`/`restore_pytree_npz` write and read a tree of tensors
-  (NamedTuples, tuples, lists, dicts, `nn.Module`s by state_dict, the
-  engine's `_Adam` by count and moments, ints and floats) as one .npz, keyed
-  by the path of each leaf ("jreg_opt/m/0", "pose_disc/fc1.weight"). The
-  key layout is the port's own: the JAX package's checkpoints (orbax
-  directories, or npz keyed by jax keystr) are not read, and a file
-  without the port's keys raises.
 - `save_train_state`/`restore_train_state`: the `TrainState` as
-  <dir>/state_<step:08d>.npz.
+  <dir>/state_<step:08d>.npz in jrr_tpu's layout — the arrays of jrr_tpu's
+  TrainState keyed by `jax.tree_util.keystr` (`convert.train_state_arrays`),
+  so jrr_tpu's `restore_train_state(path, template)` reads a file the port
+  wrote and the port reads jrr_tpu's npz. The port's own earlier layout
+  (keys such as "jreg_opt/m/0", "pose_disc/fc1.weight") still restores,
+  so older port runs resume. jrr_tpu writes an orbax directory when orbax
+  imports; that raises here: jrr_tpu's `restore_train_state` and then
+  `save_pytree_npz` turn one into an npz.
+- `save_pytree_npz`/`restore_pytree_npz` write and read any other tree of
+  tensors (NamedTuples, tuples, lists, dicts, `nn.Module`s by state_dict,
+  the engine's `_Adam` by count and moments, ints and floats) as one .npz,
+  keyed by the path of each leaf.
 - `ShardManifest`: per-shard refined outputs, one shard_<id:06d>.npz each,
   and manifest.json listing the completed shards — the same files and keys
   as jrr_tpu's, so a refined-shard directory written by either package
@@ -18,6 +22,7 @@
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import os
 from typing import Any, Dict, List
@@ -26,6 +31,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from jrr_tpu_torch import config as config_lib
+from jrr_tpu_torch import convert
 from jrr_tpu_torch.refine import engine
 
 
@@ -94,28 +101,43 @@ def restore_pytree_npz(path: str, template: Any) -> Any:
         data = dict(f)
     missing = sorted(set(_flatten(template)) - set(data))
     if missing:
-        raise ValueError(
-            f"{path} lacks {len(missing)} of the port's checkpoint keys (first: "
-            f"{missing[0]!r}); it was written by another program or another layout — "
-            "train-state checkpoints do not move between jrr_tpu and jrr_tpu_torch"
-        )
+        raise ValueError(f"{path} lacks {len(missing)} of the tree's keys (first: {missing[0]!r})")
     return _restore(template, data)
 
 
 def save_train_state(ckpt_dir: str, state, step: int) -> str:
-    """Write `state` to <ckpt_dir>/state_<step:08d>.npz; returns the path."""
+    """Write `state` in jrr_tpu's layout to <ckpt_dir>/state_<step:08d>.npz;
+    returns the path."""
     path = os.path.join(ckpt_dir, f"state_{step:08d}.npz")
-    save_pytree_npz(path, state)
+    os.makedirs(ckpt_dir, exist_ok=True)
+    np.savez(path, **convert.train_state_arrays(state))
     return path
 
 
 def restore_train_state(path: str, template):
+    """The `TrainState` in `path`, jrr_tpu's layout or the port's earlier
+    one, with the learning rates and device of `template`."""
     if not path.endswith(".npz"):
         raise ValueError(
-            f"{path} is not an npz train state (an orbax directory of jrr_tpu?); "
-            "train-state checkpoints do not move between jrr_tpu and jrr_tpu_torch"
+            f"{path} is not an npz train state: an orbax directory of jrr_tpu? Turn it "
+            "into an npz with jrr_tpu.utils.checkpoint.restore_train_state(path, template) "
+            "and then jrr_tpu.utils.checkpoint.save_pytree_npz(path + '.npz', state)"
         )
-    return restore_pytree_npz(path, template)
+    with np.load(path) as f:
+        data = dict(f)
+    if not any(k.startswith(".") for k in data):  # the port's earlier layout
+        return restore_pytree_npz(path, template)
+    want = convert.train_state_arrays(template)
+    for key, value in want.items():
+        if key not in data or data[key].shape != value.shape:
+            got = data[key].shape if key in data else "missing"
+            raise ValueError(f"{path}: {key} is {got}, the template's is {value.shape}")
+    cfg = config_lib.PipelineConfig()
+    cfg = dataclasses.replace(
+        cfg, jreg=dataclasses.replace(cfg.jreg, lr=template.jreg_opt.lr),
+        discriminator=dataclasses.replace(cfg.discriminator, lr=template.pose_disc_opt.lr),
+    )
+    return convert.train_state_from_arrays(data, cfg, device=template.j_reg_raw.device)
 
 
 class ShardManifest:

@@ -297,10 +297,23 @@ def test_background_iter_stops_its_thread_when_closed():
 
 
 def test_unported_frame_sources_raise(tmp_path, port_fixture_root):
+    """A data.h5 is read as HDF5 now (tests/test_torch_hdf5.py holds that
+    mode against jrr_tpu's): one that is not HDF5 raises naming the file.
+    Frame files other than PNG or JPEG raise."""
     import shutil
 
     root = str(tmp_path / "r")
     shutil.copytree(port_fixture_root, root)
-    open(os.path.join(root, "data.h5"), "w").close()
-    with pytest.raises(NotImplementedError, match="h5py"):
+    h5_path = os.path.join(root, "data.h5")
+    open(h5_path, "w").close()
+    with pytest.raises(OSError, match="no HDF5 signature") as err:
         h36m.H36MDataset(root)
+    assert h5_path in str(err.value)
+    os.remove(h5_path)
+    images = os.path.join(root, "precomputed_val", "images.json")
+    with open(images) as f:
+        paths = json.load(f)
+    with open(images, "w") as f:
+        json.dump([p.replace(".png", ".bmp") for p in paths], f)
+    with pytest.raises(NotImplementedError, match=".png, .jpg or .jpeg"):
+        h36m.H36MDataset(root)[0]

@@ -4,8 +4,8 @@ configuration against jrr_tpu on the CPU.
 Tolerances: every EvalResult within 1e-4 mm of JAX's (the same seeded
 predictions and regressors; ragged batches too), and the summary text
 equal on equal numbers; joints of `smpl_joint_fn` 1e-6 m;
-`spin_prediction_to_params` 1e-6; shard manifests, train states and
-metric records exact.
+`spin_prediction_to_params` 1e-6; shard manifests, train states (in
+jrr_tpu's layout, and the port's earlier one) and metric records exact.
 """
 
 import dataclasses
@@ -178,6 +178,8 @@ def test_train_state_round_trips_exactly(tmp_path):
     state, cfg = _stepped_state()
     path = ckpt.save_train_state(str(tmp_path / "ck"), state, state.step)
     assert os.path.basename(path) == "state_00000001.npz"
+    with np.load(path) as f:  # jrr_tpu's layout
+        assert ".pose_disc_opt[0].mu['wg1']" in f.files and f[".step"].dtype == np.int32
     template = trainer.init_train_state(torch.zeros(17, 32), cfg, seed=9)
     back = ckpt.restore_train_state(path, template)
     assert back.step == 1 and back.jreg_opt.count == 1 and back.pose_disc_opt.count == 1
@@ -191,16 +193,71 @@ def test_train_state_round_trips_exactly(tmp_path):
     assert back.shape_disc_opt.count == 2
 
 
-def test_train_state_from_another_layout_raises(tmp_path):
+def test_train_state_from_jax_restores(tmp_path):
+    """jrr_tpu's npz of its initial state restores in the port, every array
+    equal (tests/test_torch_trainer.py steps on from one a step in)."""
     jstate = jtrainer.init_train_state(jax.random.PRNGKey(0), jnp.ones((17, 32)),
                                        jcfg_lib.PipelineConfig())
     path = str(tmp_path / "state_00000000.npz")
     jckpt.save_pytree_npz(path, jstate)
     template = trainer.init_train_state(torch.zeros(17, 32), cfg_lib.PipelineConfig())
-    with pytest.raises(ValueError, match="do not move between"):
-        ckpt.restore_train_state(path, template)
-    with pytest.raises(ValueError, match="orbax"):
+    back = ckpt.restore_train_state(path, template)
+    assert back.step == 0 and back.jreg_opt.count == 0 and back.jreg_opt.lr == template.jreg_opt.lr
+    want = jckpt._flatten(jstate)
+    got = convert.train_state_arrays(back)
+    assert set(got) == set(want)
+    for key in want:
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    np.testing.assert_array_equal(back.pose_disc.fc1.weight.detach().numpy(),
+                                  np.asarray(jstate.pose_disc["wg1"]).T)
+
+
+def test_committed_jax_train_state_restores_in_both():
+    """tests/data/train_state (tests/make_state_fixture.py, V = 96), which
+    chip_smoke.py restores on the card: jrr_tpu and the port read it alike,
+    every array equal to the file's."""
+    path = os.path.join(os.path.dirname(__file__), "data", "train_state", "state_00000001.npz")
+    jtemplate = jtrainer.init_train_state(jax.random.PRNGKey(1), jnp.zeros((17, 96)),
+                                          jcfg_lib.PipelineConfig())
+    jback = jckpt._flatten(jckpt.restore_train_state(path, jtemplate))
+    back = ckpt.restore_train_state(
+        path, trainer.init_train_state(torch.zeros(17, 96), cfg_lib.PipelineConfig()))
+    got = convert.train_state_arrays(back)
+    with np.load(path) as f:
+        assert set(f.files) == set(got) == set(jback)
+        for key in f.files:
+            np.testing.assert_array_equal(got[key], f[key], err_msg=key)
+            np.testing.assert_array_equal(jback[key], f[key], err_msg=key)
+    assert back.step == 1 and back.pose_disc_opt.count == 1
+    assert 0 < int((back.pose_disc_opt.m[2] != 0).sum()) < back.pose_disc_opt.m[2].numel()
+
+
+def test_train_state_from_another_layout_raises(tmp_path):
+    """An orbax directory (jrr_tpu's format when orbax imports) raises,
+    naming the jrr_tpu calls that turn it into an npz; so does an npz whose
+    arrays do not fit the template."""
+    template = trainer.init_train_state(torch.zeros(17, 32), cfg_lib.PipelineConfig())
+    with pytest.raises(ValueError, match="orbax.*restore_train_state.*save_pytree_npz"):
         ckpt.restore_train_state(str(tmp_path / "state_00000000"), template)
+    jstate = jtrainer.init_train_state(jax.random.PRNGKey(0), jnp.ones((17, 40)),
+                                       jcfg_lib.PipelineConfig())
+    path = str(tmp_path / "state_00000000.npz")
+    jckpt.save_pytree_npz(path, jstate)
+    with pytest.raises(ValueError, match=r"\.j_reg_raw is \(17, 40\)"):
+        ckpt.restore_train_state(path, template)
+
+
+def test_train_state_in_the_earlier_port_layout_restores(tmp_path):
+    """Files of the port's earlier key layout ("jreg_opt/m/0", ...) resume."""
+    state, cfg = _stepped_state()
+    path = str(tmp_path / "state_00000001.npz")
+    ckpt.save_pytree_npz(path, state)
+    with np.load(path) as f:
+        assert "jreg_opt/m/0" in f.files and "pose_disc/fc1.weight" in f.files
+    back = ckpt.restore_train_state(path, trainer.init_train_state(torch.zeros(17, 32), cfg))
+    want, got = _flat(state), _flat(back)
+    for key in want:
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
 
 
 def test_metrics_records_match_jax(tmp_path):

@@ -1,6 +1,6 @@
 """The port stands alone: no module of jrr_tpu_torch, no line of
-chip_smoke.py and no port tool (tools/torch_*.py) imports JAX or the JAX
-package, and entry points that create
+chip_smoke.py and no port tool (tools/torch_*.py) imports JAX, the JAX
+package or h5py, and entry points that create
 state refuse to fall back to the CPU when no card is present."""
 
 import ast
@@ -14,7 +14,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "jrr_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "optax", "flax", "jrr_tpu")
+# h5py too: the port reads HDF5 with its own reader (data/hdf5.py).
+FORBIDDEN = ("jax", "jaxlib", "optax", "flax", "jrr_tpu", "h5py")
 
 
 def _imported_roots(path: Path):

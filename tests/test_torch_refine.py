@@ -7,6 +7,9 @@ tolerances (atol 5e-4 on params and joints3d, 1e-4 on the stage-B curve):
   interior skip, live discriminators) follows JAX's own refine_batch;
 - in float64, a small scene (128 vertices, 4 frames at 64², rebin 5) follows
   JAX's float64 refinement to 1e-5 over 5 stage-B steps;
+- `silhouette.backend="xla"` follows JAX's at rebin_interval 1 (every
+  stage-B step through the XLA tile loop) and 2 (the round-1 route), and
+  at 2 equals the port's own "pallas" refinement bit for bit;
 - refine_batch turns TF32 off only while it runs.
 """
 
@@ -49,6 +52,32 @@ def _assert_golden_close(got, want):
         np.testing.assert_allclose(got[key], want[key], atol=5e-4, err_msg=key)
     np.testing.assert_allclose(got["stage_b_total"], want["stage_b_total"], atol=1e-4,
                                err_msg="loss curve")
+
+
+def _xla_problem(rebin: int):
+    """The round-1 parity problem of tests/test_torch_render.py (golden scene,
+    10 + 8 steps, no coarse phase) on the XLA backend."""
+    model, j_reg, cfg, init, data, _ = make_golden.build_problem()
+    sil = dataclasses.replace(cfg.silhouette, backend="xla", rebin_interval=rebin, coarse_frac=0.0)
+    return model, j_reg, dataclasses.replace(cfg, stage_a_steps=10, stage_b_steps=8,
+                                             silhouette=sil), init, data
+
+
+@pytest.mark.parametrize("rebin", [1, 2])
+def test_refine_batch_xla_matches_jax(rebin):
+    model, j_reg, cfg, init, data = _xla_problem(rebin)
+    want = engine.refine_batch(model, j_reg, init, data, cfg)
+    got, res = _port_run(model, j_reg, cfg, init, data)
+    _assert_golden_close(got, {**{k: np.asarray(getattr(want.params, k)) for k in PARAMS},
+                               "joints3d": np.asarray(want.joints3d),
+                               "stage_b_total": np.asarray(want.stage_b_terms.total)})
+    assert int((res.stage_b_terms.silhouette != 0).sum()) >= 3
+    if rebin > 1:  # the same computation as "pallas", bit for bit
+        pallas = dataclasses.replace(cfg, silhouette=dataclasses.replace(cfg.silhouette,
+                                                                         backend="pallas"))
+        other, _ = _port_run(model, j_reg, pallas, init, data)
+        for key in got:
+            np.testing.assert_array_equal(other[key], got[key], err_msg=key)
 
 
 def test_reproduces_golden_refinement():

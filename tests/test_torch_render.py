@@ -181,11 +181,49 @@ def test_render_mesh_silhouette_matches_jax_and_dense(with_bins):
     assert 0.0 < float(got[2].sum()) < float(got[0].sum())
 
 
-def test_render_backend_xla_is_not_ported():
-    model, verts, cam_t, spec = _problem(batch=1)
-    with pytest.raises(NotImplementedError, match="xla"):
-        tsil.render_mesh_silhouette(_t(verts), _t(model.faces).long(), _t(cam_t),
-                                    _tspec(spec)._replace(backend="xla"))
+@pytest.mark.parametrize("size", ["small", "full"])
+def test_render_backend_xla_matches_jax(size):
+    """The XLA tile loop (top-K bins, checkpointed chunks of tiles) against
+    jrr_tpu's: α within 1e-5; on the small problem also the vertex gradient
+    of Σ w·α within 3e-4·max + rtol 2e-4; at full width also the round-1
+    route's α (with no bin margin both binnings list the same faces)."""
+    model, verts, cam_t, spec = _problem(seed=5) if size == "small" else _full_problem()
+    spec = spec._replace(backend="xla")
+    faces = _t(model.faces).long()
+    tv = _t(verts).requires_grad_(size == "small")
+    got = tsil.render_mesh_silhouette(tv, faces, _t(cam_t), _tspec(spec))
+    render = lambda v: sil.render_mesh_silhouette(v, model.faces, cam_t, spec)  # noqa: E731
+    if size == "full":
+        np.testing.assert_allclose(got.numpy(), np.asarray(jax.jit(render)(verts)), atol=1e-5)
+        round1 = tsil.render_mesh_silhouette(
+            _t(verts), faces, _t(cam_t), _tspec(spec)._replace(backend="pallas", bin_margin_px=0.0))
+        np.testing.assert_allclose(got.numpy(), round1.numpy(), atol=1e-5)
+        assert float(got.sum()) > 100.0
+        return
+    w = np.random.default_rng(1).uniform(-1, 1, got.shape).astype(np.float32)
+    jg, alpha = jax.jit(jax.grad(lambda v: (jnp.sum(render(v) * w), render(v)), has_aux=True))(verts)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(alpha), atol=1e-5)
+    assert float(got.detach().sum()) > 100.0
+    (tg,) = torch.autograd.grad(torch.sum(got * _t(w)), [tv])
+    scale = np.abs(np.asarray(jg)).max()
+    assert scale > 0
+    np.testing.assert_allclose(tg.numpy(), np.asarray(jg), atol=3e-4 * scale, rtol=2e-4)
+
+
+def test_bin_faces_keeps_jax_top_k_order():
+    """Candidate lists equal jax.lax.top_k's: the hitting faces in index
+    order, then the lowest-index misses, marked invalid."""
+    model, verts, cam_t, spec = _problem(seed=3)
+    spec = spec._replace(faces_per_tile=24)
+    from jrr_tpu.render import camera as jcamera
+
+    screen = jcamera.project_points_screen(verts, cam_t, spec.image_size, spec.focal_length)
+    _, want_xy, want_valid = jax.vmap(lambda v: sil._bin_faces(v, model.faces, spec))(screen)
+    _, got_xy, got_valid = tsil._bin_faces(_t(screen), _t(model.faces).long(), _tspec(spec))
+    np.testing.assert_array_equal(got_valid.numpy(), np.asarray(want_valid))
+    np.testing.assert_array_equal(got_xy.numpy(), np.asarray(want_xy))
+    counts = got_valid.sum(-1)
+    assert int(counts.max()) == 24 and int(counts.min()) < 24  # full tiles and padded ones
 
 
 def test_fused_tiles_alpha_gradient_matches_jax():
@@ -243,8 +281,16 @@ def test_interior_skip_true_raises_on_round1_path():
             convert.frame_params(init, device="cpu"), convert.frame_batch(data, device="cpu"),
             convert.refiner_config(cfg),
         )
-    with pytest.raises(NotImplementedError, match="xla"):
-        tlosses.resolve_silhouette_backend(tsil.RasterizerSpec(backend="xla"))
+    cfg = dataclasses.replace(cfg, silhouette=dataclasses.replace(cfg.silhouette, backend="xla"))
+    with pytest.raises(ValueError, match="interior_skip=True"):
+        tengine.refine_batch(
+            convert.smpl_model(model, device="cpu"), _t(j_reg),
+            convert.frame_params(init, device="cpu"), convert.frame_batch(data, device="cpu"),
+            convert.refiner_config(cfg),
+        )
+    assert tlosses.resolve_silhouette_backend(tsil.RasterizerSpec(backend="xla")) == "xla"
+    with pytest.raises(ValueError, match="silhouette backend"):
+        tlosses.resolve_silhouette_backend(tsil.RasterizerSpec(backend="tpu"))
 
 
 def test_problem_mask_is_the_round1_render_of_jax():

@@ -4,7 +4,9 @@ moments live), carried across by `convert.train_state`: new regressor,
 discriminator params and Adam moments within 1e-5 relative (in norm, per
 tensor), every
 `OuterMetrics` field within 1e-3 (mm fields) or 1e-5 (losses), refined
-params within 5e-4."""
+params within 5e-4. Train-state files move both ways: a jrr_tpu npz
+restores in the port equal to its arrays and steps on as jrr_tpu's state
+does; a port-written file restores in jrr_tpu equal to the port's state."""
 
 import dataclasses
 
@@ -17,10 +19,12 @@ import torch
 from jrr_tpu.evals import metrics
 from jrr_tpu.ops import procrustes
 from jrr_tpu.refine import trainer
+from jrr_tpu.utils import checkpoint as jckpt
 from jrr_tpu_torch import convert
 from jrr_tpu_torch.evals import metrics as tmetrics
 from jrr_tpu_torch.ops import procrustes as tprocrustes
 from jrr_tpu_torch.refine import trainer as ttrainer
+from jrr_tpu_torch.utils import checkpoint as tckpt
 from test_trainer import _setup
 
 PARAMS = ("pose6d", "orient6d", "betas", "cam_t")
@@ -70,8 +74,13 @@ def _moments_tree(opt, disc, tree_of):
 
 
 @pytest.fixture(scope="module")
-def outer_pair():
-    model, j_reg, gt, init, data, cfg = _setup()
+def outer_inputs():
+    return _setup()
+
+
+@pytest.fixture(scope="module")
+def outer_pair(outer_inputs):
+    model, j_reg, gt, init, data, cfg = outer_inputs
     j_reg0 = j_reg + 0.05 * jnp.abs(jax.random.normal(jax.random.PRNGKey(9), j_reg.shape))
     state0 = trainer.init_train_state(jax.random.PRNGKey(0), j_reg0, cfg)
     # Jitted as jrr_tpu's run_optimize runs it: one compile for both steps.
@@ -119,6 +128,52 @@ def test_outer_step_state_matches_jax(outer_pair):
             _close_rel(mu[key], jopt[0].mu[key], err_msg=f"{name} mu {key}")
             _close_rel(nu[key], jopt[0].nu[key], err_msg=f"{name} nu {key}")
         assert opt.count == int(jopt[0].count) == 2
+
+
+def test_jax_train_state_file_restores_and_steps_on(outer_pair, outer_inputs, tmp_path):
+    """jrr_tpu's npz of its state one step in (save_pytree_npz, what its
+    save_train_state writes without orbax) restores in the port with every
+    array equal, and the port's next outer_step from it follows jrr_tpu's."""
+    (state1, tstate1), (want, want_m, _), _ = outer_pair
+    model, _, _, init, data, cfg = outer_inputs
+    path = str(tmp_path / "state_00000001.npz")
+    jckpt.save_pytree_npz(path, state1)
+    tcfg = convert.pipeline_config(cfg)
+    template = ttrainer.init_train_state(torch.zeros_like(tstate1.j_reg_raw), tcfg, seed=5)
+    back = tckpt.restore_train_state(path, template)
+    arrays = convert.train_state_arrays(back)
+    with np.load(path) as f:
+        assert set(f.files) == set(arrays)
+        for key in f.files:
+            assert arrays[key].dtype == f[key].dtype, key
+            np.testing.assert_array_equal(arrays[key], f[key], err_msg=key)
+    got, got_m, _ = ttrainer.outer_step(
+        back, convert.smpl_model(model, device="cpu"), convert.frame_params(init, device="cpu"),
+        convert.frame_batch(data, device="cpu"), tcfg,
+    )
+    assert got.step == 2 and got.pose_disc_opt.count == 2
+    _close_rel(got.j_reg_raw.numpy(), want.j_reg_raw, err_msg="j_reg_raw")
+    want_arrays = jckpt._flatten(want)
+    for key, value in convert.train_state_arrays(got).items():
+        _close_rel(value, want_arrays[key], err_msg=key)
+    for field in want_m._fields:
+        atol = 1e-3 if "mpjpe" in field else 1e-5
+        np.testing.assert_allclose(float(getattr(got_m, field)), float(getattr(want_m, field)),
+                                   atol=atol, rtol=1e-5, err_msg=field)
+
+
+def test_port_train_state_file_restores_in_jax(outer_pair, tmp_path):
+    _, (want, _, _), (got, _, _) = outer_pair
+    path = tckpt.save_train_state(str(tmp_path / "ck"), got, got.step)
+    assert path.endswith("state_00000002.npz")
+    back = jckpt.restore_train_state(path, jax.tree.map(jnp.zeros_like, want))
+    assert jax.tree.structure(back) == jax.tree.structure(want)
+    flat, arrays = jckpt._flatten(back), convert.train_state_arrays(got)
+    assert set(arrays) == set(flat)
+    for key, value in arrays.items():
+        assert value.dtype == flat[key].dtype, key
+        np.testing.assert_array_equal(flat[key], value, err_msg=key)
+    assert int(back.step) == 2 and int(back.pose_disc_opt[0].count) == 2
 
 
 def test_outer_step_metrics_and_refinement_match_jax(outer_pair):
