@@ -9,10 +9,16 @@
    and times both: the fused kernels on the fused bins, the round-1 tile
    kernels on the round-1 bins, and the lane-packed loss kernel on the
    fused bins after `pack_bins` (also against the unpacked kernel and
-   against its own repeat); the loss kernel against its own repeat too, and
-   its time over the α VJP kernel's on the same bins (`lossgrad_over_bwd`:
-   the near-pair design against the all-pairs one); both α kernels and the
-   round-1 backward against their own repeats; the interior skip's tile
+   against its own repeat); the loss kernel against its own repeat too; the
+   α VJP kernel against its own repeat and, at dL/dα = 2·(α − mask) with α
+   from the fused α kernel, against the loss kernel's gradients bit for bit
+   (`bwd_equals_lossgrad`), its time over the loss kernel's on the same
+   bins (`bwd_over_lossgrad`: the two run the same near-pair passes); both
+   α kernels and the round-1 backward against their own repeats; the
+   near-pair passes' balance across each warp's threads on the fused bins
+   (`pass2_warp_efficiency`, `pass1_item_efficiency`: counts, not times);
+   each kernel's registers, spills and shared memory from `ptxas -v`; the
+   interior skip's tile
    decisions from the fused α kernel against those from the plain α on the
    bins the skip sees (`skip_flips`); the packed kernel's NORMAL rows
    against the unpacked kernel's err bit for bit. Bounds count a coverage
@@ -297,23 +303,82 @@ def _empty_tiles(x):
     return x
 
 
+def _pixel_grid(tri, origin, tile):
+    """(px_x, px_y (N, T², 1), corner rows (N, 1, K) each) of tiles tri
+    (N, 6, K) at origin (N, 2), pixels placed as the kernels place them."""
+    import torch
+
+    i = torch.arange(tile * tile, device=tri.device)
+    px_x = origin[:, 0:1, None] + (i % tile).float()[None, :, None]
+    px_y = origin[:, 1:2, None] + (i // tile).float()[None, :, None]
+    return px_x, px_y, tuple(tri[:, j, None, :] for j in range(6))
+
+
 def _near_and_active_pairs(tri, origin, tile, inv_sigma, blur_px2, lane_ok):
     """(pixel, lane) pairs of tiles tri (N, 6, K), origin (N, 2): those in
     their triangle's pixel box (`coverage.near_box`, the loss kernel's own
     test) and those with 0 < p < 1, counting only lanes where `lane_ok`
     (N, K) is set."""
-    import torch
-
     from jrr_tpu_torch.render import coverage
 
-    i = torch.arange(tile * tile, device=tri.device)
-    px_x = origin[:, 0:1, None] + (i % tile).float()[None, :, None]
-    px_y = origin[:, 1:2, None] + (i // tile).float()[None, :, None]
-    rows = tuple(tri[:, j, None, :] for j in range(6))
+    px_x, px_y, rows = _pixel_grid(tri, origin, tile)
     p = coverage.coverage_rows(px_x, px_y, rows, inv_sigma=inv_sigma, blur_px2=blur_px2)[0]
     active = (p > 0) & (p < 1) & lane_ok[:, None, :]
     near = coverage.near_box(px_x, px_y, rows, blur_px2=blur_px2) & lane_ok[:, None, :]
     return int(near.sum()), int(active.sum())
+
+
+def _lane_groups(items, lanes):
+    """coverage.cuh's lane_groups: the threads that share one pass-1 item."""
+    g = 1
+    while 32 * g <= lanes and 2 * g * items <= 128:
+        g *= 2
+    return g
+
+
+def _pass_work(near):
+    """How evenly the near-pair passes load each warp's threads on tiles of
+    one 128-lane row each, near (N, T², 128) bool the kernels' pixel boxes:
+    (pass-2 work, pass-2 slots, pass-1 work, pass-1 slots). A warp takes
+    as long as its busiest thread, so its slots are 32 × that thread's
+    work. Pass 2 (box_corner_grads): thread k walks lane k's box. Pass 1
+    (box_log_sums): thread w walks share w % G of pixel w // G's set lanes,
+    G = lane_groups(T², 128), in rounds of 128 threads."""
+    import torch.nn.functional as F
+
+    n, t2, lanes = near.shape
+    groups = _lane_groups(t2, lanes)
+    box = near.sum(1)  # (N, 128): pixels in each lane's box
+    share = near.reshape(n, t2, groups, lanes // groups).sum(-1).reshape(n, -1)  # thread order
+    share = F.pad(share, (0, -share.shape[1] % 32))
+
+    def work_and_slots(per_thread):
+        warps = per_thread.reshape(n, -1, 32)
+        return int(warps.sum()), 32 * int(warps.amax(-1).sum())
+
+    return work_and_slots(box) + work_and_slots(share)
+
+
+def _pass_efficiencies(x):
+    """`_pass_work` over the occupied tiles of fused bins (all 128 lanes:
+    the pad lanes' dump triangle has an empty box, as in the kernels):
+    pass2_warp_efficiency = Σ box pixels / Σ over warps of 32 × the warp's
+    largest box; pass1_item_efficiency = Σ set lanes walked / Σ over warps
+    of 32 × the warp's largest share."""
+    from jrr_tpu_torch.render import coverage
+    from jrr_tpu_torch.render import silhouette_fused as sf
+
+    occupied = x["pages"][:, :, 0] != x["dump"]
+    totals = [0, 0, 0, 0]
+    for lo in range(0, x["tx"].shape[0], PLAIN_FRAMES):
+        sl = slice(lo, lo + PLAIN_FRAMES)
+        occ = occupied[sl]
+        tri = sf._gather_tri(x["tx"][sl], x["ty"][sl], x["pages"][sl], x["idx"][sl])[occ]
+        px_x, px_y, rows = _pixel_grid(tri, x["origin"][sl][occ], x["tile"])
+        near = coverage.near_box(px_x, px_y, rows, blur_px2=x["blur_px2"])
+        totals = [a + b for a, b in zip(totals, _pass_work(near))]
+    return dict(pass2_warp_efficiency=totals[0] / totals[1],
+                pass1_item_efficiency=totals[2] / totals[3])
 
 
 def _ops(pairs, near, active, gradient):
@@ -586,17 +651,30 @@ def check_kernels(problem):
 
         g = _seeded_uniform(tuple(x["mask"].shape), seed=3)
         bwd = kernels.fused_alpha_bwd(*bins, g, *consts, x["dump"])
+        bwd_again = kernels.fused_alpha_bwd(*bins, g, *consts, x["dump"])
         bwd_p = _chunked(_fused_alpha_vjp_plain, bins + (g,), consts)
         torch.cuda.synchronize()
+        _check(all(torch.equal(a, b) for a, b in zip(bwd, bwd_again)),
+               f"{geometry}: two fused_alpha_bwd launches differ")
         b_viol, b_err, b_scale = _grad_check(bwd, bwd_p)
         _check(b_viol <= 1.0, f"{geometry}: fused_alpha_bwd beyond tolerance ({b_viol})")
         row.update(bwd_max_abs_err=b_err, bwd_scale=b_scale, bwd_tolerance_use=b_viol)
+        # The loss kernel's dL/dα is 2·(α − mask), α = 1 − Π(1 − p) as the α
+        # kernel forms it, and the α VJP runs the loss kernel's passes: on
+        # the same bins the two give the same sums bit for bit.
+        g_loss = 2.0 * (kernels.fused_alpha_fwd(*bins, *consts, x["dump"]) - x["mask"])
+        via_bwd = kernels.fused_alpha_bwd(*bins, g_loss, *consts, x["dump"])
+        via_loss = kernels.fused_lossgrad(*bins, x["mask"], *consts, x["dump"])[1:]
+        torch.cuda.synchronize()
+        row["bwd_equals_lossgrad"] = all(torch.equal(a, b) for a, b in zip(via_bwd, via_loss))
+        _check(row["bwd_equals_lossgrad"],
+               f"{geometry}: fused_alpha_bwd at 2(α − mask) differs from fused_lossgrad's gradients")
         if geometry != "empty":
             pre = (x["tx"], x["ty"], *x["pre_skip"], x["origin"])
             row["fwd_rebin_ms"] = _time_ms(lambda: kernels.fused_alpha_fwd(*pre, *consts, x["dump"]), 20)
             pairs, near, active, occ = _pair_counts(x)
             row.update(occupied_tiles=occ, pairs=pairs, near_pairs=near, active_pairs=active,
-                       near_share=near / pairs)
+                       near_share=near / pairs, **_pass_efficiencies(x))
             row["fwd_ms"] = _time_ms(lambda: kernels.fused_alpha_fwd(*bins, *consts, x["dump"]), 20)
             row["lossgrad_ms"] = _time_ms(
                 lambda: kernels.fused_lossgrad(*bins, x["mask"], *consts, x["dump"]), 20
@@ -611,7 +689,7 @@ def check_kernels(problem):
             row["bwd_plain_ms"] = _time_ms(
                 lambda: _chunked(_fused_alpha_vjp_plain, bins + (g,), consts), 1
             )
-            row["lossgrad_over_bwd"] = row["lossgrad_ms"] / row["bwd_ms"]
+            row["bwd_over_lossgrad"] = row["bwd_ms"] / row["lossgrad_ms"]
             fwd_ops, grad_ops = _ops(pairs, near, active, False), _ops(pairs, near, active, True)
             row["fwd_bound_ms"], row["fwd_bound_by"] = _bound_ms(x, fwd_ops, False)
             row["lossgrad_bound_ms"], row["lossgrad_bound_by"] = _bound_ms(x, grad_ops, True)
@@ -871,6 +949,26 @@ def _launches(**counts):
     from jrr_tpu_torch import kernels
 
     return {w.__name__: counts.get(w.__name__, 0) for w in kernels.WRAPPERS}
+
+
+def _ptxas(kernel: str):
+    """Registers, spills and static shared memory that `ptxas -v` reported
+    for the entry function `kernel` in this process's build (None when the
+    library was built before, or for a name no entry has)."""
+    import re
+
+    from jrr_tpu_torch import kernels
+
+    tag = f"{len(kernel)}{kernel}"  # the name as the mangled symbol holds it
+    lines = kernels.build_info.get("ptxas", "").splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and tag in line:
+            block = " ".join(lines[i + 1:i + 4])
+            nums = {key: re.search(pattern, block) for key, pattern in (
+                ("registers", r"Used (\d+) registers"), ("spill_stores", r"(\d+) bytes spill stores"),
+                ("spill_loads", r"(\d+) bytes spill loads"), ("smem_bytes", r"(\d+) bytes smem"))}
+            return {key: int(m.group(1)) if m else 0 for key, m in nums.items()}
+    return None
 
 
 def _card() -> str:
@@ -1391,13 +1489,18 @@ def run_lane_pack_path(problem, pose_disc, shape_disc, packed_checks, fused_chec
 def run_probes():
     """Rows 7-10: each probe kernel against its plain version at the probe
     tools' shapes (jrr_tpu_torch/probes/), with its time, the plain
-    version's, the bound and one PyTorch call's for the same function."""
+    version's, the bound and one PyTorch call's for the same function. The
+    two read-modify-write probes (row 7's gather + RMW, 9E's RMW) sum int64
+    fixed point in resident per-CTA tables: their int64 tables must equal
+    their fixed-point plain versions' exactly."""
     from jrr_tpu_torch.probes import bf16_probe, kernel_probe, kernel_probe2
 
     records = kernel_probe.measure() + kernel_probe2.measure() + bf16_probe.measure()
-    rmw = [r for r in records if r.get("name") == "E_rmw_dynamic_rows"]
-    _check(len(rmw) == 1 and rmw[0]["exact_vs_fixed_plain"],
-           "E_rmw_dynamic_rows: int64 sums not held equal to rmw_rows_fixed_plain's")
+    for name, plain in (("paged_gather_rmw", "paged_gather_rmw_fixed_plain"),
+                        ("E_rmw_dynamic_rows", "rmw_rows_fixed_plain")):
+        rec = [r for r in records if r.get("name") == name]
+        _check(len(rec) == 1 and rec[0]["exact_vs_fixed_plain"],
+               f"{name}: int64 sums not held equal to {plain}'s")
     return [r for r in records if "name" in r], [r for r in records if "name" not in r]
 
 
@@ -2539,10 +2642,17 @@ def main() -> int:
     lossgrad = entry("fused_lossgrad", "silhouette_fused.cu", "jrr_tpu/render/silhouette_fused.py:994",
                      launches["fused_lossgrad"], checks, "lossgrad",
                      f"err rtol {ERR_RTOL}; grads {grad_tol}; two launches bit for bit")
-    lossgrad.update(lossgrad_over_bwd=checks["fine"]["lossgrad_over_bwd"],
-                    coarse_lossgrad_over_bwd=checks["coarse"]["lossgrad_over_bwd"],
-                    near_share=checks["fine"]["near_share"],
-                    coarse_near_share=checks["coarse"]["near_share"])
+    # Counts of the bins, shared by the near-pair gradient kernels.
+    passes = {f"{prefix}{key}": checks[g][key] for g, prefix in (("fine", ""), ("coarse", "coarse_"))
+              for key in ("near_share", "pass2_warp_efficiency", "pass1_item_efficiency")}
+    lossgrad.update(passes)
+    alpha_bwd = entry("fused_alpha_bwd", "silhouette_fused.cu",
+                      "jrr_tpu/render/silhouette_fused.py:814", vjp_launches["fused_alpha_bwd"],
+                      checks, "bwd", f"{grad_tol}; two launches bit for bit; at dL/dα = 2(α − mask) "
+                                     "equal to fused_lossgrad's gradients bit for bit")
+    alpha_bwd.update(passes, bwd_over_lossgrad=checks["fine"]["bwd_over_lossgrad"],
+                     coarse_bwd_over_lossgrad=checks["coarse"]["bwd_over_lossgrad"],
+                     bwd_equals_lossgrad={g: checks[g]["bwd_equals_lossgrad"] for g in checks})
     alpha_fwd = entry("fused_alpha_fwd", "silhouette_fused.cu",
                       "jrr_tpu/render/silhouette_fused.py:719", launches["fused_alpha_fwd"], checks,
                       "fwd", f"atol {ALPHA_ATOL}; two launches bit for bit; interior-skip "
@@ -2585,11 +2695,10 @@ def main() -> int:
                      coarse_rebin_ms=checks["coarse"]["fwd_rebin_ms"],
                      skip_flips=checks["fine"]["skip_flips"],
                      coarse_skip_flips=checks["coarse"]["skip_flips"])
-    _emit({"kernels": [
+    kernels_line = [
         lossgrad,
         alpha_fwd,
-        entry("fused_alpha_bwd", "silhouette_fused.cu", "jrr_tpu/render/silhouette_fused.py:814",
-              vjp_launches["fused_alpha_bwd"], checks, "bwd", grad_tol),
+        alpha_bwd,
         tiles_fwd,
         entry("tiles_alpha_bwd", "silhouette_tiles.cu", "jrr_tpu/render/silhouette_pallas.py:182",
               round1_launches["tiles_alpha_bwd"], tile_checks, "bwd",
@@ -2612,7 +2721,10 @@ def main() -> int:
             "coarse_packed_over_unpacked": packed_checks["coarse"]["packed_over_unpacked"],
             "coarse_bound_ms": packed_checks["coarse"]["bound_ms"],
         },
-    ] + [dict(r, launches=0, note="probe") for r in probe_records]})
+    ] + [dict(r, launches=0, note="probe") for r in probe_records]
+    for row in kernels_line:
+        row["ptxas"] = _ptxas(row["name"] + "_kernel")
+    _emit({"kernels": kernels_line})
     print(_card(), flush=True)
     _emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -8,29 +8,22 @@
 // coverage.corner_row_grads).
 //
 // Every kernel runs one CTA per tile (or lane-packed pair of tiles), 128
-// threads, thread k owning candidate lane k (one triangle). Two ways to
-// cover a tile:
-// - Every pixel for every lane (lane_log_sums, corner_grads): only the
-//   alpha VJP fused_alpha_bwd_kernel, kept as the yardstick of that
-//   design. Pass 1 computes, per pixel, log(1 - p) for the thread's
-//   triangle and block-reduces it over the 128 lanes (warp shuffles, then a
-//   4-warp shared-memory step); pass 2 (the gradients) recomputes the
-//   coverage per pixel and accumulates the thread's six corner gradients in
-//   registers.
-// - Only the pairs near a triangle (pixel_box, near_log_sums,
-//   box_corner_grads): the alpha kernels fused_alpha_fwd_kernel and
-//   tiles_alpha_fwd_kernel (pass 1 only), the loss kernels
-//   fused_lossgrad_kernel and fused_lossgrad_packed_kernel and the round-1
-//   backward tiles_alpha_bwd_kernel. p > 0 only within the blur radius of
-//   a triangle (~1.1 px at 224^2, 0.56 px at 112^2), so ~8% of the fused
-//   bins' (pixel, lane) pairs and ~2% of the round-1 tiles' can have p > 0.
-//   Each lane marks its pixels in a per-pixel 128-bit lane mask; pass 1
-//   walks each pixel's set lanes, pass 2 each lane's own pixels. Pairs
-//   outside the box have p == 0 exactly, so they add log(1) = 0 and no
-//   gradient. All five kernels run one pass 1 (near_log_sums), so on the
-//   same lanes they form the same Pi(1 - p) bit for bit. A lane-packed row
-//   splits its lanes into two halves, each a tile at its own origin: a
-//   half's lanes mark and sum only its own tile's pixels.
+// threads, thread k owning candidate lane k (one triangle), and covers the
+// tile on the pairs near a triangle only (pixel_box, near_log_sums,
+// box_corner_grads): the alpha kernels fused_alpha_fwd_kernel and
+// tiles_alpha_fwd_kernel (pass 1 only), the loss kernels
+// fused_lossgrad_kernel and fused_lossgrad_packed_kernel, the alpha VJP
+// fused_alpha_bwd_kernel and the round-1 backward tiles_alpha_bwd_kernel
+// (passes 1 and 2). p > 0 only within the blur radius of a triangle (~1.1
+// px at 224^2, 0.56 px at 112^2), so ~8% of the fused bins' (pixel, lane)
+// pairs and ~2% of the round-1 tiles' can have p > 0. Each lane marks its
+// pixels in a per-pixel 128-bit lane mask; pass 1 walks each pixel's set
+// lanes, pass 2 each lane's own pixels. Pairs outside the box have p == 0
+// exactly, so they add log(1) = 0 and no gradient. All six kernels run one
+// pass 1 (near_log_sums), so on the same lanes they form the same
+// Pi(1 - p) bit for bit. A lane-packed row splits its lanes into two
+// halves, each a tile at its own origin: a half's lanes mark and sum only
+// its own tile's pixels.
 
 #pragma once
 
@@ -71,10 +64,9 @@ __device__ __forceinline__ Edge edge_terms(float px, float py, float ax, float a
   return e;
 }
 
-// Coverage p of the thread's triangle at pixel (px, py), 0 for an invalid
-// lane; fills the edge terms, the minimum squared distance and the inside
-// flag for the backward.
-__device__ __forceinline__ float coverage(const Tri& f, bool valid, float px, float py,
+// Coverage p of the triangle at pixel (px, py); fills the edge terms, the
+// minimum squared distance and the inside flag for the backward.
+__device__ __forceinline__ float coverage(const Tri& f, float px, float py,
                                           float inv_sigma, float blur_px2,
                                           Edge e[3], float& dmin, bool& inside) {
   e[0] = edge_terms(px, py, f.x[0], f.y[0], f.x[1], f.y[1], f.inv_len2[0]);
@@ -85,36 +77,7 @@ __device__ __forceinline__ float coverage(const Tri& f, bool valid, float px, fl
            (e[0].cross <= 0.f && e[1].cross <= 0.f && e[2].cross <= 0.f);
   const float sd2 = inside ? -dmin : dmin;
   const float p = 1.f / (1.f + expf(sd2 * inv_sigma));  // sigmoid(-sd2 / sigma)
-  return (valid && sd2 <= blur_px2) ? p : 0.f;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Pass 1: per pixel, sum over the 128 lanes of log(max(1 - p, 1e-30)),
-// left per warp in s_part[warp][pixel]; the caller adds the four warps.
-__device__ __forceinline__ void lane_log_sums(const Tri& f, bool valid, float ox, float oy,
-                                              int tile, float inv_sigma, float blur_px2,
-                                              float (*s_part)[kMaxT2]) {
-  const int t2 = tile * tile;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int i = 0; i < t2; ++i) {
-    const int row = i / tile;
-    const float px = ox + (float)(i - row * tile), py = oy + (float)row;
-    Edge e[3];
-    float dmin;
-    bool inside;
-    const float p = coverage(f, valid, px, py, inv_sigma, blur_px2, e, dmin, inside);
-    const float s = warp_sum(logf(fmaxf(1.f - p, 1e-30f)));
-    if (lane == 0) s_part[warp][i] = s;
-  }
-}
-
-__device__ __forceinline__ float log_sum_total(float (*s_part)[kMaxT2], int i) {
-  return s_part[0][i] + s_part[1][i] + s_part[2][i] + s_part[3][i];
+  return sd2 <= blur_px2 ? p : 0.f;
 }
 
 // One (pixel, lane) pair of pass 2: adds dL/d(corner) of the triangle at
@@ -124,13 +87,13 @@ __device__ __forceinline__ float log_sum_total(float (*s_part)[kMaxT2], int i) {
 // so the comparison is exact), split evenly at a tie, not to every edge
 // within the Pallas kernels' 1e-4 (1 + dmin) band. Pairs with p in {0, 1}
 // have p (1 - p) == 0 and are skipped. gx/gy[c] receive dL/d(corner c).
-__device__ __forceinline__ void pixel_corner_grads(const Tri& f, bool valid, float px, float py,
+__device__ __forceinline__ void pixel_corner_grads(const Tri& f, float px, float py,
                                                    float inv_sigma, float blur_px2, float g,
                                                    float total, float gx[3], float gy[3]) {
   Edge e[3];
   float dmin;
   bool inside;
-  const float p = coverage(f, valid, px, py, inv_sigma, blur_px2, e, dmin, inside);
+  const float p = coverage(f, px, py, inv_sigma, blur_px2, e, dmin, inside);
   if (p == 0.f || p == 1.f) return;
   const float one_minus = fmaxf(1.f - p, 1e-30f);
   const float dl_dp = g * total / one_minus;
@@ -155,27 +118,6 @@ __device__ __forceinline__ void pixel_corner_grads(const Tri& f, bool valid, flo
     gy[n] += w * e[j].t * e[j].ry;
   }
 }
-
-// Pass 2: dL/d(corner) of the thread's triangle over every pixel of the
-// tile, given per pixel dL/dalpha (s_g) and Pi(1 - p) (s_total).
-__device__ __forceinline__ void corner_grads(const Tri& f, bool valid, float ox, float oy,
-                                             int tile, float inv_sigma, float blur_px2,
-                                             const float* s_g, const float* s_total,
-                                             float gx[3], float gy[3]) {
-  const int t2 = tile * tile;
-#pragma unroll
-  for (int c = 0; c < 3; ++c) gx[c] = gy[c] = 0.f;
-  for (int i = 0; i < t2; ++i) {
-    const int row = i / tile;
-    const float px = ox + (float)(i - row * tile), py = oy + (float)row;
-    pixel_corner_grads(f, valid, px, py, inv_sigma, blur_px2, s_g[i], s_total[i], gx, gy);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Work only where a triangle can cover a pixel (every kernel but the alpha
-// VJP).
-// ---------------------------------------------------------------------------
 
 // The blur radius grown by 2^-10: the edge distances round with an error
 // of a few ulp of the edge length, and a pair the box dropped would lose
@@ -295,8 +237,8 @@ __device__ __forceinline__ int lane_groups(int items, int lanes) {
 // item, each walking the set bits of its share of the half's lanes in
 // ascending lane order; their partial sums combine in a fixed butterfly
 // (commutative at each step, so every thread of the group holds the same
-// total). The sum is over the same terms as lane_log_sums', whose other
-// terms are log(1) = 0, in another order. Called by all 128 threads.
+// total). The lanes outside a pixel's mask would add log(1) = 0. Called
+// by all 128 threads.
 __device__ __forceinline__ void box_log_sums(const StagedTris& s_tri,
                                              unsigned (*s_lmask)[kWarps], int halves, float ox,
                                              float oy, float ox_b, float oy_b, int tile,
@@ -321,8 +263,8 @@ __device__ __forceinline__ void box_log_sums(const StagedTris& s_tri,
           Edge e[3];
           float dmin;
           bool inside;
-          const float p = coverage(staged_tri(s_tri, lane), true, px, py, inv_sigma, blur_px2,
-                                   e, dmin, inside);
+          const float p = coverage(staged_tri(s_tri, lane), px, py, inv_sigma, blur_px2, e, dmin,
+                                   inside);
           s += logf(fmaxf(1.f - p, 1e-30f));
         }
       }
@@ -348,8 +290,10 @@ __device__ __forceinline__ void near_log_sums(const Tri& f, PixelBox box, int ha
   __syncthreads();
 }
 
-// Pass 2 over the thread's own box: as corner_grads, on the pixels of `box`
-// only, in ascending pixel order (the order corner_grads adds them in).
+// Pass 2 over the thread's own box: dL/d(corner) of the thread's triangle
+// f, given per pixel dL/dalpha (s_g) and Pi(1 - p) (s_total), summed over
+// the pixels of `box` in ascending pixel order. The pixels outside the box
+// have p == 0 and would add nothing.
 __device__ __forceinline__ void box_corner_grads(const Tri& f, PixelBox box, float ox, float oy,
                                                  int tile, float inv_sigma, float blur_px2,
                                                  const float* s_g, const float* s_total,
@@ -360,7 +304,7 @@ __device__ __forceinline__ void box_corner_grads(const Tri& f, PixelBox box, flo
     const int row = __ffs(rs) - 1;
     for (unsigned cs = box.cols; cs; cs &= cs - 1u) {
       const int col = __ffs(cs) - 1, i = row * tile + col;
-      pixel_corner_grads(f, true, ox + (float)col, oy + (float)row, inv_sigma, blur_px2, s_g[i],
+      pixel_corner_grads(f, ox + (float)col, oy + (float)row, inv_sigma, blur_px2, s_g[i],
                          s_total[i], gx, gy);
     }
   }

@@ -8,12 +8,14 @@
 // Shapes: N tiles of an (8, 128) block each (the TPU's (sublane, lane)
 // tile; here 8 rows of 128 threads), P = 8 page ids per tile, a table of
 // at most 64 rows of 128 floats. Every kernel but the elementwise and FMA
-// chains and the RMW at dynamic rows is one CTA of 128 threads per tile,
-// thread k owning column k. Sums across CTAs (the read-modify-write
-// probes) add int64 fixed point (value * 2^32), the form the loss kernels'
-// gradient tables take: with global atomics in the gather + RMW probe,
-// through per-CTA resident tables in the RMW probe. Integer adds commute,
-// so the sums repeat bit for bit.
+// chains and the two read-modify-write probes is one CTA of 128 threads
+// per tile, thread k owning column k. The read-modify-write probes (the
+// gather + RMW and the RMW at dynamic rows) run one persistent CTA per SM
+// of three 128-thread lane groups, each group adding int64 fixed point
+// (value * 2^32, the form the loss kernels' gradient tables take) into its
+// own resident copy of the table in shared memory; a second kernel sums
+// the CTAs' partial tables. No atomics: integer adds commute, so the sums
+// repeat bit for bit.
 // Indices are taken modulo their axis length (row index & 7, lane & 127),
 // so no input reads outside a shared-memory block; page ids are checked by
 // the wrappers.
@@ -30,39 +32,117 @@ constexpr int kRows = 8;           // rows (TPU sublanes) per tile block, and pa
 constexpr int kMaxTableRows = 64;  // table rows a CTA can hold in shared memory (32 KB)
 constexpr float kFixedScale = 4294967296.0f;  // 2^32, as the loss kernels
 
-__device__ __forceinline__ void add_fixed(unsigned long long* dst, float v) {
-  const long long q = llrintf(v * kFixedScale);
-  if (q != 0) atomicAdd(dst, (unsigned long long)q);  // two's complement: negatives subtract
+// The read-modify-write probes' lane groups (private table copies) per CTA
+// and the tiles a group loads ahead: more groups keep more loads in
+// flight than a longer unroll or more CTAs of one group each did (E probe),
+// and four int64 copies do not fit at 64 rows.
+constexpr int kRmwGroups = 3;
+constexpr int kRmwUnroll = 4;
+constexpr float kHalf = 0.5f;  // the gather + RMW probe's backward scale
+
+// The 8 page ids of tile n (16-byte aligned, uniform across the group: one
+// broadcast load each half), zeros past the last tile.
+__device__ __forceinline__ void load_pages(const int* __restrict__ pages, long long n, bool live,
+                                           int pg[kRows]) {
+  const int4 p0 = live ? __ldg(reinterpret_cast<const int4*>(pages + n * kRows)) : int4{};
+  const int4 p1 = live ? __ldg(reinterpret_cast<const int4*>(pages + n * kRows) + 1) : int4{};
+  pg[0] = p0.x, pg[1] = p0.y, pg[2] = p0.z, pg[3] = p0.w;
+  pg[4] = p1.x, pg[5] = p1.y, pg[6] = p1.z, pg[7] = p1.w;
 }
 
-// Replaces tools/kernel_probe.py::gather_kernel (:43). Per tile n: stage
-// the 8 table rows pages[n, 0..7] in shared memory (the page workspace),
-// out[n, r, k] = ws[idx >> 7][idx & 127] for idx = idx[n, r, k], then the
-// backward's pattern dtab[pages[n, p]] += 0.5 * out[n, p]. Bound: bytes
-// (idx read, out written once; ~no arithmetic). The Pallas kernel's one-hot
-// MXU product and sublane select are a shared-memory read here.
-__global__ void __launch_bounds__(kLanes)
+// pg[s] for a slot s in [0, 8) that differs from thread to thread: a
+// select tree on its three bits, where pg[s] would put pg in local memory.
+__device__ __forceinline__ int page_of_slot(const int pg[kRows], int s) {
+  const int a0 = (s & 1) ? pg[1] : pg[0], a1 = (s & 1) ? pg[3] : pg[2];
+  const int a2 = (s & 1) ? pg[5] : pg[4], a3 = (s & 1) ? pg[7] : pg[6];
+  const int b0 = (s & 2) ? a1 : a0, b1 = (s & 2) ? a3 : a2;
+  return (s & 4) ? b1 : b0;
+}
+
+// The CTA's resident int64 copies, one per lane group (entries each), summed
+// into its partial table (after the caller's barrier).
+__device__ __forceinline__ void write_partial(const long long* s_acc, long long* partial,
+                                              int entries) {
+  long long* part = partial + (long long)blockIdx.x * entries;
+  for (int e = threadIdx.x; e < entries; e += blockDim.x) {
+    long long sum = 0;
+#pragma unroll
+    for (int gg = 0; gg < kRmwGroups; ++gg) sum += s_acc[gg * entries + e];
+    part[e] = sum;
+  }
+}
+
+// Replaces tools/kernel_probe.py::gather_kernel (:43). Per tile n:
+// out[n, r, k] = table[pages[n, (i >> 7) & 7]][i & 127] for
+// i = idx[n, r, k], then the backward's pattern dtab[pages[n, p]] +=
+// 0.5 * out[n, p], in int64 fixed point (each term llrintf(0.5 out 2^32)).
+// Bound: bytes (idx read, out written once; ~no arithmetic). The Pallas
+// kernel's one-hot MXU product and sublane select are a shared-memory read
+// here. The first design staged each tile's 8 rows in a workspace and added
+// every term with a global int64 atomic (768 per tile, 6.4 M onto 7168
+// addresses at the probe's shapes). Design: the E probe's (rmw_rows_kernel)
+// with the gather in front. A persistent grid of one CTA per SM holds the
+// whole f32 table in shared memory (28 KB at 56 rows, 32 KB at 64), so the
+// per-tile workspace goes, and beside it kRmwGroups private int64 copies of
+// dtab, one per lane group (172 KB at 56 rows; 192 KB + 32 KB = 229,376 B
+// at 64, under the 232,448 B a CTA can opt in to). Group g walks every
+// third tile of the CTA's share, kRmwUnroll tiles at a time with their page
+// ids and indices loaded first; each thread gathers its column's 8 values
+// from the resident table and adds the scaled rows into its own lane of its
+// group's copy (the row uniform across the group): a plain read-add-write,
+// no bank conflict, no atomic. The CTA adds its copies into one partial
+// table and rmw_rows_reduce_kernel sums the partials per entry. Integer
+// sums do not depend on their order, so dtab equals the atomic version's
+// bit for bit, and out is exact. The kernel checks its inputs itself
+// (device asserts: page ids in [0, rows), |table| < table_limit so no sum
+// overflows), as the E probe does.
+__global__ void __launch_bounds__(kLanes * kRmwGroups)
 paged_gather_rmw_kernel(const int* __restrict__ pages, const int* __restrict__ idx,
                         const float* __restrict__ table, float* __restrict__ out,
-                        unsigned long long* __restrict__ dtab) {
-  __shared__ float ws[kRows][kLanes];
-  __shared__ int s_pages[kRows];
-  const long long n = blockIdx.x;
-  const int k = threadIdx.x;
-  if (k < kRows) s_pages[k] = pages[n * kRows + k];
-  __syncthreads();
-#pragma unroll
-  for (int p = 0; p < kRows; ++p) ws[p][k] = table[s_pages[p] * kLanes + k];
-  __syncthreads();
-  float v[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int i = idx[(n * kRows + r) * kLanes + k];
-    v[r] = ws[(i >> 7) & (kRows - 1)][i & (kLanes - 1)];
-    out[(n * kRows + r) * kLanes + k] = v[r];
+                        long long* __restrict__ partial, int n_tiles, int table_rows,
+                        float table_limit) {
+  extern __shared__ long long s_acc[];  // [kRmwGroups][table_rows][kLanes], then the f32 table
+  const int k = threadIdx.x & (kLanes - 1), g = threadIdx.x / kLanes;
+  const int entries = table_rows * kLanes;
+  float* s_table = reinterpret_cast<float*>(s_acc + kRmwGroups * entries);
+  for (int e = threadIdx.x; e < kRmwGroups * entries; e += blockDim.x) s_acc[e] = 0;
+  for (int e = threadIdx.x; e < entries; e += blockDim.x) {
+    const float v = __ldg(table + e);
+    assert(fabsf(v) < table_limit);
+    s_table[e] = v;
   }
+  __syncthreads();
+  long long* acc = s_acc + g * entries + k;
+  // Group g takes tiles blockIdx.x + gridDim.x * (g + kRmwGroups * j), j = 0, 1, ...
+  const long long step = (long long)gridDim.x * kRmwGroups;
+  for (long long n0 = blockIdx.x + (long long)g * gridDim.x; n0 < n_tiles;
+       n0 += step * kRmwUnroll) {
+    int pg[kRmwUnroll][kRows], ix[kRmwUnroll][kRows];
 #pragma unroll
-  for (int p = 0; p < kRows; ++p) add_fixed(dtab + s_pages[p] * kLanes + k, 0.5f * v[p]);
+    for (int u = 0; u < kRmwUnroll; ++u) {
+      const long long n = n0 + u * step;
+      const bool live = n < n_tiles;
+      load_pages(pages, n, live, pg[u]);
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) ix[u][r] = live ? __ldg(idx + (n * kRows + r) * kLanes + k) : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < kRmwUnroll; ++u) {
+      const long long n = n0 + u * step;
+      if (n >= n_tiles) break;  // uniform across the group
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) assert(pg[u][r] >= 0 && pg[u][r] < table_rows);
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const int i = ix[u][r];
+        const float v = s_table[page_of_slot(pg[u], (i >> 7) & (kRows - 1)) * kLanes + (i & (kLanes - 1))];
+        out[(n * kRows + r) * kLanes + k] = v;
+        acc[pg[u][r] * kLanes] += llrintf(kHalf * v * kFixedScale);
+      }
+    }
+  }
+  __syncthreads();
+  write_partial(s_acc, partial, entries);
 }
 
 // Replaces tools/kernel_probe.py::taa_kernel (:107) and the C / C2 probes
@@ -180,9 +260,6 @@ select_reduce_kernel(const float* __restrict__ x, const int* __restrict__ isub,
 // in [0, rows), |x| < x_limit so no sum overflows): the same checks as
 // separate PyTorch reductions read x twice more and took longer than the
 // kernel.
-constexpr int kRmwGroups = 3;
-constexpr int kRmwUnroll = 4;
-
 __global__ void __launch_bounds__(kLanes * kRmwGroups)
 rmw_rows_kernel(const int* __restrict__ pages, const float* __restrict__ x,
                 long long* __restrict__ partial, int n_tiles, int table_rows, float x_limit) {
@@ -202,10 +279,7 @@ rmw_rows_kernel(const int* __restrict__ pages, const float* __restrict__ x,
     for (int u = 0; u < kRmwUnroll; ++u) {
       const long long n = n0 + u * step;
       const bool live = n < n_tiles;
-      const int4 p0 = live ? __ldg(reinterpret_cast<const int4*>(pages + n * kRows)) : int4{};
-      const int4 p1 = live ? __ldg(reinterpret_cast<const int4*>(pages + n * kRows) + 1) : int4{};
-      pg[u][0] = p0.x, pg[u][1] = p0.y, pg[u][2] = p0.z, pg[u][3] = p0.w;
-      pg[u][4] = p1.x, pg[u][5] = p1.y, pg[u][6] = p1.z, pg[u][7] = p1.w;
+      load_pages(pages, n, live, pg[u]);
 #pragma unroll
       for (int p = 0; p < kRows; ++p)
         v[u][p] = live ? __ldg(x + (n * kRows + p) * kLanes + k) : 0.f;
@@ -220,13 +294,7 @@ rmw_rows_kernel(const int* __restrict__ pages, const float* __restrict__ x,
     }
   }
   __syncthreads();
-  long long* part = partial + (long long)blockIdx.x * entries;
-  for (int e = threadIdx.x; e < entries; e += blockDim.x) {
-    long long sum = 0;
-#pragma unroll
-    for (int gg = 0; gg < kRmwGroups; ++gg) sum += s_acc[gg * entries + e];
-    part[e] = sum;
-  }
+  write_partial(s_acc, partial, entries);
 }
 
 // out[e] = sum over the n_parts partial tables of partial[part][e]. A CTA of
@@ -310,6 +378,28 @@ __global__ void fma_chain_bf16_kernel(const float2* __restrict__ x, float2* __re
   out[i] = make_float2(a.x + b.x, a.y + b.y);
 }
 
+// Above 48 KB of dynamic shared memory needs the opt-in, set once per
+// device for the largest table (outside any graph capture: the wrappers'
+// first call runs eagerly). *opted_in_device remembers the device.
+template <typename Kernel>
+cudaError_t opt_in_shared(Kernel kernel, int bytes, int* opted_in_device) {
+  int device = 0;
+  cudaError_t rc = cudaGetDevice(&device);
+  if (rc == cudaSuccess && device != *opted_in_device) {
+    rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (rc == cudaSuccess) *opted_in_device = device;
+  }
+  return rc;
+}
+
+// Sums the n_ctas partial tables of a read-modify-write probe into out.
+cudaError_t reduce_partials(const long long* partial, long long* out, int n_ctas, int entries,
+                            cudaStream_t stream) {
+  rmw_rows_reduce_kernel<<<(entries + kReduceCols - 1) / kReduceCols, kLanes, 0, stream>>>(
+      partial, out, n_ctas, entries);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -317,10 +407,20 @@ extern "C" {
 // Each entry launches on `stream` and returns cudaGetLastError() (0 = ok).
 
 int jrr_paged_gather_rmw(const int* pages, const int* idx, const float* table, float* out,
-                         unsigned long long* dtab, int n_tiles, void* stream) {
-  paged_gather_rmw_kernel<<<n_tiles, kLanes, 0, (cudaStream_t)stream>>>(pages, idx, table, out,
-                                                                          dtab);
-  return (int)cudaGetLastError();
+                         long long* partial, long long* dtab, int n_tiles, int table_rows,
+                         int n_ctas, float table_limit, void* stream) {
+  static int opted_in_device = -1;
+  constexpr int kMaxBytes =
+      (int)(kMaxTableRows * kLanes * (kRmwGroups * sizeof(long long) + sizeof(float)));
+  cudaError_t rc = opt_in_shared(paged_gather_rmw_kernel, kMaxBytes, &opted_in_device);
+  if (rc != cudaSuccess) return (int)rc;
+  const int entries = table_rows * kLanes;
+  const int bytes = (int)(entries * (kRmwGroups * sizeof(long long) + sizeof(float)));
+  paged_gather_rmw_kernel<<<n_ctas, kLanes * kRmwGroups, bytes, (cudaStream_t)stream>>>(
+      pages, idx, table, out, partial, n_tiles, table_rows, table_limit);
+  rc = cudaGetLastError();
+  if (rc != cudaSuccess) return (int)rc;
+  return (int)reduce_partials(partial, dtab, n_ctas, entries, (cudaStream_t)stream);
 }
 
 int jrr_take_along_axis(const float* x, const int* index, float* out, int n_tiles, int axis,
@@ -352,26 +452,17 @@ int jrr_select_reduce(const float* x, const int* isub, float* out, int n_tiles, 
 
 int jrr_rmw_rows(const int* pages, const float* x, long long* partial, long long* out,
                  int n_tiles, int table_rows, int n_ctas, float x_limit, void* stream) {
-  // Above 48 KB of dynamic shared memory needs the opt-in, set once per
-  // device for the largest table (outside any graph capture: the wrappers'
-  // first call runs eagerly).
   static int opted_in_device = -1;
-  int device = 0;
-  cudaError_t rc = cudaGetDevice(&device);
-  if (rc == cudaSuccess && device != opted_in_device) {
-    rc = cudaFuncSetAttribute(rmw_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)(kRmwGroups * kMaxTableRows * kLanes * sizeof(long long)));
-    if (rc == cudaSuccess) opted_in_device = device;
-  }
+  cudaError_t rc = opt_in_shared(rmw_rows_kernel,
+                                 (int)(kRmwGroups * kMaxTableRows * kLanes * sizeof(long long)),
+                                 &opted_in_device);
   if (rc != cudaSuccess) return (int)rc;
   const int entries = table_rows * kLanes;
   rmw_rows_kernel<<<n_ctas, kLanes * kRmwGroups, kRmwGroups * entries * sizeof(long long),
                     (cudaStream_t)stream>>>(pages, x, partial, n_tiles, table_rows, x_limit);
   rc = cudaGetLastError();
   if (rc != cudaSuccess) return (int)rc;
-  rmw_rows_reduce_kernel<<<(entries + kReduceCols - 1) / kReduceCols, kLanes, 0,
-                           (cudaStream_t)stream>>>(partial, out, n_ctas, entries);
-  return (int)cudaGetLastError();
+  return (int)reduce_partials(partial, out, n_ctas, entries, (cudaStream_t)stream);
 }
 
 int jrr_elementwise(const float* x, float* out, long long n, void* stream) {

@@ -18,9 +18,10 @@
 // candidate lane k. Each thread decodes its face's three corners through
 // `pages` (staged in shared memory) and reads them from tx/ty (28 KB per
 // frame, L2-resident across the frame's tiles); the coverage passes are the
-// shared ones of coverage.cuh: near pairs only in the alpha kernel (pass 1)
-// and the two loss kernels (fused_lossgrad_kernel,
-// fused_lossgrad_packed_kernel), every pair in the alpha VJP.
+// shared near-pair ones of coverage.cuh: pass 1 in the alpha kernel, passes
+// 1 and 2 in the two loss kernels (fused_lossgrad_kernel,
+// fused_lossgrad_packed_kernel) and the alpha VJP (fused_alpha_bwd_kernel),
+// whose pass 2 and atomics are one helper (add_box_grads).
 
 #include <cuda_runtime.h>
 
@@ -34,26 +35,27 @@ constexpr int kMaxPages = 32;
 // run. kernels.py converts back to f32 and checks that no sum can overflow.
 constexpr float kFixedScale = 4294967296.0f;
 
-struct Face {
-  Tri tri;
-  long long pos[3];  // flat table position of each corner
-  int page[3];       // table page of each corner
-};
+// Flat table position of corner c of thread k's face: idx -> page slot ->
+// page; the page itself in *page.
+__device__ __forceinline__ long long corner_pos(const int* s_pages, const int* idx_t, int b,
+                                                int PG, int c, int k, int* page) {
+  const int v = idx_t[c * kLanes + k];
+  *page = s_pages[v >> 7];
+  return ((long long)b * PG + *page) * kLanes + (v & 127);
+}
 
-// Thread k's face: corners through idx -> page slot -> page -> tables.
-__device__ __forceinline__ Face load_face(const float* tx, const float* ty,
-                                          const int* s_pages, const int* idx_t,
-                                          int b, int PG, int k) {
-  Face f;
+// Thread k's triangle: corners through idx -> page slot -> page -> tables.
+__device__ __forceinline__ Tri load_tri(const float* tx, const float* ty, const int* s_pages,
+                                        const int* idx_t, int b, int PG, int k) {
+  Tri f;
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    const int v = idx_t[c * kLanes + k];
-    f.page[c] = s_pages[v >> 7];
-    f.pos[c] = ((long long)b * PG + f.page[c]) * kLanes + (v & 127);
-    f.tri.x[c] = tx[f.pos[c]];
-    f.tri.y[c] = ty[f.pos[c]];
+    int page;
+    const long long pos = corner_pos(s_pages, idx_t, b, PG, c, k, &page);
+    f.x[c] = tx[pos];
+    f.y[c] = ty[pos];
   }
-  set_inv_len2(f.tri);
+  set_inv_len2(f);
   return f;
 }
 
@@ -70,23 +72,35 @@ __device__ __forceinline__ void add_corner_fixed_point(long long pos, int page, 
   if (qy != 0) atomicAdd(dty + pos, (unsigned long long)qy);
 }
 
-// The thread's corner gradients into the tables: at most six atomics.
-__device__ __forceinline__ void add_fixed_point(const Face& f, const float gx[3],
-                                                const float gy[3], int dump_page,
-                                                unsigned long long* dtx,
-                                                unsigned long long* dty) {
-#pragma unroll
-  for (int c = 0; c < 3; ++c)
-    add_corner_fixed_point(f.pos[c], f.page[c], gx[c], gy[c], dump_page, dtx, dty);
-}
-
-// Stages the tile's page list in shared memory and loads thread k's face.
-__device__ __forceinline__ Face stage_tile(const float* tx, const float* ty,
-                                           const int* pages_t, const int* idx, int* s_pages,
-                                           long long bt, int b, int PG, int P, int k) {
+// Stages the tile's page list in shared memory and loads thread k's triangle.
+__device__ __forceinline__ Tri stage_tile(const float* tx, const float* ty, const int* pages_t,
+                                          const int* idx, int* s_pages, long long bt, int b,
+                                          int PG, int P, int k) {
   if (k < P) s_pages[k] = pages_t[k];
   __syncthreads();
-  return load_face(tx, ty, s_pages, idx + bt * 3 * kLanes, b, PG, k);
+  return load_tri(tx, ty, s_pages, idx + bt * 3 * kLanes, b, PG, k);
+}
+
+// Pass 2 and the atomics of the gradient kernels (rows 1, 3 and 4), called
+// by every thread once s_g (dL/dalpha) and s_total (Pi(1 - p)) hold the
+// pixels of the thread's tile: box_corner_grads over the thread's box, then
+// its six corner gradients into the tables, the table positions decoded
+// again from idx (only the triangle stays live across the passes: the
+// register budget of 8 CTAs per SM). At most six atomics.
+__device__ __forceinline__ void add_box_grads(const Tri& tri, PixelBox box, float ox, float oy,
+                                              int tile, float inv_sigma, float blur_px2,
+                                              const float* s_g, const float* s_total,
+                                              const int* s_pages, const int* idx_t, int b, int PG,
+                                              int dump_page, unsigned long long* dtx,
+                                              unsigned long long* dty) {
+  float gx[3], gy[3];
+  box_corner_grads(tri, box, ox, oy, tile, inv_sigma, blur_px2, s_g, s_total, gx, gy);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    int page;
+    const long long pos = corner_pos(s_pages, idx_t, b, PG, c, threadIdx.x, &page);
+    add_corner_fixed_point(pos, page, gx[c], gy[c], dump_page, dtx, dty);
+  }
 }
 
 // Replaces jrr_tpu/render/silhouette_fused.py::_fused_fwd_kernel (:719).
@@ -121,7 +135,7 @@ fused_alpha_fwd_kernel(const float* __restrict__ tx, const float* __restrict__ t
     for (int i = k; i < t2; i += kLanes) out_t[i] = 0.f;
     return;
   }
-  const Tri tri = stage_tile(tx, ty, pages_t, idx, s_pages, bt, b, PG, P, k).tri;
+  const Tri tri = stage_tile(tx, ty, pages_t, idx, s_pages, bt, b, PG, P, k);
   const float ox = origin[2 * bt], oy = origin[2 * bt + 1];
   near_log_sums(tri, pixel_box(tri, ox, oy, tile, blur_px2), 1, ox, oy, ox, oy, tile, inv_sigma,
                 blur_px2, s_tri, s_lmask, s_total);
@@ -148,9 +162,7 @@ __device__ __forceinline__ void lossgrad_row(
     StagedTris& s_tri, unsigned (*s_lmask)[kWarps], float* s_total, float* s_g, float* s_sq) {
   const int k = threadIdx.x, t2 = tile * tile;
   const int halves = primary ? 2 : 1, h = (primary && k >= kLanes / 2) ? 1 : 0;
-  // Only the triangle stays live across the passes; the table positions are
-  // decoded again for the atomics (the register budget of 8 CTAs per SM).
-  const Tri tri = stage_tile(tx, ty, pages_t, idx, s_pages, bt, b, PG, P, k).tri;
+  const Tri tri = stage_tile(tx, ty, pages_t, idx, s_pages, bt, b, PG, P, k);
   const float* org = h ? origin_bt : origin_t;
   const float ox = org[0], oy = org[1];
   const PixelBox box = pixel_box(tri, ox, oy, tile, blur_px2);
@@ -174,16 +186,8 @@ __device__ __forceinline__ void lossgrad_row(
     }
     *err_t = e;
   }
-  float gx[3], gy[3];
-  box_corner_grads(tri, box, ox, oy, tile, inv_sigma, blur_px2, s_g + h * t2, s_total + h * t2,
-                   gx, gy);
-  const int* idx_t = idx + bt * 3 * kLanes;
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    const int v = idx_t[c * kLanes + k], page = s_pages[v >> 7];
-    add_corner_fixed_point(((long long)b * PG + page) * kLanes + (v & 127), page, gx[c], gy[c],
-                           dump_page, dtx, dty);
-  }
+  add_box_grads(tri, box, ox, oy, tile, inv_sigma, blur_px2, s_g + h * t2, s_total + h * t2,
+                s_pages, idx + bt * 3 * kLanes, b, PG, dump_page, dtx, dty);
 }
 
 // Replaces jrr_tpu/render/silhouette_fused.py::_fused_lossgrad_kernel (:994).
@@ -281,14 +285,22 @@ fused_lossgrad_packed_kernel(const float* __restrict__ tx, const float* __restri
 
 // Replaces jrr_tpu/render/silhouette_fused.py::_fused_bwd_kernel (:814),
 // the VJP of fused_alpha_fwd: given g = dL/dalpha (B, G2, T2), adds
-// dL/dcorner into dtx/dty[b, page, lane]. It is the loss kernel as it was
-// before the cull, with dL/dalpha read from g instead of formed from the
-// mask: passes 1 and 2 over every (pixel, lane) pair (lane_log_sums,
-// corner_grads) and the same fixed-point atomics, so its bound is that of
-// fused_lossgrad_kernel and, on the same bins, its time that of the
-// all-pairs design (chip_smoke.py reports the ratio). kernels.py bounds |g| so
-// that no fixed-point sum can overflow. Empty tiles have no gradient.
-__global__ void __launch_bounds__(kLanes)
+// dL/dcorner into dtx/dty[b, page, lane]. Bound on this card: as
+// fused_lossgrad_kernel's, operations, with g read in place of the mask
+// and no err written. Design: the loss kernel's near-pair passes with
+// dL/dalpha read from g instead of formed from the mask. Pass 1
+// (near_log_sums) as in every near-pair kernel; between the passes
+// Pi(1 - p) = expf(log sum) and g[b, t, i] go into shared memory; pass 2
+// and the atomics are the loss kernels' own (add_box_grads): by lane over
+// the lane's box, pairs with p in {0, 1} skipped, at most six int64
+// fixed-point atomics per thread, none to the dump page. So on the same
+// bins with g = 2 (alpha - mask), alpha from fused_alpha_fwd (bit for bit
+// the loss kernel's 1 - Pi(1 - p)), dtx/dty equal fused_lossgrad_kernel's
+// bit for bit (chip_smoke.py checks it), and two launches agree bit for
+// bit. kernels.py bounds |g| so that no fixed-point sum can overflow.
+// Empty tiles have no gradient and exit before any gather. At most 64
+// registers, so that 8 CTAs fit on an SM.
+__global__ void __launch_bounds__(kLanes, 8)
 fused_alpha_bwd_kernel(const float* __restrict__ tx, const float* __restrict__ ty,
                        const int* __restrict__ pages, const int* __restrict__ idx,
                        const float* __restrict__ origin, const float* __restrict__ g,
@@ -297,27 +309,27 @@ fused_alpha_bwd_kernel(const float* __restrict__ tx, const float* __restrict__ t
                        int G2, int PG, int P, int tile, float inv_sigma, float blur_px2,
                        int dump_page) {
   __shared__ int s_pages[kMaxPages];
-  __shared__ float s_part[kWarps][kMaxT2];
-  __shared__ float s_total[kMaxT2];  // Pi(1 - p) per pixel
+  __shared__ StagedTris s_tri;
+  __shared__ unsigned s_lmask[kMaxT2][kWarps];  // per pixel, the lanes whose box holds it
+  __shared__ float s_total[kMaxT2];  // log-sum over the lanes, then Pi(1 - p), per pixel
   __shared__ float s_g[kMaxT2];      // dL/dalpha per pixel
   const int t = blockIdx.x, b = blockIdx.y, k = threadIdx.x;
   const long long bt = (long long)b * G2 + t;
   const int t2 = tile * tile;
   const int* pages_t = pages + bt * P;
   if (pages_t[0] == dump_page) return;
-  const Face f = stage_tile(tx, ty, pages_t, idx, s_pages, bt, b, PG, P, k);
+  const Tri tri = stage_tile(tx, ty, pages_t, idx, s_pages, bt, b, PG, P, k);
   const float ox = origin[2 * bt], oy = origin[2 * bt + 1];
-  lane_log_sums(f.tri, true, ox, oy, tile, inv_sigma, blur_px2, s_part);
-  __syncthreads();
+  const PixelBox box = pixel_box(tri, ox, oy, tile, blur_px2);
+  near_log_sums(tri, box, 1, ox, oy, ox, oy, tile, inv_sigma, blur_px2, s_tri, s_lmask, s_total);
   const float* g_t = g + bt * t2;
   for (int i = k; i < t2; i += kLanes) {
-    s_total[i] = expf(log_sum_total(s_part, i));
+    s_total[i] = expf(s_total[i]);
     s_g[i] = g_t[i];
   }
   __syncthreads();
-  float gx[3], gy[3];
-  corner_grads(f.tri, true, ox, oy, tile, inv_sigma, blur_px2, s_g, s_total, gx, gy);
-  add_fixed_point(f, gx, gy, dump_page, dtx, dty);
+  add_box_grads(tri, box, ox, oy, tile, inv_sigma, blur_px2, s_g, s_total, s_pages,
+                idx + bt * 3 * kLanes, b, PG, dump_page, dtx, dty);
 }
 
 }  // namespace

@@ -110,7 +110,7 @@ def _load():
             ("jrr_fused_alpha_bwd", [p] * 8 + [i] * 5 + [f, f, i, p]),
             ("jrr_tiles_alpha_fwd", [p] * 4 + [i] * 2 + [f, f, p]),
             ("jrr_tiles_alpha_bwd", [p] * 5 + [i] * 2 + [f, f, p]),
-            ("jrr_paged_gather_rmw", [p] * 5 + [i, p]),
+            ("jrr_paged_gather_rmw", [p] * 6 + [i, i, i, f, p]),
             ("jrr_take_along_axis", [p] * 3 + [i, i, p]),
             ("jrr_dyn_slice", [p] * 3 + [i, i, p]),
             ("jrr_onehot_gather", [p] * 3 + [i, p]),
@@ -303,8 +303,10 @@ fused_lossgrad_packed.launches = 0
 def fused_alpha_bwd(tx, ty, pages, idx, origin, g, tile, inv_sigma, blur_px2, dump_page):
     """(dtx, dty) (B, PG, 128) — the VJP of `fused_alpha_fwd` for
     g = dL/dα (B, G², T²); replaces jrr_tpu
-    silhouette_fused._fused_bwd_kernel. |g| must stay below `grad_limit`
-    (`check_grad_range`)."""
+    silhouette_fused._fused_bwd_kernel. The kernel runs `fused_lossgrad`'s
+    near-pair passes with dL/dα read from g, so at g = 2·(α − mask), α from
+    `fused_alpha_fwd`, it returns that kernel's gradients bit for bit. |g|
+    must stay below `grad_limit` (`check_grad_range`)."""
     b, g2, pg, p_hat = _check_bins(tx, ty, pages, idx, origin, tile)
     _check_cuda(tx.device, g=(g, torch.float32))
     if g.shape != (b, g2, tile * tile):
@@ -435,37 +437,50 @@ def _check_pages(pages, n: int, rows: int) -> None:
 
 
 def _check_table(table, pages, n: int) -> int:
-    """A (R, 128) f32 table beside (N, 8) page ids in [0, R) (a device-side
-    assert); returns R."""
+    """A (R, 128) f32 table beside (N, 8) page ids; returns R."""
     _check_cuda(pages.device, table=(table, torch.float32))
     if table.dim() != 2 or table.shape[1] != _LANES:
         raise ValueError(f"table must be (R, {_LANES}), got {tuple(table.shape)}")
     rows = table.shape[0]
     _check_pages(pages, n, rows)
-    torch._assert_async(torch.all((pages >= 0) & (pages < rows)), "page ids must lie in [0, table rows)")
     return rows
 
 
-def _check_fixed_point(values, terms: int, name: str) -> None:
-    """Device-side assert that `terms` adds of |values| cannot overflow the
-    int64 fixed-point sums (NaN fails it too)."""
-    torch._assert_async(values.abs().max() * terms < 2.0**63 / _FIXED_SCALE,
-                        f"{name}: fixed-point sums could overflow int64")
+def _check_int4_pages(pages) -> None:
+    """The read-modify-write probes read page ids as int4 (and check their
+    range in the kernels): the data must be 16-byte aligned."""
+    if pages.data_ptr() % 16:
+        raise ValueError("the RMW probes read pages as int4: its data must be 16-byte aligned")
+
+
+def _partials(dev, rows: int):
+    """(CTAs, rows, 128) int64 partial tables of a persistent RMW probe,
+    one CTA per SM; every entry is written by the kernel."""
+    ctas = torch.cuda.get_device_properties(dev).multi_processor_count
+    return torch.empty(ctas, rows, _LANES, device=dev, dtype=torch.int64)
 
 
 def paged_gather_rmw(pages, idx, table):
-    """(out (N, 8, 128), dtab (R, 128)): out[n, r, k] = table[pages[n, i >> 7],
-    i & 127] for i = idx[n, r, k] (taken modulo 8·128), then dtab[pages[n, p]]
-    += 0.5·out[n, p] over every tile and p, added in int64 fixed point —
-    replaces tools/kernel_probe.py::gather_kernel."""
+    """(out (N, 8, 128) f32, dtab (R, 128) int64): out[n, r, k] =
+    table[pages[n, i >> 7], i & 127] for i = idx[n, r, k] (taken modulo
+    8·128), then dtab[pages[n, p]] += llrint(0.5·out[n, p]·2³²) over every
+    tile and p, the fixed-point table itself (`from_fixed_point` converts
+    it) — replaces tools/kernel_probe.py::gather_kernel. One CTA per SM
+    holds the table and sums its share of the tiles in shared memory; a
+    second kernel adds the CTAs' tables."""
     n = _check_blocks(idx=(idx, torch.int32))
     rows = _check_table(table, pages, n)
-    _check_fixed_point(table, 4 * n, "paged_gather_rmw")
+    _check_int4_pages(pages)
+    partial = _partials(idx.device, rows)
     out = torch.empty(idx.shape, device=idx.device, dtype=torch.float32)
-    dtab = torch.zeros(rows, _LANES, device=idx.device, dtype=torch.int64)
+    dtab = torch.empty(rows, _LANES, device=idx.device, dtype=torch.int64)
+    # Page ids and |table| are checked in the kernel (device asserts): no
+    # sum of 8N terms 0.5·table with |table| below table_limit overflows.
+    table_limit = 2.0**63 / _FIXED_SCALE / (0.5 * _PROBE_ROWS * n)
     _probe_launch(paged_gather_rmw, idx.device, "jrr_paged_gather_rmw", pages.data_ptr(),
-                  idx.data_ptr(), table.data_ptr(), out.data_ptr(), dtab.data_ptr(), n)
-    return out, from_fixed_point(dtab)
+                  idx.data_ptr(), table.data_ptr(), out.data_ptr(), partial.data_ptr(),
+                  dtab.data_ptr(), n, rows, partial.shape[0], table_limit)
+    return out, dtab
 
 
 def take_along_axis(x, index, axis: int):
@@ -486,6 +501,7 @@ def dyn_slice(pages, table):
     shared memory — replaces the A probe (k_dynslice) of tools/kernel_probe2.py."""
     n = pages.shape[0]
     rows = _check_table(table, pages, n)
+    torch._assert_async(torch.all((pages >= 0) & (pages < rows)), "page ids must lie in [0, table rows)")
     if not 0 < n < 2**31:
         raise ValueError(f"need 0 < N < 2³¹ tiles, got {n}")
     out = torch.empty(n, _PROBE_ROWS, _LANES, device=pages.device, dtype=torch.float32)
@@ -523,16 +539,14 @@ def rmw_rows(pages, x, rows: int):
     kernel adds the CTAs' tables."""
     n = _check_blocks(x=(x, torch.float32))
     _check_pages(pages, n, rows)
-    if pages.data_ptr() % 16:
-        raise ValueError("rmw_rows reads pages as int4: its data must be 16-byte aligned")
-    ctas = torch.cuda.get_device_properties(x.device).multi_processor_count
-    partial = torch.empty(ctas, rows, _LANES, device=x.device, dtype=torch.int64)
+    _check_int4_pages(pages)
+    partial = _partials(x.device, rows)
     out = torch.empty(rows, _LANES, device=x.device, dtype=torch.int64)
     # Page ids and |x| are checked in the kernel (device asserts): no sum
     # of 8N terms below x_limit overflows.
     x_limit = 2.0**63 / _FIXED_SCALE / (_PROBE_ROWS * n)
     _probe_launch(rmw_rows, x.device, "jrr_rmw_rows", pages.data_ptr(), x.data_ptr(),
-                  partial.data_ptr(), out.data_ptr(), n, rows, ctas, x_limit)
+                  partial.data_ptr(), out.data_ptr(), n, rows, partial.shape[0], x_limit)
     return out
 
 

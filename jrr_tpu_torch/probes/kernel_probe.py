@@ -53,6 +53,18 @@ def paged_gather_rmw_plain(pages, idx, table):
     return out, dtab.float()
 
 
+def paged_gather_rmw_fixed_plain(pages, idx, table):
+    """dtab as `kernels.paged_gather_rmw` computes it, the kernel's own
+    integers: each term 0.5·out (out from `paged_gather_rmw_plain`)
+    quantized to int64 fixed point (·2³², rounded half to even as llrintf)
+    and summed exactly."""
+    out, _ = paged_gather_rmw_plain(pages, idx, table)
+    q = torch.round(0.5 * out[:, :P_HAT] * 2.0**32).long()
+    dtab = torch.zeros(table.shape, dtype=torch.int64, device=table.device)
+    dtab.index_add_(0, pages.long().reshape(-1), q.reshape(-1, LANES))
+    return dtab
+
+
 def take_along_axis_plain(x, index, axis: int):
     """`np.take_along_axis(x, index, axis)` with indices taken modulo the
     axis length, as `kernels.take_along_axis`."""
@@ -72,21 +84,31 @@ def measure(n_tiles: int = N_TILES, reps: int = REPS) -> list:
     block = n * ROWS * LANES * 4  # bytes of one (N, 8, 128) f32 or i32 array
     table_bytes = PAGES * LANES * 4
 
+    # out equals the plain gather exactly; the kernel's int64 table equals
+    # its fixed-point plain version exactly, and in float32 lies within the
+    # quantization of the float64 sum.
     out, dtab = kernels.paged_gather_rmw(x["pages"], x["idx"], x["table"])
     out_p, dtab_p = paged_gather_rmw_plain(x["pages"], x["idx"], x["table"])
+    dtab_fixed = paged_gather_rmw_fixed_plain(x["pages"], x["idx"], x["table"])
     torch.cuda.synchronize()
     if not torch.equal(out, out_p):
         raise AssertionError("paged_gather_rmw: gathered rows differ from the plain version")
+    if not torch.equal(dtab, dtab_fixed):
+        raise AssertionError("paged_gather_rmw: int64 sums differ from paged_gather_rmw_fixed_plain's")
     terms = torch.bincount(x["pages"].long().reshape(-1), minlength=PAGES)[:, None].double()
     rec = probes.record(
-        "paged_gather_rmw", "tools/kernel_probe.py:43", dtab, dtab_p,
+        "paged_gather_rmw", "tools/kernel_probe.py:43", kernels.from_fixed_point(dtab), dtab_p,
         fixed_point_tolerance(dtab_p.double(), terms),
-        "gather exact; dtab within terms·2^-33 + 1 f32 ulp (int64 fixed point vs float64)",
+        "gather exact; int64 dtab equal to paged_gather_rmw_fixed_plain's exactly; as float32 "
+        "within terms·2^-33 + 1 f32 ulp of the float64 sum (paged_gather_rmw_plain)",
         probes.time_ms(lambda: kernels.paged_gather_rmw(x["pages"], x["idx"], x["table"]), reps),
         probes.time_ms(lambda: paged_gather_rmw_plain(x["pages"], x["idx"], x["table"]), 3),
         probes.bound(n * P_HAT * 4 + 2 * block + 2 * table_bytes, 2 * n * P_HAT * LANES),
         None, None,
     )
+    # What copying the same bytes (idx read, an array of its size written)
+    # costs on this card: the floor under the bytes bound.
+    rec.update(exact_vs_fixed_plain=True, copy_ms=probes.time_ms(lambda: x["idx"].clone(), reps))
     records = [rec]
 
     for axis, index, name in ((2, x["il"], "take_along_axis_lane"), (1, x["isub"], "take_along_axis_sublane")):

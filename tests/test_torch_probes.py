@@ -33,11 +33,10 @@ def _np(d):
     return {k: v.numpy() for k, v in d.items()}
 
 
-def test_paged_gather_rmw_matches_interpret_kernel():
-    x = kernel_probe.make_inputs(N, device="cpu")
-    a = _np(x)
-    # tools/kernel_probe.py::run_gather's specs, in interpret mode.
-    out, dtab = pl.pallas_call(
+def _interpret_gather(a):
+    """(out, dtab) of tools/kernel_probe.py::gather_kernel with run_gather's
+    specs, in interpret mode, on numpy inputs `a`."""
+    return pl.pallas_call(
         functools.partial(jax_probe.gather_kernel, chunk=CHUNK),
         grid=(N // CHUNK,),
         in_specs=[
@@ -55,6 +54,11 @@ def test_paged_gather_rmw_matches_interpret_kernel():
         ),
         interpret=True,
     )(a["pages"], a["idx"], a["table"])
+
+
+def test_paged_gather_rmw_matches_interpret_kernel():
+    x = kernel_probe.make_inputs(N, device="cpu")
+    out, dtab = _interpret_gather(_np(x))
     got_out, got_dtab = kernel_probe.paged_gather_rmw_plain(x["pages"], x["idx"], x["table"])
     np.testing.assert_array_equal(got_out.numpy(), np.asarray(out))
     # The Pallas body adds in float32 in grid order, the plain version in
@@ -167,3 +171,36 @@ def test_rmw_rows_fixed_plain_matches_int64_oracle():
     ties[0, 0, :5] = torch.tensor([0.5, -0.5, 1.5, -1.5, 2.5]) * 2.0**-32
     one = kernel_probe2.rmw_rows_fixed_plain(torch.arange(8, dtype=torch.int32)[None], ties, 8)
     assert one[0, :5].tolist() == [0, 0, 2, -2, 2]
+
+
+def test_paged_gather_rmw_fixed_plain_matches_int64_oracle():
+    """Row 7's dtab as the kernel computes it: `paged_gather_rmw_fixed_plain`
+    equals a numpy int64 oracle exactly (each term 0.5·out·2^32 rounded half
+    to even, as llrintf; integer sums in any order), and as float32 lies
+    within `fixed_point_tolerance` of the float64 `paged_gather_rmw_plain`
+    and of the Pallas body in interpret mode. The Pallas body adds its terms
+    in float32, one rounding per add after the first, so against it the
+    bound adds that sum's own error, (terms − 1)·2^-24·Σ|term| per entry."""
+    x = kernel_probe.make_inputs(N, device="cpu")
+    a = _np(x)
+    got = kernel_probe.paged_gather_rmw_fixed_plain(x["pages"], x["idx"], x["table"])
+    ws = a["table"][a["pages"]].reshape(N, 8 * LANES)
+    flat = ((a["idx"] >> 7) & 7) * LANES + (a["idx"] & (LANES - 1))
+    out = np.take_along_axis(ws, flat.reshape(N, -1), axis=1).reshape(N, 8, LANES)
+    q = np.rint(0.5 * out.astype(np.float64) * 2.0**32).astype(np.int64)
+    want = np.zeros((kernel_probe.PAGES, LANES), np.int64)
+    np.add.at(want, a["pages"].reshape(-1), q.reshape(-1, LANES))
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(), want)
+
+    terms = torch.bincount(x["pages"].long().reshape(-1), minlength=kernel_probe.PAGES)[:, None].double()
+    abs_sum = np.zeros((kernel_probe.PAGES, LANES))
+    np.add.at(abs_sum, a["pages"].reshape(-1), np.abs(0.5 * out.astype(np.float64)).reshape(-1, LANES))
+    f32_sum_err = (terms - 1).clamp_min(0) * 2.0**-24 * torch.as_tensor(abs_sum)
+    fixed = kernels.from_fixed_point(got).double()
+    plain = kernel_probe.paged_gather_rmw_plain(x["pages"], x["idx"], x["table"])[1].double()
+    pallas = torch.tensor(np.asarray(_interpret_gather(a)[1]), dtype=torch.float64)
+    assert bool(torch.all((fixed - plain).abs() <= kernel_probe.fixed_point_tolerance(plain, terms)))
+    assert bool(torch.all(
+        (fixed - pallas).abs() <= kernel_probe.fixed_point_tolerance(pallas, terms) + f32_sum_err))
+    assert float(fixed.abs().max()) > 0.1

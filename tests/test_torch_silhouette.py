@@ -143,6 +143,74 @@ def test_plain_lossgrad_all_empty_tiles():
     assert not dtx.any() and not dty.any()
 
 
+def _plain_alpha_vjp(tx, ty, pages, idx, origin, g, spec, inv_sigma, blur_px2, alpha_fn=None):
+    """(α, dtx, dty): the α tiles and their VJP at cotangent g by autograd,
+    through `alpha_fn` (default: the port's `fused_tiles_alpha`, whose CPU
+    route is the plain version the α VJP kernel is held against)."""
+    alpha_fn = alpha_fn or (lambda *a: tsf.fused_tiles_alpha(*a, sf.dump_page_id(96)))
+    tx_, ty_ = tx.clone().requires_grad_(True), ty.clone().requires_grad_(True)
+    alpha = alpha_fn(tx_, ty_, pages, idx, origin, spec.tile_size, inv_sigma, blur_px2)
+    dtx, dty = torch.autograd.grad(alpha, (tx_, ty_), g(alpha.detach()))
+    return alpha.detach(), dtx, dty
+
+
+@pytest.mark.parametrize("seed", [4, 6])
+def test_alpha_vjp_at_loss_cotangent_equals_lossgrad(seed):
+    """The identity behind the card's bit-equality of rows 3 and 1: the α
+    VJP at dL/dα = 2·(α − mask) is the gradient of Σ(α − mask)². Here the
+    plain versions of both, on the small scene's fused bins, agree exactly
+    (tolerance 0): past dL/dα both run the same autograd graph, and
+    2·(α − mask) rounds as the loss's own derivative does (×2 is exact)."""
+    tx, ty, bins, spec, inv_sigma, blur_px2, mask = _lossgrad_inputs(seed)
+    args = tuple(_t(a) for a in (tx, ty, bins.pages, bins.idx, bins.origin))
+    mask = _t(mask)
+    _, dtx, dty = _plain_alpha_vjp(*args, lambda a: 2.0 * (a - mask), spec, inv_sigma, blur_px2)
+    _, ltx, lty = tsf.fused_lossgrad_plain(*args, mask, spec.tile_size, inv_sigma, blur_px2)
+    assert float(ltx.abs().max()) > 0.0 and float(lty.abs().max()) > 0.0
+    np.testing.assert_array_equal(dtx.numpy(), ltx.numpy())
+    np.testing.assert_array_equal(dty.numpy(), lty.numpy())
+
+
+def _alpha_near_pairs_only(tx, ty, pages, idx, origin, tile, inv_sigma, blur_px2):
+    """`fused_tiles_alpha_plain` with every pair outside its face's
+    `coverage.near_box` set to p = 0 (the α VJP kernel's pairs only), op for
+    op as `silhouette._tiles_alpha_xla` otherwise."""
+    b, g2 = pages.shape[:2]
+    k = idx.shape[3]
+    tri = tsf._gather_tri(tx, ty, pages, idx).reshape(b * g2, 6, k)
+    px_x, px_y = _tile_grid(origin.reshape(b * g2, 2), tile)
+    rows = tuple(tri[:, j, None, :] for j in range(6))
+    p = coverage.coverage_rows(px_x, px_y, rows, inv_sigma=inv_sigma, blur_px2=blur_px2)[0]
+    near = coverage.near_box(px_x, px_y, tuple(r.detach() for r in rows), blur_px2=blur_px2)
+    p = torch.where(near, p, torch.zeros_like(p))
+    alpha = 1.0 - coverage.lane_prod(torch.clamp_min(1.0 - p, 1e-30))
+    return alpha.reshape(b, g2, tile * tile)
+
+
+@pytest.mark.parametrize("seed", [4, 6])
+def test_alpha_vjp_outside_near_box_adds_exactly_zero(seed):
+    """The α VJP kernel visits only the pairs in each face's pixel box: on
+    the small scene's fused bins, at a seeded U(−1, 1) dL/dα, the plain α
+    and its VJP with every pair outside `coverage.near_box` dropped equal
+    the full ones exactly (pairs outside the box have p == 0 and add 0)."""
+    tx, ty, bins, spec, inv_sigma, blur_px2, _ = _lossgrad_inputs(seed)
+    args = tuple(_t(a) for a in (tx, ty, bins.pages, bins.idx, bins.origin))
+    g_np = np.random.default_rng(seed).uniform(-1, 1, size=bins.pages.shape[:2] + (spec.tile_size**2,))
+    g = torch.as_tensor(g_np.astype(np.float32))
+    full = _plain_alpha_vjp(*args, lambda a: g, spec, inv_sigma, blur_px2)
+    near = _plain_alpha_vjp(*args, lambda a: g, spec, inv_sigma, blur_px2, _alpha_near_pairs_only)
+    assert float(full[1].abs().max()) > 0.0
+    for a, b in zip(near, full):
+        assert torch.equal(a, b)
+    # The box drops most pairs here too: the test is not vacuous.
+    b, g2 = bins.pages.shape[:2]
+    tri = tsf._gather_tri(*args[:4]).reshape(b * g2, 6, -1)
+    px_x, px_y = _tile_grid(args[4].reshape(b * g2, 2), spec.tile_size)
+    in_box = coverage.near_box(px_x, px_y, tuple(tri[:, j, None, :] for j in range(6)),
+                               blur_px2=blur_px2)
+    assert 0 < int(in_box.sum()) < 0.5 * in_box.numel()
+
+
 def test_corner_row_grads_match_autograd():
     """The hand-derived backward the CUDA loss kernel runs equals autograd of
     the plain α (criterion of the JAX kernel tests: tie splits differ)."""
@@ -417,6 +485,34 @@ def test_pair_counts_order_active_near_pairs(full_width_inputs, geometry):
     assert 0 < active <= near < pairs and occupied > 0
 
 
+def test_pass_work_counts_constructed_boxes():
+    """chip_smoke's balance counts of the near-pair passes on hand-made
+    boxes. Tile 4 (16 pixels, 8 lane groups of 16 lanes): lane 0 covers
+    pixels 0-3 and lane 40 pixel 5. Pass 2: warp 0's largest box is 4
+    pixels and warp 1's 1, so 5 pixels of work in 32·4 + 32·1 slots. Pass 1:
+    thread 8i + s walks lanes [16s, 16s + 16) of pixel i: threads 0, 8, 16
+    and 24 one lane each (lane 0), thread 42 one (lane 40 at pixel 5), so 5
+    lanes of work in 32·1 + 32·1 slots."""
+    import chip_smoke
+
+    near = torch.zeros(1, 16, 128, dtype=torch.bool)
+    near[0, 0:4, 0] = True
+    near[0, 5, 40] = True
+    assert chip_smoke._lane_groups(16, 128) == 8 and chip_smoke._lane_groups(64, 128) == 2
+    assert chip_smoke._pass_work(near) == (5, 160, 5, 64)
+
+
+@pytest.mark.parametrize("geometry", ["fine", "coarse"])
+def test_pass_efficiencies_in_unit_interval(full_width_inputs, geometry):
+    """chip_smoke's pass balance on the full-width problem's fused bins: a
+    share of the warps' slots, in (0, 1]."""
+    import chip_smoke
+
+    eff = chip_smoke._pass_efficiencies(full_width_inputs[geometry])
+    assert set(eff) == {"pass2_warp_efficiency", "pass1_item_efficiency"}
+    assert all(0.0 < v <= 1.0 for v in eff.values())
+
+
 _BOX_R = 1.25  # blur radius of the constructed cases: √blur_px2 exactly
 _BOX_CASES = {
     # Vertex B = (9.75, 4.5) is the face's rightmost point and C = (8, 6.25)
@@ -534,3 +630,40 @@ def test_skip_decision_flips(case, want):
     lo = torch.all(plain <= tsf._SAT_EPS, dim=-1)
     hi = torch.all(plain >= 1.0 - tsf._SAT_EPS, dim=-1)
     assert lo[0, 1:].tolist() == [True, False] and hi[0, 1:].tolist() == [False, True]
+
+
+def test_ptxas_report_parsed_per_kernel(monkeypatch):
+    """chip_smoke reads each kernel's registers, spills and shared memory
+    from the build's `ptxas -v` report by its mangled name; a kernel the
+    report does not hold (or a library built by another process) gives None."""
+    import chip_smoke
+    from jrr_tpu_torch import kernels
+
+    report = "\n".join([
+        "== silhouette_fused.cu",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_128fused_lossgrad_packed_kernelEPKf' "
+        "for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_128fused_lossgrad_packed_kernelEPKf",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 61 registers, used 1 barriers, 14976 bytes smem, 448 bytes cmem[0]",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_122fused_alpha_bwd_kernelEPKf' "
+        "for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_122fused_alpha_bwd_kernelEPKf",
+        "    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads",
+        "ptxas info    : Used 64 registers, used 1 barriers, 10880 bytes smem, 448 bytes cmem[0]",
+        "== probes.cu",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_123paged_gather_rmw_kernelEPKi' "
+        "for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_123paged_gather_rmw_kernelEPKi",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 90 registers, used 1 barriers, 380 bytes cmem[0]",
+    ])
+    monkeypatch.setitem(kernels.build_info, "ptxas", report)
+    assert chip_smoke._ptxas("fused_alpha_bwd_kernel") == dict(
+        registers=64, spill_stores=4, spill_loads=12, smem_bytes=10880)
+    assert chip_smoke._ptxas("fused_lossgrad_packed_kernel")["registers"] == 61
+    assert chip_smoke._ptxas("paged_gather_rmw_kernel") == dict(
+        registers=90, spill_stores=0, spill_loads=0, smem_bytes=0)
+    assert chip_smoke._ptxas("fused_lossgrad_kernel") is None
+    monkeypatch.setitem(kernels.build_info, "ptxas", "")
+    assert chip_smoke._ptxas("fused_alpha_bwd_kernel") is None
