@@ -61,7 +61,9 @@
 11. runs the primitive probes (jrr_tpu_torch/probes/): each probe kernel
    against its plain version at the probe tools' shapes, timed beside one
    PyTorch call for the same function (the RMW probe's int64 sums equal its
-   fixed-point plain version's exactly);
+   fixed-point plain version's exactly; the lane gather also on indices
+   outside [0, 128), modulo 128 for take_along_axis and 0 for the one-hot
+   product's function, as their plain versions);
 12. builds the host runtime (jrr_tpu_torch/runtime/jrr_runtime.cc) with
    g++ on this host and decodes the committed JPEGs of tests/data/jpeg
    (`jpeg_check`): each within 1 level of its committed imageio decode (the
@@ -1493,6 +1495,10 @@ def run_probes():
     two read-modify-write probes (row 7's gather + RMW, 9E's RMW) sum int64
     fixed point in resident per-CTA tables: their int64 tables must equal
     their fixed-point plain versions' exactly."""
+    import numpy as np
+    import torch
+
+    from jrr_tpu_torch import kernels
     from jrr_tpu_torch.probes import bf16_probe, kernel_probe, kernel_probe2
 
     records = kernel_probe.measure() + kernel_probe2.measure() + bf16_probe.measure()
@@ -1501,6 +1507,16 @@ def run_probes():
         rec = [r for r in records if r.get("name") == name]
         _check(len(rec) == 1 and rec[0]["exact_vs_fixed_plain"],
                f"{name}: int64 sums not held equal to {plain}'s")
+    # The lane gather on indices outside [0, 128), over more tiles than its
+    # grid holds: taken modulo 128 for take_along_axis, 0 for the one-hot
+    # product's function.
+    rng = np.random.default_rng(3)
+    x = torch.as_tensor(rng.normal(size=(1000, 8, 128)).astype(np.float32), device="cuda")
+    il = torch.as_tensor(rng.integers(-300, 300, size=(1000, 8, 128)).astype(np.int32), device="cuda")
+    _check(torch.equal(kernels.take_along_axis(x, il, 2), kernel_probe.take_along_axis_plain(x, il, 2)),
+           "take_along_axis (lanes): indices outside [0, 128) not taken modulo 128")
+    _check(torch.equal(kernels.onehot_gather(x, il), kernel_probe2.onehot_gather_plain(x, il)),
+           "onehot_gather: indices outside [0, 128) do not give the one-hot product's 0")
     return [r for r in records if "name" in r], [r for r in records if "name" not in r]
 
 
@@ -2556,7 +2572,7 @@ def main() -> int:
     os.makedirs(OUT_DIR, exist_ok=True)
     open(os.path.join(OUT_DIR, "chip_smoke.jsonl"), "w").close()
     t0 = time.perf_counter()
-    kernels.build()
+    kernels.build(force=True)  # a cached library has no ptxas report for the kernels line
     build_s = time.perf_counter() - t0
     release = kernels.nvcc_release()
     if kernels.build_info.get("ptxas"):
@@ -2723,7 +2739,7 @@ def main() -> int:
         },
     ] + [dict(r, launches=0, note="probe") for r in probe_records]
     for row in kernels_line:
-        row["ptxas"] = _ptxas(row["name"] + "_kernel")
+        row["ptxas"] = _ptxas(row.get("kernel", row["name"] + "_kernel"))
     _emit({"kernels": kernels_line})
     print(_card(), flush=True)
     _emit({"ok": True, "device": {

@@ -6,19 +6,20 @@
 // its plain PyTorch version.
 //
 // Shapes: N tiles of an (8, 128) block each (the TPU's (sublane, lane)
-// tile; here 8 rows of 128 threads), P = 8 page ids per tile, a table of
-// at most 64 rows of 128 floats. Every kernel but the elementwise and FMA
-// chains and the two read-modify-write probes is one CTA of 128 threads
-// per tile, thread k owning column k. The read-modify-write probes (the
-// gather + RMW and the RMW at dynamic rows) run one persistent CTA per SM
-// of three 128-thread lane groups, each group adding int64 fixed point
-// (value * 2^32, the form the loss kernels' gradient tables take) into its
-// own resident copy of the table in shared memory; a second kernel sums
-// the CTAs' partial tables. No atomics: integer adds commute, so the sums
-// repeat bit for bit.
+// tile), P = 8 page ids per tile, a table of at most 64 rows of 128 floats.
+// The row gather and the select-reduce are one CTA of 128 threads per tile,
+// thread k owning column k. The lane gather gives each row of a
+// tile to one warp (four lanes per thread, as float4) and walks many tiles
+// per CTA; the dynamic-row copy is a persistent grid with the table resident
+// per CTA. The read-modify-write probes (the gather + RMW and the RMW at
+// dynamic rows) run one persistent CTA per SM of three 128-thread lane
+// groups, each group adding int64 fixed point (value * 2^32, the form the
+// loss kernels' gradient tables take) into its own resident copy of the
+// table in shared memory; a second kernel sums the CTAs' partial tables. No
+// atomics: integer adds commute, so the sums repeat bit for bit.
 // Indices are taken modulo their axis length (row index & 7, lane & 127),
-// so no input reads outside a shared-memory block; page ids are checked by
-// the wrappers.
+// so no input reads outside its block; page ids are checked in the kernels
+// (device asserts).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -28,6 +29,8 @@
 namespace {
 
 constexpr int kLanes = 128;
+constexpr int kWarp = 32;
+constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kRows = 8;           // rows (TPU sublanes) per tile block, and page ids per tile
 constexpr int kMaxTableRows = 64;  // table rows a CTA can hold in shared memory (32 KB)
 constexpr float kFixedScale = 4294967296.0f;  // 2^32, as the loss kernels
@@ -145,15 +148,15 @@ paged_gather_rmw_kernel(const int* __restrict__ pages, const int* __restrict__ i
   write_partial(s_acc, partial, entries);
 }
 
-// Replaces tools/kernel_probe.py::taa_kernel (:107) and the C / C2 probes
-// of tools/kernel_probe2.py (:114, :130): take_along_axis on one (8, 128)
-// block, along lanes (kAxis 2: out[r][k] = x[r][i]) or rows (kAxis 1:
-// out[r][k] = x[i][k]). The block is staged in shared memory with coalesced
-// reads, so the gather is a shared-memory read. Bound: bytes.
-template <int kAxis>
+// Replaces the row case of tools/kernel_probe.py::taa_kernel (:107) and the
+// C2 probe of tools/kernel_probe2.py (:130): take_along_axis along the rows
+// of one (8, 128) block, out[r][k] = x[i & 7][k] for i = index[r][k]. The
+// block is staged in shared memory with coalesced reads, so the gather is a
+// shared-memory read. Bound: bytes. (The lane case, taa_kernel's other axis
+// and the C probe, is lane_gather_kernel's.)
 __global__ void __launch_bounds__(kLanes)
-take_along_axis_kernel(const float* __restrict__ x, const int* __restrict__ index,
-                       float* __restrict__ out) {
+row_gather_kernel(const float* __restrict__ x, const int* __restrict__ index,
+                  float* __restrict__ out) {
   __shared__ float s_x[kRows][kLanes];
   const long long base = (long long)blockIdx.x * kRows * kLanes;
   const int k = threadIdx.x;
@@ -161,54 +164,113 @@ take_along_axis_kernel(const float* __restrict__ x, const int* __restrict__ inde
   for (int r = 0; r < kRows; ++r) s_x[r][k] = x[base + r * kLanes + k];
   __syncthreads();
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int i = index[base + r * kLanes + k];
-    out[base + r * kLanes + k] =
-        kAxis == 2 ? s_x[r][i & (kLanes - 1)] : s_x[i & (kRows - 1)][k];
-  }
+  for (int r = 0; r < kRows; ++r)
+    out[base + r * kLanes + k] = s_x[index[base + r * kLanes + k] & (kRows - 1)][k];
 }
 
 // Replaces the A probe of tools/kernel_probe2.py (k_dynslice :73): rows of
-// a resident table at dynamic row ids, out[n, p] = table[pages[n, p]]. The
-// whole table (rows <= 64) sits in shared memory, loaded once per CTA, and
-// each CTA copies the rows of kTilesPerCta tiles. Bound: bytes (out).
-constexpr int kTilesPerCta = 8;
-__global__ void __launch_bounds__(kLanes)
-dyn_slice_kernel(const int* __restrict__ pages, const float* __restrict__ table,
-                 float* __restrict__ out, int n_tiles, int table_rows) {
-  __shared__ float s_table[kMaxTableRows][kLanes];
-  const int k = threadIdx.x;
-  for (int r = 0; r < table_rows; ++r) s_table[r][k] = table[r * kLanes + k];
+// a resident table at dynamic row ids, out[n, p] = table[pages[n, p]].
+// Bound: bytes (out written: 25.7 MB at the probe's 6272 tiles; the table
+// and the page ids are 1% of it). The first design gave each CTA 8 tiles,
+// so 784 CTAs each read the whole table (22.5 MB of L2 reads against 25.7
+// MB written) with scalar loads, read every page id alone and stored 4
+// bytes per thread. Design: a persistent grid of kSliceCtasPerSm CTAs per SM
+// (the SM count read from the device). Each CTA loads the table into shared
+// memory once, as float4, while its warps' first page ids are in flight,
+// then walks a contiguous share of the tiles: warp w takes every
+// kSliceWarps-th tile of the share from the w-th, reads the tile's 8 page
+// ids as two int4 loads (the next tile's issued before this tile's rows
+// go out) and writes its 8 rows, each a whole 512-byte row as 32 float4
+// streaming stores, all 8 in flight. The kernel checks the page ids itself
+// (device asserts: in [0, rows)).
+constexpr int kSliceWarps = 16;
+constexpr int kSliceCtasPerSm = 1;
+
+__global__ void __launch_bounds__(kSliceWarps * kWarp)
+dyn_slice_kernel(const int* __restrict__ pages, const float4* __restrict__ table,
+                 float4* __restrict__ out, int n_tiles, int table_rows) {
+  __shared__ float4 s_table[kMaxTableRows * kWarp];  // row r: s_table[r * 32 .. r * 32 + 31]
+  const int lane = threadIdx.x & (kWarp - 1), w = threadIdx.x / kWarp;
+  const long long hi = (long long)n_tiles * (blockIdx.x + 1) / gridDim.x;
+  long long n = (long long)n_tiles * blockIdx.x / gridDim.x + w;
+  int pg[kRows];
+  load_pages(pages, n, n < hi, pg);
+  for (int e = threadIdx.x; e < table_rows * kWarp; e += blockDim.x) s_table[e] = __ldg(table + e);
   __syncthreads();
-  for (int c = 0; c < kTilesPerCta; ++c) {
-    const long long n = (long long)blockIdx.x * kTilesPerCta + c;
-    if (n >= n_tiles) return;
+  for (; n < hi; n += kSliceWarps) {
+    int next[kRows];
+    load_pages(pages, n + kSliceWarps, n + kSliceWarps < hi, next);
 #pragma unroll
-    for (int p = 0; p < kRows; ++p)
-      out[(n * kRows + p) * kLanes + k] = s_table[pages[n * kRows + p]][k];
+    for (int p = 0; p < kRows; ++p) {
+      assert(pg[p] >= 0 && pg[p] < table_rows);
+      __stcs(out + (n * kRows + p) * kWarp + lane, s_table[pg[p] * kWarp + lane]);
+    }
+#pragma unroll
+    for (int p = 0; p < kRows; ++p) pg[p] = next[p];
   }
 }
 
-// Replaces the B probe of tools/kernel_probe2.py (k_onehot :90): the lane
-// gather as the product of the row with a one-hot matrix,
-// out[n, r, k] = sum_l x[n, r, l] * (l == il[n, r, k]), written out as 128
-// f32 FMAs per output (no tensor cores). Exact: every term but one is a
-// signed zero. Bound: operations (256 per output) against 8 bytes moved.
-__global__ void __launch_bounds__(kLanes)
-onehot_gather_kernel(const float* __restrict__ x, const int* __restrict__ il,
-                     float* __restrict__ out) {
-  __shared__ float s_x[kRows][kLanes];
-  const long long base = (long long)blockIdx.x * kRows * kLanes;
-  const int k = threadIdx.x;
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) s_x[r][k] = x[base + r * kLanes + k];
-  __syncthreads();
-  for (int r = 0; r < kRows; ++r) {
-    const int lk = il[base + r * kLanes + k];
-    float acc = 0.f;
-#pragma unroll 16
-    for (int l = 0; l < kLanes; ++l) acc = fmaf(s_x[r][l], l == lk ? 1.f : 0.f, acc);
-    out[base + r * kLanes + k] = acc;
+// x[i & 127] of a warp's 128-float row held as one float4 per lane (lane j
+// holds x[4j .. 4j + 3]): the four registers of lane (i >> 2) & 31, one
+// shuffle each, and a select of register i & 3.
+__device__ __forceinline__ float row_at(const float4& v, int i) {
+  const int src = (i >> 2) & (kWarp - 1);
+  const float a = __shfl_sync(kFullMask, v.x, src), b = __shfl_sync(kFullMask, v.y, src);
+  const float c = __shfl_sync(kFullMask, v.z, src), d = __shfl_sync(kFullMask, v.w, src);
+  return (i & 2) ? ((i & 1) ? d : c) : ((i & 1) ? b : a);
+}
+
+// Replaces the B probe of tools/kernel_probe2.py (k_onehot :90), the lane
+// case of tools/kernel_probe.py::taa_kernel (:107) and the C probe of
+// tools/kernel_probe2.py (:114): the lane gather out[n, r, k] =
+// x[n, r, il[n, r, k]]. For B the TPU computes it as the row times a
+// 128 x 128 one-hot matrix, only because its vector unit has no dynamic
+// lane gather; the first design here copied that, 128 dependent f32 FMAs
+// per output over shared-memory broadcasts, at 18% of the bytes bound. On
+// Hopper a gather has no operand reuse, and tensor cores cannot help (a
+// TF32 or bf16 product would round x, which must come through exactly).
+// Bound: bytes (x and il read once, out written once: 77 MB at the probes'
+// 6272 tiles). Design: a CTA of 8 warps takes a tile at a time, warp r its
+// row r, and walks every gridDim-th tile (a grid of kGatherCtasPerSm CTAs
+// per SM). Each thread loads four lanes of x and il as one float4 and one
+// int4 (a warp reads its 512-byte rows whole), the next tile's loads issued
+// before this tile's gathers; the gather is done in registers, four
+// shuffles and a select per output (row_at), with no shared memory and no
+// barrier; out goes out as float4 streaming stores. Shuffles rather than a
+// shared-memory copy of the row: each warp holds exactly its row, so no
+// store, barrier or bank conflict stands between the loads and the gather,
+// and 16 shuffles per thread and row stay far below the card's shuffle
+// rate at this byte count. With zero_outside (the one-hot product's
+// function) an index outside [0, 128) gives 0, as no one-hot term matches;
+// otherwise indices are taken modulo 128, as take_along_axis's. Exact.
+constexpr int kGatherThreads = kRows * kWarp;  // one warp per row of the tile
+constexpr int kGatherCtasPerSm = 6;
+
+__device__ __forceinline__ float lane_value(const float4& v, int i, bool zero_outside) {
+  const float g = row_at(v, i);
+  return zero_outside && (unsigned)i >= (unsigned)kLanes ? 0.f : g;
+}
+
+__global__ void __launch_bounds__(kGatherThreads, kGatherCtasPerSm)
+lane_gather_kernel(const float4* __restrict__ x, const int4* __restrict__ il,
+                   float4* __restrict__ out, int n_tiles, int zero_outside) {
+  constexpr int kTile4 = kRows * kLanes / 4;  // float4s per tile, one per thread
+  const long long stride = gridDim.x;
+  long long n = blockIdx.x;
+  if (n >= n_tiles) return;
+  const int t = threadIdx.x;
+  float4 v = __ldcs(x + n * kTile4 + t);
+  int4 i = __ldcs(il + n * kTile4 + t);
+  for (; n < n_tiles; n += stride) {
+    const bool more = n + stride < n_tiles;  // uniform across the CTA
+    const float4 v_next = more ? __ldcs(x + (n + stride) * kTile4 + t) : float4{};
+    const int4 i_next = more ? __ldcs(il + (n + stride) * kTile4 + t) : int4{};
+    const bool z = zero_outside != 0;
+    __stcs(out + n * kTile4 + t,
+           make_float4(lane_value(v, i.x, z), lane_value(v, i.y, z), lane_value(v, i.z, z),
+                       lane_value(v, i.w, z)));
+    v = v_next;
+    i = i_next;
   }
 }
 
@@ -392,6 +454,16 @@ cudaError_t opt_in_shared(Kernel kernel, int bytes, int* opted_in_device) {
   return rc;
 }
 
+// A persistent grid: per_sm CTAs on each SM of the current device, at most
+// one per work item.
+cudaError_t resident_grid(int per_sm, int items, int* grid) {
+  int device = 0, sms = 0;
+  cudaError_t rc = cudaGetDevice(&device);
+  if (rc == cudaSuccess) rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  *grid = sms * per_sm < items ? sms * per_sm : items;
+  return rc;
+}
+
 // Sums the n_ctas partial tables of a read-modify-write probe into out.
 cudaError_t reduce_partials(const long long* partial, long long* out, int n_ctas, int entries,
                             cudaStream_t stream) {
@@ -423,25 +495,28 @@ int jrr_paged_gather_rmw(const int* pages, const int* idx, const float* table, f
   return (int)reduce_partials(partial, dtab, n_ctas, entries, (cudaStream_t)stream);
 }
 
-int jrr_take_along_axis(const float* x, const int* index, float* out, int n_tiles, int axis,
-                        void* stream) {
-  if (axis == 2)
-    take_along_axis_kernel<2><<<n_tiles, kLanes, 0, (cudaStream_t)stream>>>(x, index, out);
-  else
-    take_along_axis_kernel<1><<<n_tiles, kLanes, 0, (cudaStream_t)stream>>>(x, index, out);
+int jrr_row_gather(const float* x, const int* index, float* out, int n_tiles, void* stream) {
+  row_gather_kernel<<<n_tiles, kLanes, 0, (cudaStream_t)stream>>>(x, index, out);
   return (int)cudaGetLastError();
 }
 
 int jrr_dyn_slice(const int* pages, const float* table, float* out, int n_tiles, int table_rows,
                   void* stream) {
-  const int grid = (n_tiles + kTilesPerCta - 1) / kTilesPerCta;
-  dyn_slice_kernel<<<grid, kLanes, 0, (cudaStream_t)stream>>>(pages, table, out, n_tiles,
-                                                              table_rows);
+  int grid = 0;
+  const cudaError_t rc = resident_grid(kSliceCtasPerSm, n_tiles, &grid);
+  if (rc != cudaSuccess) return (int)rc;
+  dyn_slice_kernel<<<grid, kSliceWarps * kWarp, 0, (cudaStream_t)stream>>>(
+      pages, (const float4*)table, (float4*)out, n_tiles, table_rows);
   return (int)cudaGetLastError();
 }
 
-int jrr_onehot_gather(const float* x, const int* il, float* out, int n_tiles, void* stream) {
-  onehot_gather_kernel<<<n_tiles, kLanes, 0, (cudaStream_t)stream>>>(x, il, out);
+int jrr_lane_gather(const float* x, const int* il, float* out, int n_tiles, int zero_outside,
+                    void* stream) {
+  int grid = 0;
+  const cudaError_t rc = resident_grid(kGatherCtasPerSm, n_tiles, &grid);
+  if (rc != cudaSuccess) return (int)rc;
+  lane_gather_kernel<<<grid, kGatherThreads, 0, (cudaStream_t)stream>>>(
+      (const float4*)x, (const int4*)il, (float4*)out, n_tiles, zero_outside);
   return (int)cudaGetLastError();
 }
 

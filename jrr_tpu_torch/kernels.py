@@ -58,11 +58,12 @@ def _sources_hash() -> str:
     return h.hexdigest()[:16]
 
 
-def build() -> Path:
-    """Compile the kernel library if these sources have no build yet;
-    returns its path and records the build in `build_info`."""
+def build(force: bool = False) -> Path:
+    """Compile the kernel library if these sources have no build yet, or
+    anew with `force`; returns its path and records the build in
+    `build_info`."""
     out = BUILD_DIR / f"libjrr_kernels_{_sources_hash()}.so"
-    if out.exists():
+    if out.exists() and not force:
         return out
     nvcc = _nvcc()
     obj_dir = BUILD_DIR / f"obj.{os.getpid()}"
@@ -111,9 +112,9 @@ def _load():
             ("jrr_tiles_alpha_fwd", [p] * 4 + [i] * 2 + [f, f, p]),
             ("jrr_tiles_alpha_bwd", [p] * 5 + [i] * 2 + [f, f, p]),
             ("jrr_paged_gather_rmw", [p] * 6 + [i, i, i, f, p]),
-            ("jrr_take_along_axis", [p] * 3 + [i, i, p]),
+            ("jrr_row_gather", [p] * 3 + [i, p]),
             ("jrr_dyn_slice", [p] * 3 + [i, i, p]),
-            ("jrr_onehot_gather", [p] * 3 + [i, p]),
+            ("jrr_lane_gather", [p] * 3 + [i, i, p]),
             ("jrr_select_reduce", [p] * 3 + [i, p]),
             ("jrr_rmw_rows", [p] * 4 + [i, i, i, f, p]),
             ("jrr_elementwise", [p, p, ll, p]),
@@ -446,11 +447,13 @@ def _check_table(table, pages, n: int) -> int:
     return rows
 
 
-def _check_int4_pages(pages) -> None:
-    """The read-modify-write probes read page ids as int4 (and check their
-    range in the kernels): the data must be 16-byte aligned."""
-    if pages.data_ptr() % 16:
-        raise ValueError("the RMW probes read pages as int4: its data must be 16-byte aligned")
+def _check_aligned(probe: str, **tensors) -> None:
+    """`probe` reads these tensors as 16-byte vectors (int4, float4): their
+    data must be 16-byte aligned."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{probe} reads {name} as 16-byte vectors: its data must be "
+                             "16-byte aligned")
 
 
 def _partials(dev, rows: int):
@@ -470,7 +473,7 @@ def paged_gather_rmw(pages, idx, table):
     second kernel adds the CTAs' tables."""
     n = _check_blocks(idx=(idx, torch.int32))
     rows = _check_table(table, pages, n)
-    _check_int4_pages(pages)
+    _check_aligned("paged_gather_rmw", pages=pages)
     partial = _partials(idx.device, rows)
     out = torch.empty(idx.shape, device=idx.device, dtype=torch.float32)
     dtab = torch.empty(rows, _LANES, device=idx.device, dtype=torch.int64)
@@ -485,25 +488,33 @@ def paged_gather_rmw(pages, idx, table):
 
 def take_along_axis(x, index, axis: int):
     """out = take_along_axis(x, index, axis) on (N, 8, 128) blocks, along
-    lanes (axis 2) or rows (axis 1), indices taken modulo the axis length —
-    replaces tools/kernel_probe.py::taa_kernel."""
+    lanes (axis 2, the lane gather that `onehot_gather` launches too) or
+    rows (axis 1), indices taken modulo the axis length — replaces
+    tools/kernel_probe.py::taa_kernel."""
     if axis not in (1, 2):
         raise ValueError(f"axis must be 1 or 2, got {axis}")
     n = _check_blocks(x=(x, torch.float32), index=(index, torch.int32))
     out = torch.empty_like(x)
-    _probe_launch(take_along_axis, x.device, "jrr_take_along_axis", x.data_ptr(),
-                  index.data_ptr(), out.data_ptr(), n, axis)
+    if axis == 2:
+        _check_aligned("take_along_axis", x=x, index=index)
+        _probe_launch(take_along_axis, x.device, "jrr_lane_gather", x.data_ptr(), index.data_ptr(),
+                      out.data_ptr(), n, 0)
+    else:
+        _probe_launch(take_along_axis, x.device, "jrr_row_gather", x.data_ptr(), index.data_ptr(),
+                      out.data_ptr(), n)
     return out
 
 
 def dyn_slice(pages, table):
-    """out[n, p] = table[pages[n, p]] (N, 8, 128), the table resident in
-    shared memory — replaces the A probe (k_dynslice) of tools/kernel_probe2.py."""
+    """out[n, p] = table[pages[n, p]] (N, 8, 128) — replaces the A probe
+    (k_dynslice) of tools/kernel_probe2.py. A persistent grid, the table
+    resident in each CTA's shared memory, rows written whole; the kernel
+    checks that page ids lie in [0, table rows) (device asserts)."""
     n = pages.shape[0]
     rows = _check_table(table, pages, n)
-    torch._assert_async(torch.all((pages >= 0) & (pages < rows)), "page ids must lie in [0, table rows)")
     if not 0 < n < 2**31:
         raise ValueError(f"need 0 < N < 2³¹ tiles, got {n}")
+    _check_aligned("dyn_slice", pages=pages, table=table)
     out = torch.empty(n, _PROBE_ROWS, _LANES, device=pages.device, dtype=torch.float32)
     _probe_launch(dyn_slice, pages.device, "jrr_dyn_slice", pages.data_ptr(), table.data_ptr(),
                   out.data_ptr(), n, rows)
@@ -511,13 +522,15 @@ def dyn_slice(pages, table):
 
 
 def onehot_gather(x, il):
-    """out[n, r, k] = Σ_l x[n, r, l]·(l == il[n, r, k]) in f32 FMAs (the
-    one-hot product, exact) — replaces the B probe (k_onehot) of
-    tools/kernel_probe2.py."""
+    """out[n, r, k] = x[n, r, il[n, r, k]], and 0 where il lies outside
+    [0, 128): the function of the one-hot product Σ_l x[n, r, l]·(l ==
+    il[n, r, k]), computed as a lane gather (no product) — replaces the B
+    probe (k_onehot) of tools/kernel_probe2.py."""
     n = _check_blocks(x=(x, torch.float32), il=(il, torch.int32))
+    _check_aligned("onehot_gather", x=x, il=il)
     out = torch.empty_like(x)
-    _probe_launch(onehot_gather, x.device, "jrr_onehot_gather", x.data_ptr(), il.data_ptr(),
-                  out.data_ptr(), n)
+    _probe_launch(onehot_gather, x.device, "jrr_lane_gather", x.data_ptr(), il.data_ptr(),
+                  out.data_ptr(), n, 1)
     return out
 
 
@@ -539,7 +552,7 @@ def rmw_rows(pages, x, rows: int):
     kernel adds the CTAs' tables."""
     n = _check_blocks(x=(x, torch.float32))
     _check_pages(pages, n, rows)
-    _check_int4_pages(pages)
+    _check_aligned("rmw_rows", pages=pages)
     partial = _partials(x.device, rows)
     out = torch.empty(rows, _LANES, device=x.device, dtype=torch.int64)
     # Page ids and |x| are checked in the kernel (device asserts): no sum

@@ -54,6 +54,23 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def time_cold_ms(fn, reps: int) -> float:
+    """Mean device ms per call of `fn` when it finds the L2 cache cold: each
+    call after a read of a buffer twice the L2's size, less those reads
+    alone (both timed as `time_ms`). It includes writing back to device
+    memory what `fn` left in L2. `time_ms`'s repeats on the same inputs
+    find part of a working set near the L2's 50 MB in the cache, and
+    rewrite the same output there."""
+    l2_bytes = torch.cuda.get_device_properties(torch.cuda.current_device()).L2_cache_size
+    flush = torch.zeros(2 * l2_bytes // 4, device="cuda")
+
+    def after_flush():
+        flush.sum()
+        fn()
+
+    return time_ms(after_flush, reps) - time_ms(flush.sum, reps)
+
+
 def bound(byte_count: float, ops: float, ops_per_s: float = F32_OPS_PER_S):
     """(least ms for these bytes and operations, "bytes" or "operations")."""
     byte_ms = 1e3 * byte_count / HBM_BYTES_PER_S
@@ -61,16 +78,17 @@ def bound(byte_count: float, ops: float, ops_per_s: float = F32_OPS_PER_S):
     return max(byte_ms, op_ms), ("bytes" if byte_ms >= op_ms else "operations")
 
 
-def record(name, replaces, got, want, tolerance, tolerance_text, ms, plain_ms, bound_ms_by,
+def record(name, kernel, replaces, got, want, tolerance, tolerance_text, ms, plain_ms, bound_ms_by,
            library, library_ms):
-    """One kernel's record; raises unless `got` agrees with `want` within
-    `tolerance` (0, an absolute bound, or a tensor of per-element bounds)."""
+    """One kernel's record; `kernel` names its CUDA entry function in
+    `SOURCE`. Raises unless `got` agrees with `want` within `tolerance` (0, an
+    absolute bound, or a tensor of per-element bounds)."""
     diff = (got.double() - want.double()).abs()
     err = float(diff.max())
     if not bool(torch.all(diff <= tolerance)):
         raise AssertionError(f"{name}: kernel and plain version differ by {err} ({tolerance_text})")
     return {
-        "name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
+        "name": name, "route": "cuda", "source": SOURCE, "kernel": kernel, "replaces": replaces,
         "max_abs_err": err, "tolerance": tolerance_text, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms_by[0], "bound_by": bound_ms_by[1],
         "library": library, "library_ms": library_ms,

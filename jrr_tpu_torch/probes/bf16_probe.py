@@ -79,7 +79,7 @@ def measure(rows: int = GRID * ROWS, reps: int = REPS, trials: int = TRIALS) -> 
         want = fma_chain_plain(x, reps, dtype, fused=True)
         two_step = fma_chain_plain(x, reps, dtype, fused=False)
         rec = probes.record(
-            name, "tools/bf16_vpu_probe.py:36", got, want, 0.0,
+            name, name + "_kernel", "tools/bf16_vpu_probe.py:36", got, want, 0.0,
             "exact against the plain version rounding each step once (as fmaf/__hfma2)",
             probes.time_ms(lambda: kernel(x, reps), trials),
             probes.time_ms(lambda: fma_chain_plain(x, reps, dtype, fused=True), 1),

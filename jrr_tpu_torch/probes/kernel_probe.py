@@ -97,7 +97,8 @@ def measure(n_tiles: int = N_TILES, reps: int = REPS) -> list:
         raise AssertionError("paged_gather_rmw: int64 sums differ from paged_gather_rmw_fixed_plain's")
     terms = torch.bincount(x["pages"].long().reshape(-1), minlength=PAGES)[:, None].double()
     rec = probes.record(
-        "paged_gather_rmw", "tools/kernel_probe.py:43", kernels.from_fixed_point(dtab), dtab_p,
+        "paged_gather_rmw", "paged_gather_rmw_kernel", "tools/kernel_probe.py:43",
+        kernels.from_fixed_point(dtab), dtab_p,
         fixed_point_tolerance(dtab_p.double(), terms),
         "gather exact; int64 dtab equal to paged_gather_rmw_fixed_plain's exactly; as float32 "
         "within terms·2^-33 + 1 f32 ulp of the float64 sum (paged_gather_rmw_plain)",
@@ -111,12 +112,13 @@ def measure(n_tiles: int = N_TILES, reps: int = REPS) -> list:
     rec.update(exact_vs_fixed_plain=True, copy_ms=probes.time_ms(lambda: x["idx"].clone(), reps))
     records = [rec]
 
-    for axis, index, name in ((2, x["il"], "take_along_axis_lane"), (1, x["isub"], "take_along_axis_sublane")):
+    for axis, index, name, entry in ((2, x["il"], "take_along_axis_lane", "lane_gather_kernel"),
+                                     (1, x["isub"], "take_along_axis_sublane", "row_gather_kernel")):
         got = kernels.take_along_axis(x["x"], index, axis)
         want = take_along_axis_plain(x["x"], index, axis)
         index64 = index.long()
         records.append(probes.record(
-            name, "tools/kernel_probe.py:107", got, want, 0.0, "exact",
+            name, entry, "tools/kernel_probe.py:107", got, want, 0.0, "exact",
             probes.time_ms(lambda: kernels.take_along_axis(x["x"], index, axis), reps),
             probes.time_ms(lambda: take_along_axis_plain(x["x"], index, axis), reps),
             probes.bound(3 * block, 0), "torch.gather",

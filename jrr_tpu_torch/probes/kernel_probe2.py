@@ -2,8 +2,8 @@
 tools/kernel_probe2.py, row 9 of PERF.md's kernel table):
 
     A  rows of a resident table at dynamic row ids      table[pages]
-    B  the lane gather as a one-hot product, in f32 FMAs
-    C  take_along_axis on lanes, C2 on rows             (row 8's kernel)
+    B  the lane gather the TPU computes as a one-hot product (a gather here)
+    C  take_along_axis on lanes (B's kernel), C2 on rows (row 8's kernels)
     D  select-reduce over the 8 rows
     E  read-modify-write at dynamic rows                (int64 fixed point)
     F  the elementwise anchor 2x + 1
@@ -104,34 +104,47 @@ def measure(n_tiles: int = N_TILES, reps: int = REPS) -> list:
     time = probes.time_ms
     records = []
 
-    def add(name, line, kernel, plain, tolerance, tolerance_text, bound, library=None, library_fn=None):
+    def add(name, entry, line, kernel, plain, tolerance, tolerance_text, bound, library=None,
+            library_fn=None):
         got, want = kernel(), plain()
         torch.cuda.synchronize()
         records.append(probes.record(
-            name, src + line, got, want, tolerance, tolerance_text, time(kernel, reps),
+            name, entry, src + line, got, want, tolerance, tolerance_text, time(kernel, reps),
             time(plain, 3), bound, library, None if library_fn is None else time(library_fn, reps),
         ))
+        return got
 
     pages64, il64, isub64 = pages.long(), il.long(), isub.long()
-    add("A_dyn_sublane_slice", "73", lambda: kernels.dyn_slice(pages, table),
-        lambda: dyn_slice_plain(pages, table), 0.0, "exact",
-        probes.bound(pages_bytes + table_bytes + block, 0), "table[pages]", lambda: table[pages64])
+    out_a = add("A_dyn_sublane_slice", "dyn_slice_kernel", "73",
+                lambda: kernels.dyn_slice(pages, table), lambda: dyn_slice_plain(pages, table), 0.0,
+                "exact", probes.bound(pages_bytes + table_bytes + block, 0), "table[pages]",
+                lambda: table[pages64])
+    # What writing the same bytes costs on this card: the floor under the
+    # bytes bound. Both also with the L2 cold (see probes.time_cold_ms).
+    records[-1].update(
+        write_ms=time(lambda: out_a.zero_(), reps),
+        cold_ms=probes.time_cold_ms(lambda: kernels.dyn_slice(pages, table), reps),
+        write_cold_ms=probes.time_cold_ms(lambda: out_a.zero_(), reps))
 
-    onehot = _onehot(il).reshape(n * ROWS, LANES, LANES)  # 3.3 GB: the library call's operand
-    x_rows = xs.reshape(n * ROWS, 1, LANES)
-    add("B_onehot_matmul", "90", lambda: kernels.onehot_gather(xs, il),
+    # B's function is the lane gather: its bound counts the bytes (x, il
+    # read, out written); the TPU's one-hot product, 128 FMAs per output, is
+    # work no kernel here does, kept as onehot_ops_bound_ms.
+    add("B_onehot_matmul", "lane_gather_kernel", "90", lambda: kernels.onehot_gather(xs, il),
         lambda: onehot_gather_plain(xs, il), 0.0, "exact (one nonzero term per sum)",
-        probes.bound(3 * block, 2 * n * ROWS * LANES * LANES), "torch.bmm with the one-hot matrix",
-        lambda: torch.bmm(x_rows, onehot))
-    del onehot
+        probes.bound(3 * block, 0), "torch.gather", lambda: torch.gather(xs, 2, il64))
+    records[-1].update(
+        onehot_ops_bound_ms=probes.bound(0, 2 * n * ROWS * LANES * LANES)[0],
+        cold_ms=probes.time_cold_ms(lambda: kernels.onehot_gather(xs, il), reps))
 
-    for name, line, index, axis, index64 in (("C_taa_lane", "114", il, 2, il64),
-                                             ("C2_taa_sublane", "130", isub, 1, isub64)):
-        add(name, line, lambda: kernels.take_along_axis(xs, index, axis),
+    for name, entry, line, index, axis, index64 in (
+            ("C_taa_lane", "lane_gather_kernel", "114", il, 2, il64),
+            ("C2_taa_sublane", "row_gather_kernel", "130", isub, 1, isub64)):
+        add(name, entry, line,
+            lambda: kernels.take_along_axis(xs, index, axis),
             lambda: take_along_axis_plain(xs, index, axis), 0.0, "exact",
             probes.bound(3 * block, 0), "torch.gather", lambda: torch.gather(xs, axis, index64))
 
-    add("D_select_reduce", "146", lambda: kernels.select_reduce(xs, isub),
+    add("D_select_reduce", "select_reduce_kernel", "146", lambda: kernels.select_reduce(xs, isub),
         lambda: select_reduce_plain(xs, isub), 0.0, "exact (the other terms add zero)",
         probes.bound(3 * block, n * ROWS * LANES * ROWS), "torch.gather",
         lambda: torch.gather(xs, 1, isub64))
@@ -150,7 +163,7 @@ def measure(n_tiles: int = N_TILES, reps: int = REPS) -> list:
         raise AssertionError("E_rmw_dynamic_rows: beyond terms·2^-33 + 1 f32 ulp of the float64 sum")
     acc = torch.zeros(PAGES, LANES, device=xs.device)
     rec = probes.record(
-        "E_rmw_dynamic_rows", src + "170", got_e, want_e, 0.0,
+        "E_rmw_dynamic_rows", "rmw_rows_kernel", src + "170", got_e, want_e, 0.0,
         "int64 sums equal rmw_rows_fixed_plain's exactly; as float32 within terms·2^-33 + 1 f32 ulp "
         "of the float64 sum (rmw_rows_plain)",
         time(lambda: kernels.rmw_rows(pages, xs, PAGES), reps),
@@ -165,7 +178,7 @@ def measure(n_tiles: int = N_TILES, reps: int = REPS) -> list:
     records.append(rec)
 
     one = torch.ones((), device=xs.device)
-    add("F_elementwise_baseline", "191", lambda: kernels.elementwise_baseline(xs),
+    add("F_elementwise_baseline", "elementwise_kernel", "191", lambda: kernels.elementwise_baseline(xs),
         lambda: elementwise_plain(xs), 0.0, "exact (2x is exact, one rounding)",
         probes.bound(2 * block, 2 * n * ROWS * LANES), "torch.add(1, x, alpha=2)",
         lambda: torch.add(one, xs, alpha=2.0))

@@ -1,9 +1,10 @@
 """The probes' plain versions (jrr_tpu_torch/probes/) on the CPU against the
 Pallas probe bodies of tools/ run in interpret mode (rows 7, 8 and 10 of
-PERF.md's kernel table) and against the numpy statements of
-tools/kernel_probe2.py (row 9, whose kernels are local to its main()), at
-16 tiles. Gathers, selects and the elementwise anchor are exact; sums of
-many terms within float32 rounding of a float64 sum (stated per test)."""
+PERF.md's kernel table, and row 9's A and B, whose bodies are local to
+tools/kernel_probe2.py's main() and copied here) and against the numpy
+statements of tools/kernel_probe2.py (row 9), at 16 tiles. Gathers, selects
+and the elementwise anchor are exact; sums of many terms within float32
+rounding of a float64 sum (stated per test)."""
 
 import functools
 import os
@@ -107,6 +108,76 @@ def test_fma_chain_matches_interpret_kernel(dtype):
         # exact: one rounding per step (the card's kernels) and two agree.
         np.testing.assert_array_equal(two_step, want)
         np.testing.assert_array_equal(fused, want)
+
+
+# The A and B bodies of tools/kernel_probe2.py, verbatim (:73-86 and
+# :90-108 there; local to its main(), so they cannot be imported), with
+# the tool's block specs below.
+def k_dynslice(pages_ref, table_ref, out_ref):
+    for c in range(CHUNK):
+        rows = [table_ref[pl.ds(pages_ref[c, p], 1), :] for p in range(8)]
+        out_ref[c] = jnp.concatenate(rows, axis=0)
+
+
+def k_onehot(x_ref, il_ref, out_ref):
+    for c in range(CHUNK):
+        ws = x_ref[c]
+        outs = []
+        for r in range(8):
+            m = (
+                jax.lax.broadcasted_iota(jnp.int32, (LANES, LANES), 0)
+                == il_ref[c, r : r + 1, :]
+            ).astype(jnp.float32)
+            t = jnp.dot(ws, m, preferred_element_type=jnp.float32)
+            outs.append(t[r : r + 1, :])
+        out_ref[c] = jnp.concatenate(outs, axis=0)
+
+
+def _interpret_probe2(body, in_specs, *args):
+    """tools/kernel_probe2.py's bench() call of `body` at N tiles, in
+    interpret mode: grid N // CHUNK, (CHUNK, 8, 128) output blocks."""
+    return np.asarray(pl.pallas_call(
+        body, grid=(N // CHUNK,), in_specs=in_specs,
+        out_specs=pl.BlockSpec((CHUNK, 8, LANES), lambda i: (i, 0, 0), memory_space=pltpu.VMEM),
+        out_shape=jax.ShapeDtypeStruct((N, 8, LANES), jnp.float32), interpret=True,
+    )(*args))
+
+
+def test_dyn_slice_plain_matches_interpret_kernel():
+    x = kernel_probe2.make_inputs(N, device="cpu")
+    want = _interpret_probe2(
+        k_dynslice,
+        [pl.BlockSpec((CHUNK, 8), lambda i: (i, 0), memory_space=pltpu.SMEM),
+         pl.BlockSpec((kernel_probe2.PAGES, LANES), lambda i: (0, 0), memory_space=pltpu.VMEM)],
+        x["pages"].numpy(), x["table"].numpy())
+    np.testing.assert_array_equal(kernel_probe2.dyn_slice_plain(x["pages"], x["table"]).numpy(), want)
+
+
+def test_onehot_gather_plain_matches_interpret_kernel():
+    """Exact: on the CPU the interpret-mode float32 dot has one nonzero
+    term per sum (the others are x·0), so it returns x at the index."""
+    x = kernel_probe2.make_inputs(N, device="cpu")
+    spec = pl.BlockSpec((CHUNK, 8, LANES), lambda i: (i, 0, 0), memory_space=pltpu.VMEM)
+    want = _interpret_probe2(k_onehot, [spec, spec], x["x"].numpy(), x["il"].numpy())
+    got = kernel_probe2.onehot_gather_plain(x["x"], x["il"]).numpy()
+    np.testing.assert_array_equal(got, want)
+    # ... which is the lane gather, the function the card's kernel computes.
+    np.testing.assert_array_equal(got, np.take_along_axis(x["x"].numpy(), x["il"].numpy(), axis=2))
+
+
+def test_lane_gather_plain_versions_outside_indices():
+    """The two functions the card's lane gather computes differ only on
+    indices outside [0, 128): take_along_axis takes them modulo 128, the
+    one-hot product gives 0 (no term matches)."""
+    rng = np.random.default_rng(3)
+    x = torch.as_tensor(rng.normal(size=(2, 8, LANES)).astype(np.float32))
+    il = torch.as_tensor(rng.integers(-300, 300, size=(2, 8, LANES)).astype(np.int32))
+    inside = (il >= 0) & (il < LANES)
+    assert 0 < int(inside.sum()) < il.numel()
+    modulo = np.take_along_axis(x.numpy(), np.mod(il.numpy(), LANES), axis=2)
+    np.testing.assert_array_equal(kernel_probe.take_along_axis_plain(x, il, 2).numpy(), modulo)
+    np.testing.assert_array_equal(kernel_probe2.onehot_gather_plain(x, il).numpy(),
+                                  np.where(inside.numpy(), modulo, 0.0))
 
 
 def test_probe2_plain_versions_match_numpy():
