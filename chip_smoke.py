@@ -956,12 +956,18 @@ def _launches(**counts):
 def _ptxas(kernel: str):
     """Registers, spills and static shared memory that `ptxas -v` reported
     for the entry function `kernel` in this process's build (None when the
-    library was built before, or for a name no entry has)."""
+    library was built before, or for a name no entry has). A template
+    instance is named as `name<Type, N>`."""
     import re
 
     from jrr_tpu_torch import kernels
 
-    tag = f"{len(kernel)}{kernel}"  # the name as the mangled symbol holds it
+    # The name as the mangled symbol holds it: <length><name>, and for an
+    # instance of a template in the file's anonymous namespace
+    # I NS_<length><Type>E Li<N>E E.
+    m = re.fullmatch(r"(\w+)<(\w+), (\d+)>", kernel)
+    tag = (f"{len(m[1])}{m[1]}INS_{len(m[2])}{m[2]}ELi{m[3]}EE" if m
+           else f"{len(kernel)}{kernel}")
     lines = kernels.build_info.get("ptxas", "").splitlines()
     for i, line in enumerate(lines):
         if "Compiling entry function" in line and tag in line:
@@ -1517,6 +1523,14 @@ def run_probes():
            "take_along_axis (lanes): indices outside [0, 128) not taken modulo 128")
     _check(torch.equal(kernels.onehot_gather(x, il), kernel_probe2.onehot_gather_plain(x, il)),
            "onehot_gather: indices outside [0, 128) do not give the one-hot product's 0")
+    # The chains' chunked instance (lengths other than the probe's: a chunk
+    # and a remainder) on a ragged input, exact.
+    x = torch.as_tensor(rng.uniform(size=1000 * 128 + 4).astype(np.float32), device="cuda")
+    for reps in (2, 27):
+        for wrapper, dtype in ((kernels.fma_chain_f32, torch.float32),
+                               (kernels.fma_chain_bf16, torch.bfloat16)):
+            _check(torch.equal(wrapper(x, reps), bf16_probe.fma_chain_plain(x, reps, dtype, True)),
+                   f"{wrapper.__name__} at {reps} steps differs from its plain version")
     return [r for r in records if "name" in r], [r for r in records if "name" not in r]
 
 
@@ -1538,7 +1552,7 @@ def run_training():
     (full width; its mask rendered through the round-1 tile kernel), cut
     into TRAIN_STEPS batches; `outer_step` on each at 1000 + 100 steps and
     shipped defaults, from the perturbed true regressor; then the
-    closed-form regressor fit over the three batches at V = 6890."""
+    closed-form regressor fit over those batches at V = 6890."""
     import torch
 
     from jrr_tpu_torch import config, kernels
@@ -2016,7 +2030,8 @@ def run_product_path(data_root):
     defaults, 1000 + 100 steps) over PRODUCT_FRAMES frames (two shards),
     which must read the v2 pack; then the same call again on the same out
     dir, which must resume both shards (no refinement kernel launched) and
-    give the same regressors and evals. The launch counts are set to 0
+    give the same regressors and evals; then a run killed after shard 0 and
+    resumed (`run_killed_and_resumed`). The launch counts are set to 0
     before each run (the first's fixture write and pack builds included)
     and read after it; the out dir is temporary. The three loaders are then
     held against each other on the first batch (`check_loaders`), and rows
@@ -2083,6 +2098,8 @@ def run_product_path(data_root):
                 saved=os.path.exists(os.path.join(out_dir, "retrained_j_regressor.npz")),
                 state=state,
             ))
+        killed = run_killed_and_resumed(cfg, data_root, os.path.join(tmp, "killed"), model,
+                                        runs[0], os.path.join(out_dir, "refined"))
         loaders = check_loaders(cfg, data_root)
         render = check_product_render(model, j_true, cfg.seed, data_root)
         bins = check_product_bins(model, cfg, data_root)
@@ -2133,10 +2150,99 @@ def run_product_path(data_root):
                      launches=resumed["launches"], lstsq_max_abs_diff=lstsq_diff,
                      evals_equal=True, state_layout="jrr_tpu", state_keys=len(first["state"]),
                      state_restored_equal=True),
+        killed_and_resumed=killed,
         jax_state=jax_state,
         loader_check=loaders, render_check=render, bins_check=bins,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, card=_card(),
     ), model
+
+
+class _Killed(Exception):
+    """The simulated crash of `run_killed_and_resumed`."""
+
+
+def run_killed_and_resumed(cfg, data_root, out_dir, model, first, first_refined):
+    """The product run of `run_product_path` again in a new out dir, with a
+    regressor snapshot after every shard, killed in its second outer step
+    (after shard 0: `trainer.outer_step` raises), then resumed with the
+    same arguments. The killed run must leave shard 0, its snapshot and the
+    train state after it, nothing of shard 1; the resume must run shard 1
+    alone (one refinement's launches) and end bit for bit where the
+    uninterrupted run `first` ended: regressors, evals, train state and
+    refined shards, with shard 1's snapshot equal to the final regressor."""
+    import numpy as np
+    import torch
+
+    from jrr_tpu_torch import kernels
+    from jrr_tpu_torch.pipeline import run_pipeline
+    from jrr_tpu_torch.refine import trainer
+    from jrr_tpu_torch.utils.checkpoint import ShardManifest
+
+    cfg = dataclasses.replace(cfg, jreg=dataclasses.replace(cfg.jreg, snapshot_interval=1))
+    step, calls = trainer.outer_step, []
+
+    def killed_step(*args, **kwargs):
+        if calls:
+            raise _Killed("killed in the outer step of shard 1")
+        calls.append(1)
+        return step(*args, **kwargs)
+
+    snaps = os.path.join(out_dir, "jreg_snapshots")
+    trainer.outer_step = killed_step
+    t0 = time.perf_counter()
+    try:
+        run_pipeline(cfg, data_root=data_root, out_dir=out_dir, demo=True, model=model,
+                     loader="auto")
+        _check(False, "killed product run: the simulated crash did not stop it")
+    except _Killed:
+        pass
+    finally:
+        trainer.outer_step = step
+    torch.cuda.synchronize()
+    killed_s = time.perf_counter() - t0
+    with open(os.path.join(out_dir, "resume.json")) as f:
+        marker = json.load(f)
+    after_kill = dict(shards=ShardManifest(os.path.join(out_dir, "refined")).completed(),
+                      snapshots=sorted(os.listdir(snaps)), states=sorted(
+                          os.listdir(os.path.join(out_dir, "ckpt"))), resume=marker)
+    _check(after_kill == dict(shards=[0], snapshots=["snap_00000.npz"],
+                              states=["state_00000001.npz"],
+                              resume={"state": "state_00000001.npz", "shard": 0}),
+           f"killed product run left {after_kill}")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    arts = run_pipeline(cfg, data_root=data_root, out_dir=out_dir, demo=True, model=model,
+                        loader="auto")
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    launches = _read_launches()
+    _check(launches == _launches(fused_lossgrad=38, fused_alpha_fwd=2),
+           f"resumed killed run launched {launches}, not one shard's refinement")
+    a = first["arts"]
+    _check(np.array_equal(arts.j_reg_final, a.j_reg_final)
+           and np.array_equal(arts.j_reg_lstsq, a.j_reg_lstsq),
+           "killed and resumed run: regressors differ from the uninterrupted run's")
+    evals = {"initial": arts.eval_before_after.before,
+             "adam_final": arts.eval_before_after.after, "lstsq": arts.eval_lstsq}
+    _check(evals == first["evals"], "killed and resumed run: evals differ")
+    with np.load(os.path.join(out_dir, "ckpt", "state_00000002.npz")) as f:
+        state = dict(f)
+    _check(state.keys() == first["state"].keys() and all(
+        np.array_equal(state[k], first["state"][k]) for k in state),
+        "killed and resumed run: train state differs from the uninterrupted run's")
+    for sid in (0, 1):
+        name = f"shard_{sid:06d}.npz"
+        with np.load(os.path.join(out_dir, "refined", name)) as f, \
+                np.load(os.path.join(first_refined, name)) as g:
+            _check(f.files == g.files and all(np.array_equal(f[k], g[k]) for k in f.files),
+                   f"killed and resumed run: {name} differs from the uninterrupted run's")
+    _check(sorted(os.listdir(snaps)) == ["snap_00000.npz", "snap_00001.npz"],
+           f"killed and resumed run: snapshots {sorted(os.listdir(snaps))}")
+    with np.load(os.path.join(snaps, "snap_00001.npz")) as f:
+        _check(np.array_equal(f["j_regressor"], a.j_reg_final),
+               "killed and resumed run: shard 1's snapshot is not the final regressor")
+    return dict(after_kill=after_kill, killed_seconds=killed_s, resume_seconds=resume_s,
+                resume_launches=launches, equal_to_uninterrupted=True)
 
 
 def check_jax_state():

@@ -404,40 +404,108 @@ __global__ void elementwise_kernel(const float4* __restrict__ x, float4* __restr
 // Replace tools/bf16_vpu_probe.py::_kernel (:36): `reps` steps of two
 // dependent streams, acc = acc * c1 + c2 and y = y * c2 + c1, each step one
 // fused multiply-add rounded once (fmaf, __hfma2), and out = acc + y in
-// f32. The bf16 kernel packs two elements into one __nv_bfloat162 per
-// instruction. c1 = 1 + 2^-10 is exact in f32 but rounds to 1 in bf16 (8
+// f32. c1 = 1 + 2^-10 is exact in f32 but rounds to 1 in bf16 (8
 // significant bits), as in the Pallas probe. Bound: operations (4 flops
-// per element and step).
+// per element and step), at the data sheet's 67 (f32) and 134 (packed
+// bf16) TFLOP/s.
+//
+// What bounds it on this card: the FMA pipes. A sweep over the chain length
+// (probes/bf16_probe.py::sweep) and the SASS show HFMA2.BF16_V2 issuing at
+// 2 warp instructions per SM and clock, half the rate the data sheet's 134
+// TFLOP/s assumes (FFMA issues at up to 4): the packed-bf16 chain's floor
+// is the f32 chain's bound. The first design (one element pair per thread,
+// a runtime loop unrolled 8 times, 8192 CTAs) spent 3 issue slots of 19 on
+// the loop and ran loads, chain and stores as phases: the f32 chain reached
+// 2.8 FFMA per SM and clock.
+//
+// Design, one template for both types: a persistent grid of
+// kChainCtasPerSm CTAs per SM in which each thread walks every
+// (grid size)-th float4, loading the next one before the chain of this one
+// so that the memory traffic hides under the arithmetic; 128-bit loads and
+// stores; 8 (f32) or 4 (bf16) independent chains per thread. The probe's
+// chain length is a template argument, so its 200 steps unroll completely
+// (as the Pallas body's Python loop does), 2-5% faster than the chunked
+// instance at 200 steps; other lengths run the same body in unrolled
+// chunks of kChainUnroll steps and a remainder loop. Two float4 per thread
+// unrolled completely measured slower in f32 (3200 FMA of code).
 constexpr float kC1 = 1.0009765625f;
 constexpr float kC2 = -0.001953125f;  // -2^-9
+constexpr int kChainThreads = 256;
+constexpr int kChainCtasPerSm = 4;
+constexpr int kChainUnroll = 25;
+constexpr int kChainProbeReps = 200;  // bf16_vpu_probe.REPS
 
-__global__ void fma_chain_f32_kernel(const float* __restrict__ x, float* __restrict__ out,
-                                     long long n, int reps) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float acc = x[i], y = x[i];
-#pragma unroll 8
-  for (int s = 0; s < reps; ++s) {
-    acc = fmaf(acc, kC1, kC2);
-    y = fmaf(y, kC2, kC1);
+// One float4's four elements in float32: one FFMA per element and stream.
+struct ChainF32 {
+  struct Regs {
+    float acc[4], y[4];
+  };
+  static __device__ __forceinline__ void init(const float4& v, Regs& r) {
+    r.acc[0] = r.y[0] = v.x, r.acc[1] = r.y[1] = v.y;
+    r.acc[2] = r.y[2] = v.z, r.acc[3] = r.y[3] = v.w;
   }
-  out[i] = acc + y;
-}
+  static __device__ __forceinline__ void step(Regs& r) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      r.acc[i] = fmaf(r.acc[i], kC1, kC2);
+      r.y[i] = fmaf(r.y[i], kC2, kC1);
+    }
+  }
+  static __device__ __forceinline__ float4 result(const Regs& r) {
+    return make_float4(r.acc[0] + r.y[0], r.acc[1] + r.y[1], r.acc[2] + r.y[2], r.acc[3] + r.y[3]);
+  }
+};
 
-__global__ void fma_chain_bf16_kernel(const float2* __restrict__ x, float2* __restrict__ out,
-                                      long long n2, int reps) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n2) return;
-  const __nv_bfloat162 c1 = __float2bfloat162_rn(kC1), c2 = __float2bfloat162_rn(kC2);
-  __nv_bfloat162 acc = __float22bfloat162_rn(x[i]);
-  __nv_bfloat162 y = acc;
-#pragma unroll 8
-  for (int s = 0; s < reps; ++s) {
-    acc = __hfma2(acc, c1, c2);
-    y = __hfma2(y, c2, c1);
+// One float4's four elements as two packed bf16 pairs (rounded to nearest
+// from f32): one HFMA2 per pair and stream.
+struct ChainBf16 {
+  struct Regs {
+    __nv_bfloat162 acc[2], y[2];
+  };
+  static __device__ __forceinline__ void init(const float4& v, Regs& r) {
+    r.acc[0] = r.y[0] = __float22bfloat162_rn(make_float2(v.x, v.y));
+    r.acc[1] = r.y[1] = __float22bfloat162_rn(make_float2(v.z, v.w));
   }
-  const float2 a = __bfloat1622float2(acc), b = __bfloat1622float2(y);
-  out[i] = make_float2(a.x + b.x, a.y + b.y);
+  static __device__ __forceinline__ void step(Regs& r) {
+    const __nv_bfloat162 c1 = __float2bfloat162_rn(kC1), c2 = __float2bfloat162_rn(kC2);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      r.acc[i] = __hfma2(r.acc[i], c1, c2);
+      r.y[i] = __hfma2(r.y[i], c2, c1);
+    }
+  }
+  static __device__ __forceinline__ float4 result(const Regs& r) {
+    const float2 a0 = __bfloat1622float2(r.acc[0]), y0 = __bfloat1622float2(r.y[0]);
+    const float2 a1 = __bfloat1622float2(r.acc[1]), y1 = __bfloat1622float2(r.y[1]);
+    return make_float4(a0.x + y0.x, a0.y + y0.y, a1.x + y1.x, a1.y + y1.y);
+  }
+};
+
+// kReps > 0: exactly kReps steps, unrolled completely; kReps == 0: `reps`
+// steps in unrolled chunks of kChainUnroll, then the remainder.
+template <class Chain, int kReps>
+__global__ void __launch_bounds__(kChainThreads)
+fma_chain_kernel(const float4* __restrict__ x, float4* __restrict__ out, long long n4, int reps) {
+  const long long stride = (long long)gridDim.x * kChainThreads;
+  long long i = (long long)blockIdx.x * kChainThreads + threadIdx.x;
+  float4 next = i < n4 ? __ldg(x + i) : make_float4(0.f, 0.f, 0.f, 0.f);
+  for (; i < n4; i += stride) {
+    typename Chain::Regs r;
+    Chain::init(next, r);
+    if (i + stride < n4) next = __ldg(x + i + stride);
+    if (kReps > 0) {
+#pragma unroll
+      for (int s = 0; s < kReps; ++s) Chain::step(r);
+    } else {
+      int s = 0;
+      for (; s + kChainUnroll <= reps; s += kChainUnroll) {
+#pragma unroll
+        for (int u = 0; u < kChainUnroll; ++u) Chain::step(r);
+      }
+      for (; s < reps; ++s) Chain::step(r);
+    }
+    out[i] = Chain::result(r);
+  }
 }
 
 // Above 48 KB of dynamic shared memory needs the opt-in, set once per
@@ -549,14 +617,17 @@ int jrr_elementwise(const float* x, float* out, long long n, void* stream) {
 }
 
 int jrr_fma_chain(const float* x, float* out, long long n, int reps, int bf16, void* stream) {
-  if (bf16) {
-    const long long n2 = n / 2;
-    fma_chain_bf16_kernel<<<(unsigned)((n2 + 255) / 256), 256, 0, (cudaStream_t)stream>>>(
-        (const float2*)x, (float2*)out, n2, reps);
-  } else {
-    fma_chain_f32_kernel<<<(unsigned)((n + 255) / 256), 256, 0, (cudaStream_t)stream>>>(
-        x, out, n, reps);
-  }
+  const long long n4 = n / 4;
+  int grid = 0;
+  const cudaError_t rc =
+      resident_grid(kChainCtasPerSm, (int)((n4 + kChainThreads - 1) / kChainThreads), &grid);
+  if (rc != cudaSuccess) return (int)rc;
+  void (*kernel)(const float4*, float4*, long long, int) =
+      bf16 ? (reps == kChainProbeReps ? fma_chain_kernel<ChainBf16, kChainProbeReps>
+                                      : fma_chain_kernel<ChainBf16, 0>)
+           : (reps == kChainProbeReps ? fma_chain_kernel<ChainF32, kChainProbeReps>
+                                      : fma_chain_kernel<ChainF32, 0>);
+  kernel<<<grid, kChainThreads, 0, (cudaStream_t)stream>>>((const float4*)x, (float4*)out, n4, reps);
   return (int)cudaGetLastError();
 }
 

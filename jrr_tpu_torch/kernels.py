@@ -576,8 +576,11 @@ def elementwise_baseline(x):
 
 def _fma_chain(wrapper, x, reps: int, bf16: bool):
     _check_cuda(x.device, x=(x, torch.float32))
-    if x.numel() % 2:
-        raise ValueError("the FMA chains take an even number of elements")
+    if x.numel() == 0 or x.numel() % 4:
+        raise ValueError("the FMA chains take a positive multiple of 4 elements")
+    if reps < 0:
+        raise ValueError(f"reps must be >= 0, got {reps}")
+    _check_aligned("the FMA chains", x=x)
     out = torch.empty_like(x)
     _probe_launch(wrapper, x.device, "jrr_fma_chain", x.data_ptr(), out.data_ptr(), x.numel(),
                   reps, int(bf16))
@@ -587,14 +590,16 @@ def _fma_chain(wrapper, x, reps: int, bf16: bool):
 def fma_chain_f32(x, reps: int):
     """`reps` steps of acc = fmaf(acc, c1, c2), y = fmaf(y, c2, c1) from
     acc = y = x, then acc + y — replaces tools/bf16_vpu_probe.py::_kernel
-    in float32."""
+    in float32 (`fma_chain_kernel<ChainF32, ...>`: the probe's 200 steps
+    unrolled completely, other lengths in unrolled chunks)."""
     return _fma_chain(fma_chain_f32, x, reps, False)
 
 
 def fma_chain_bf16(x, reps: int):
     """`fma_chain_f32` in packed bf16 (`__hfma2`, two elements per
-    instruction; x rounded to bf16 first, acc + y in f32) — the bfloat16
-    case of tools/bf16_vpu_probe.py::_kernel."""
+    instruction; x rounded to bf16 first, acc + y in f32; the same kernel
+    template, `fma_chain_kernel<ChainBf16, ...>`) — the bfloat16 case of
+    tools/bf16_vpu_probe.py::_kernel."""
     return _fma_chain(fma_chain_bf16, x, reps, True)
 
 

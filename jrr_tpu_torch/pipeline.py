@@ -13,10 +13,18 @@ closed-form regressor fit → protocol-2 evaluation before/after.
   snapshots and accumulator checkpoints. Its pulls run on the default
   stream too, so each waits for the step that produced it. A writer error
   stops the run at the next put or check;
-- a resume replays the completed shards' refined parameters into the lstsq
-  accumulator (or restores its checkpoint, every `ACC_CKPT_EVERY` shards)
-  after checking that each shard's stored gt_j3d pairs with this run's
-  batch, and restores the newest train-state checkpoint.
+- the writer also checkpoints the train state after every shard (ckpt/,
+  with resume.json naming the last shard it includes), so a resume
+  continues the regressor's and discriminators' Adam trajectory where it
+  stopped: it restores that state, replays the completed shards it
+  includes into the lstsq accumulator (or restores the accumulator's
+  checkpoint, every `ACC_CKPT_EVERY` shards) after checking that each
+  shard's stored gt_j3d pairs with this run's batch, and runs every later
+  shard again, its regressor snapshot included. Every file is written whole
+  or not at all (tmp + `os.replace`). jrr_tpu saves its state only at the
+  end of a run and restarts Adam after a mid-run crash
+  (jrr_tpu/pipeline.py:272,395); a directory with such a state (no
+  resume.json) resumes as jrr_tpu resumes it.
 
 With a SPIN checkpoint every batch's initial estimates come from the
 network on its 224² crop (`make_spin_fn`), run by the main thread just
@@ -35,6 +43,7 @@ raising `NotImplementedError`: more than one device.
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 import queue as queue_mod
 import re
@@ -62,6 +71,10 @@ from jrr_tpu_torch.utils.logging import outer_metrics_record
 ACC_CKPT_EVERY = 16
 
 _STATE_FILE = re.compile(r"state_\d{8}\.npz")
+_SNAP_FILE = re.compile(r"snap_(\d+)\.npz")
+# In the out dir: names the newest mid-run train state and the last shard
+# it includes.
+_RESUME_MARKER = "resume.json"
 
 # The loader's prefetch thread, reused for the host→device staging.
 _prefetch_iter = h36m.background_iter
@@ -239,24 +252,35 @@ def run_optimize(
         )
     dev = model.v_template.device
     manifest = ckpt_lib.ShardManifest(os.path.join(out_dir, "refined"))
+    ckpt_dir = os.path.join(out_dir, "ckpt")
+    snap_dir = os.path.join(out_dir, "jreg_snapshots")
+    acc_path = os.path.join(out_dir, "jreg_acc_ckpt.npz")
+    marker = os.path.join(out_dir, _RESUME_MARKER)
     state = trainer.init_train_state(
         torch.as_tensor(j_reg_initial, dtype=torch.float32, device=dev), cfg, seed=cfg.seed
     )
-    ckpt_dir = os.path.join(out_dir, "ckpt")
-    if resume and os.path.isdir(ckpt_dir):
-        existing = sorted(n for n in os.listdir(ckpt_dir) if _STATE_FILE.fullmatch(n))
-        if existing:
-            state = ckpt_lib.restore_train_state(os.path.join(ckpt_dir, existing[-1]), state)
+    # `covered`: the last shard whose outer step the state includes (None:
+    # every completed shard). Later shards run again, and so rewrite every
+    # file a crash may have left half-written beside its final path.
+    covered = -1
+    if resume:
+        state, covered = _restore_train_state(ckpt_dir, marker, state)
+    if covered is not None and os.path.isdir(snap_dir):
+        for name in os.listdir(snap_dir):
+            m = _SNAP_FILE.fullmatch(name)
+            if m and int(m.group(1)) > covered:
+                os.remove(os.path.join(snap_dir, name))
 
     acc = trainer.JRegLstsqAccumulator.zero(model.num_verts, device=dev)
-    acc_path = os.path.join(out_dir, "jreg_acc_ckpt.npz")
     acc_upto = -1
     if resume and os.path.exists(acc_path):
         with np.load(acc_path) as f:
-            acc = trainer.JRegLstsqAccumulator(
-                *(torch.as_tensor(f[k], device=dev) for k in ("gram", "rhs", "count"))
-            )
-            acc_upto = int(f["upto"])
+            upto = int(f["upto"])
+            if covered is None or upto <= covered:
+                acc = trainer.JRegLstsqAccumulator(
+                    *(torch.as_tensor(f[k], device=dev) for k in ("gram", "rhs", "count"))
+                )
+                acc_upto = upto
 
     def write(item):
         kind, sid, payload = item
@@ -266,20 +290,26 @@ def run_optimize(
                 for k, v in payload.items()
             })
         elif kind == "jreg_snap":
-            snap_dir = os.path.join(out_dir, "jreg_snapshots")
             os.makedirs(snap_dir, exist_ok=True)
-            np.savez(os.path.join(snap_dir, f"snap_{sid:05d}.npz"),
-                     j_regressor=payload.cpu().numpy(), shard=sid)
+            ckpt_lib.savez_atomic(os.path.join(snap_dir, f"snap_{sid:05d}.npz"),
+                                  j_regressor=payload.cpu().numpy(), shard=sid)
+        elif kind == "state":
+            # The state first, then the marker, then the older states: the
+            # marker always names a whole file.
+            path = ckpt_lib.save_train_state(ckpt_dir, payload, payload.step)
+            name = os.path.basename(path)
+            ckpt_lib.write_json_atomic(marker, {"state": name, "shard": sid})
+            for old in os.listdir(ckpt_dir):
+                if _STATE_FILE.fullmatch(old) and old != name:
+                    os.remove(os.path.join(ckpt_dir, old))
         else:  # "acc_ckpt"
             host = [x.cpu().numpy() for x in payload]
-            tmp = acc_path + ".tmp.npz"
-            np.savez(tmp, gram=host[0], rhs=host[1], count=host[2], upto=sid)
-            os.replace(tmp, acc_path)
+            ckpt_lib.savez_atomic(acc_path, gram=host[0], rhs=host[1], count=host[2], upto=sid)
 
     def maybe_ckpt_acc(shard_id, acc):
         if shard_id % ACC_CKPT_EVERY == ACC_CKPT_EVERY - 1:
-            # Ordered after this shard's manifest entry: a resume never
-            # counts a shard twice.
+            # Ordered after this shard's manifest entry and train state: a
+            # resume never counts a shard twice.
             writer.put(("acc_ckpt", shard_id, acc))
 
     # JRR_PHASE_TIMING=1 splits each batch's wall time at device barriers
@@ -300,11 +330,10 @@ def run_optimize(
     try:
         for shard_id, (loader_wait, (batch, init, data)) in enumerate(_timed(staged)):
             writer.check()
-            if resume and shard_id <= acc_upto and manifest.is_done(shard_id):
-                continue  # already in the checkpointed accumulator
-            if resume and manifest.is_done(shard_id):
-                acc = _replay_shard(manifest, shard_id, batch, model, acc)
-                maybe_ckpt_acc(shard_id, acc)
+            if resume and (covered is None or shard_id <= covered) and manifest.is_done(shard_id):
+                if shard_id > acc_upto:  # else already in the checkpointed accumulator
+                    acc = _replay_shard(manifest, shard_id, batch, model, acc)
+                    maybe_ckpt_acc(shard_id, acc)
                 continue
             t0 = time.time()
             phases = {}
@@ -341,6 +370,7 @@ def run_optimize(
             snap_every = cfg.jreg.snapshot_interval
             if snap_every and shard_id % snap_every == snap_every - 1:
                 writer.put(("jreg_snap", shard_id, state.j_reg_raw))
+            writer.put(("state", shard_id, state))
             maybe_ckpt_acc(shard_id, acc)
             if logger is not None:
                 if phase_timing:
@@ -360,8 +390,30 @@ def run_optimize(
         staged.close()
         writer.close()
     writer.check()
-    ckpt_lib.save_train_state(ckpt_dir, state, state.step)
+    # The writer saved the state of every shard that ran; a run that ran
+    # none (all resumed, or no data) saves the state it ends with, as
+    # jrr_tpu does.
+    if not os.path.exists(os.path.join(ckpt_dir, f"state_{state.step:08d}.npz")):
+        ckpt_lib.save_train_state(ckpt_dir, state, state.step)
     return state, acc, manifest
+
+
+def _restore_train_state(ckpt_dir: str, marker: str, template):
+    """(state, covered) to resume from: the state in `ckpt_dir` that
+    `marker` names and the last shard it includes; else the newest
+    state_*.npz, a state saved at the end of a run (by jrr_tpu, or by the
+    port before mid-run checkpoints), which includes every completed shard
+    (covered None); else `template` and -1."""
+    if os.path.exists(marker):
+        with open(marker) as f:
+            info = json.load(f)
+        return ckpt_lib.restore_train_state(os.path.join(ckpt_dir, info["state"]), template), int(
+            info["shard"])
+    existing = sorted(n for n in os.listdir(ckpt_dir) if _STATE_FILE.fullmatch(n)) if (
+        os.path.isdir(ckpt_dir)) else []
+    if existing:
+        return ckpt_lib.restore_train_state(os.path.join(ckpt_dir, existing[-1]), template), None
+    return template, -1
 
 
 def _replay_shard(manifest, shard_id: int, batch, model, acc):

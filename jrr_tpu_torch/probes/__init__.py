@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import json
 import subprocess
+import time
 
 import torch
 
@@ -101,6 +102,45 @@ def card() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+
+
+def sm_clocks(samples_during=None) -> dict:
+    """The first card's SM clock in MHz as `nvidia-smi` reads it: now
+    (`clocks.sm`) and its maximum (`clocks.max.sm`); with
+    `samples_during=(fn, seconds)` also the median and range of
+    `clocks.sm` sampled every 20 ms while CUDA-graph replays of `fn` keep
+    the card busy for about that many seconds (`under_load`)."""
+    query = ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader,nounits"]
+
+    def read(out):
+        rows = [[float(v) for v in line.split(",")] for line in out.strip().splitlines()]
+        return [r for r in rows if len(r) == 2]
+
+    clocks = {}
+    if samples_during is not None:
+        fn, seconds = samples_during
+        fn()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(20):
+                fn()
+        sampler = subprocess.Popen(query + ["-lms", "20"], stdout=subprocess.PIPE, text=True)
+        try:
+            t0 = time.perf_counter()
+            while time.perf_counter() - t0 < seconds:
+                graph.replay()
+                torch.cuda.synchronize()
+        finally:
+            sampler.terminate()
+            out, _ = sampler.communicate()
+        # The first samples may precede the load.
+        mhz = sorted(r[0] for r in read(out)[2:]) or [float("nan")]
+        clocks["under_load"] = {"median": mhz[len(mhz) // 2], "min": mhz[0], "max": mhz[-1],
+                                "samples": len(mhz)}
+    now = read(subprocess.run(query, capture_output=True, text=True, check=True).stdout)[0]
+    clocks.update(now=now[0], max=now[1])
+    return clocks
 
 
 def run(measure) -> None:

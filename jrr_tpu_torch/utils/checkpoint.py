@@ -17,6 +17,12 @@
   and manifest.json listing the completed shards — the same files and keys
   as jrr_tpu's, so a refined-shard directory written by either package
   resumes in the other.
+
+Train states, shards and the manifest are written whole or not at all:
+to `<path>.tmp.npz` (or `<path>.tmp`) first, then moved into place with
+`os.replace` (`savez_atomic`, `write_json_atomic`), so a crash mid-write
+leaves no partial file at a final path. jrr_tpu writes its train states
+straight to the final path.
 """
 
 from __future__ import annotations
@@ -89,6 +95,23 @@ def _restore(tree: Any, data: Dict[str, np.ndarray], prefix: str = "") -> Any:
     raise TypeError(f"cannot restore a {type(tree).__name__} at {prefix!r}")
 
 
+def savez_atomic(path: str, **arrays) -> str:
+    """np.savez(path, **arrays) by way of `<path>.tmp.npz` and `os.replace`:
+    a crash mid-write leaves no partial file at `path`. Returns `path`."""
+    tmp = path + ".tmp.npz"
+    np.savez(tmp, **arrays)
+    os.replace(tmp, path)
+    return path
+
+
+def write_json_atomic(path: str, obj) -> None:
+    """json.dump(obj) to `path` by way of `<path>.tmp` and `os.replace`."""
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(obj, f)
+    os.replace(tmp, path)
+
+
 def save_pytree_npz(path: str, tree: Any) -> None:
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     np.savez(path, **_flatten(tree))
@@ -108,10 +131,9 @@ def restore_pytree_npz(path: str, template: Any) -> Any:
 def save_train_state(ckpt_dir: str, state, step: int) -> str:
     """Write `state` in jrr_tpu's layout to <ckpt_dir>/state_<step:08d>.npz;
     returns the path."""
-    path = os.path.join(ckpt_dir, f"state_{step:08d}.npz")
     os.makedirs(ckpt_dir, exist_ok=True)
-    np.savez(path, **convert.train_state_arrays(state))
-    return path
+    return savez_atomic(os.path.join(ckpt_dir, f"state_{step:08d}.npz"),
+                        **convert.train_state_arrays(state))
 
 
 def restore_train_state(path: str, template):
@@ -158,15 +180,9 @@ class ShardManifest:
         return shard_id in set(self.completed())
 
     def write_shard(self, shard_id: int, arrays: Dict[str, np.ndarray]) -> str:
-        path = os.path.join(self.out_dir, f"shard_{shard_id:06d}.npz")
-        tmp = path + ".tmp.npz"
-        np.savez(tmp, **arrays)
-        os.replace(tmp, path)
-        done = set(self.completed()) | {shard_id}
-        tmp_m = self.manifest_path + ".tmp"
-        with open(tmp_m, "w") as f:
-            json.dump({"completed": sorted(done)}, f)
-        os.replace(tmp_m, self.manifest_path)
+        path = savez_atomic(os.path.join(self.out_dir, f"shard_{shard_id:06d}.npz"), **arrays)
+        done = sorted(set(self.completed()) | {shard_id})
+        write_json_atomic(self.manifest_path, {"completed": done})
         return path
 
     def read_shard(self, shard_id: int) -> Dict[str, np.ndarray]:

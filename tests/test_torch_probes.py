@@ -85,19 +85,22 @@ def test_take_along_axis_matches_interpret_kernel(axis):
     np.testing.assert_array_equal(got.numpy(), np.take_along_axis(x["x"].numpy(), index.numpy(), axis))
 
 
+@pytest.mark.parametrize("reps", bf16_probe.SWEEP_REPS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_fma_chain_matches_interpret_kernel(dtype):
+def test_fma_chain_matches_interpret_kernel(dtype, reps):
+    """At the probe's length and every length the sweep times."""
+    assert bf16_probe.REPS == bf16_vpu_probe.REPS and bf16_probe.REPS in bf16_probe.SWEEP_REPS
     rows, grid = 8, 2
     x = bf16_probe.make_input(rows * grid, device="cpu")
     want = np.asarray(pl.pallas_call(
-        functools.partial(bf16_vpu_probe._kernel, reps=bf16_vpu_probe.REPS, dtype=getattr(jnp, dtype)),
+        functools.partial(bf16_vpu_probe._kernel, reps=reps, dtype=getattr(jnp, dtype)),
         grid=(grid,),
         in_specs=[pl.BlockSpec((rows, LANES), lambda i: (i, 0), memory_space=pltpu.VMEM)],
         out_specs=pl.BlockSpec((rows, LANES), lambda i: (i, 0), memory_space=pltpu.VMEM),
         out_shape=jax.ShapeDtypeStruct((rows * grid, LANES), jnp.float32), interpret=True,
     )(x.numpy()))
     tdtype = getattr(torch, dtype)
-    fused, two_step = (bf16_probe.fma_chain_plain(x, bf16_vpu_probe.REPS, tdtype, f).numpy()
+    fused, two_step = (bf16_probe.fma_chain_plain(x, reps, tdtype, f).numpy()
                        for f in (True, False))
     if dtype == "float32":
         # XLA's CPU backend may contract the multiply-add into one FMA; the
@@ -109,6 +112,62 @@ def test_fma_chain_matches_interpret_kernel(dtype):
         np.testing.assert_array_equal(two_step, want)
         np.testing.assert_array_equal(fused, want)
 
+
+def test_ptxas_report_parsed_for_a_template_instance(monkeypatch):
+    """chip_smoke reads the registers of `fma_chain_kernel<ChainBf16, 200>`
+    from its mangled name, not those of another instance of the template."""
+    import chip_smoke
+
+    name = "_ZN41_GLOBAL__N__890fc4d7_9_probes_cu_cc882b2216fma_chain_kernelINS_9ChainBf16ELi{}EEEvPK6float4PS2_xi"
+    report = "\n".join(
+        line for reps, regs in ((0, 27), (200, 29)) for line in (
+            f"ptxas info    : Compiling entry function '{name.format(reps)}' for 'sm_90a'",
+            f"ptxas info    : Function properties for {name.format(reps)}",
+            "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+            f"ptxas info    : Used {regs} registers, used 0 barriers"))
+    monkeypatch.setitem(kernels.build_info, "ptxas", report)
+    assert chip_smoke._ptxas("fma_chain_kernel<ChainBf16, 200>") == dict(
+        registers=29, spill_stores=0, spill_loads=0, smem_bytes=0)
+    assert chip_smoke._ptxas("fma_chain_kernel<ChainBf16, 0>")["registers"] == 27
+    assert chip_smoke._ptxas("fma_chain_kernel<ChainF32, 200>") is None
+
+
+
+def test_sweep_fits_the_chunked_instance_only(monkeypatch):
+    """The chain sweep's line goes through the lengths that run the chunked
+    instance; REPS, which runs the completely unrolled one, stands beside
+    it (`unrolled_ms`), and the FMA rate follows from the slope."""
+    import types
+
+    def fake_chain(bf16):
+        return lambda x, reps: (reps, bf16)
+
+    def fake_time_ms(fn, trials):
+        reps, bf16 = fn()
+        if reps == bf16_probe.REPS:
+            return 0.04  # off the line
+        return (0.004 if bf16 else 0.005) + (0.00025 if bf16 else 0.0004) * reps
+
+    monkeypatch.setattr(kernels, "fma_chain_f32", fake_chain(False))
+    monkeypatch.setattr(kernels, "fma_chain_bf16", fake_chain(True))
+    monkeypatch.setattr(bf16_probe.probes, "time_ms", fake_time_ms)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: types.SimpleNamespace(multi_processor_count=132))
+    x = torch.zeros(4096)
+    out = bf16_probe.sweep(x, clock_mhz=2000.0)
+    assert out["fit_reps"] == [r for r in bf16_probe.SWEEP_REPS if r != bf16_probe.REPS]
+    for name, intercept, slope, instructions in (("f32", 0.005, 0.0004, 2 * 4096),
+                                                 ("bf16", 0.004, 0.00025, 4096)):
+        fit = out[name]
+        assert fit["intercept_ms"] == pytest.approx(intercept, rel=1e-9)
+        assert fit["ms_per_step"] == pytest.approx(slope, rel=1e-9)
+        assert fit["max_line_residual_ms"] < 1e-12
+        assert fit["unrolled_ms"] == 0.04
+        assert fit["line_ms_at_unrolled_reps"] == pytest.approx(intercept + slope * 200, rel=1e-9)
+        between = [slope] * (len(out["fit_reps"]) - 1)
+        assert fit["ms_per_step_between"] == pytest.approx(between, rel=1e-9)
+        assert fit["warp_instructions_per_sm_clock"] == pytest.approx(
+            instructions / (slope * 1e-3) / 32 / 132 / 2e9, rel=1e-9)
 
 # The A and B bodies of tools/kernel_probe2.py, verbatim (:73-86 and
 # :90-108 there; local to its main(), so they cannot be imported), with
@@ -275,3 +334,17 @@ def test_paged_gather_rmw_fixed_plain_matches_int64_oracle():
     assert bool(torch.all(
         (fixed - pallas).abs() <= kernel_probe.fixed_point_tolerance(pallas, terms) + f32_sum_err))
     assert float(fixed.abs().max()) > 0.1
+
+
+def test_product_loop_needs_a_card():
+    """The product-loop timing script refuses to run without a card rather
+    than timing the CPU."""
+    import subprocess
+
+    script = os.path.join(os.path.dirname(kernels.__file__), "probes", "product_loop.py")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    proc = subprocess.run([sys.executable, script, "--runs", "1"], env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr
