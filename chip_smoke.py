@@ -97,7 +97,23 @@
    them apart and α jumps: there each α is held within the bounds of both
    outcomes, the loss kernel's err off those frames and its gradients off
    the entries they reach;
-15. drives SPIN initialization and the VIBE/MEVA consumer evals
+15. runs the product loop again as one process per card of an NCCL group
+   (`multi_gpu`: `parallel.multihost.launch_local` starts
+   torch.cuda.device_count() processes, one here, each running the
+   product path's `run_pipeline` call on its card under
+   `torch.distributed`): at one process its shard files, train state,
+   regressors, evals, lstsq accumulator and rows 1 and 2's launch counts
+   equal the one-process run's bit for bit; its seconds and product
+   frames/s beside the one-process run's; a run across cards is not
+   verified here;
+16. converts a full-width SMPL pickle in the official layout, written from
+   the product path's synthetic body, with the port's
+   `convert_smpl_pickle` and loads it on the card (`body_weights`: arrays
+   and a batch-256 forward equal to the body's bit for bit), loads the
+   shipped retrained regressor (rows normalize to 1 within 1e-5, ≥ 0)
+   and applies it to the product path's refined vertices (an MPJPE that
+   means nothing on synthetic bodies);
+17. drives SPIN initialization and the VIBE/MEVA consumer evals
    (`consumer_path`): SPIN's hmr, VIBE's and MEVA's checkpoints fabricated
    at the published shapes from a seeded generator, then
    `run_pipeline(demo=True, spin_checkpoint=…, vibe_checkpoint=…,
@@ -108,7 +124,12 @@
    (features and estimates, TF32 off as shipped; the TF32-on gap reported)
    and both consumers of each kind against the port's float32 CPU runs,
    and rows 1 and 2 on the first SPIN-initialized batch's bins;
-16. prints the kernels line, the card's name and power limit, and the
+18. runs the off-path modules at full width (`aux_modules`): a
+   thin-appendage body's mask render through row 5 held to its plain
+   version, the legacy staged fit at batch 256 (and at batch 8 against
+   the CPU), the image discriminator and linearized sampling at batch 256
+   against the CPU on their first frames, perturbations drawn on the card;
+19. prints the kernels line, the card's name and power limit, and the
    contract line `{"ok": true, "device": {...}}` last.
 
 Any failed check raises (non-zero exit, no result line). Needs one CUDA card
@@ -1715,27 +1736,24 @@ def _merge_flip_reports(reports):
     return out
 
 
-def check_product_render(model, j_true, seed, data_root):
-    """Row 5 on the product path's own tiles: the fixture write's mask render
-    of PRODUCT_FRAMES frames (one launch per `fixtures._RENDER_CHUNK`
-    frames), rebuilt from the same draws, against its own repeat (bit for
-    bit) and its plain version (`_hold_within_flips`; the render's blur band
-    is 0, so an inside test decided the other way moves α by up to 0.5),
-    each flip also scored against a float64 plain version. The α it gives
-    must be the render `make_synthetic_frames` returns, and its 8-bit image
-    the mask PNG that the loop read (valid-flag pixel aside)."""
-    import numpy as np
+def _hold_tile_render(model, gt, mask, where):
+    """Row 5 on a fixture mask render (`fixtures.make_synthetic_frames`'
+    tiles, one launch per `fixtures._RENDER_CHUNK` frames) rebuilt from the
+    ground truth `gt`: against its own repeat (bit for bit) and its plain
+    version (`_hold_within_flips`; the render's blur band is 0, so an inside
+    test decided the other way moves α by up to 0.5), each flip also scored
+    against a float64 plain version. The α it gives must be `mask`. Returns
+    (report, α images)."""
     import torch
 
     from jrr_tpu_torch import constants, kernels
-    from jrr_tpu_torch.data import fixtures, png
+    from jrr_tpu_torch.data import fixtures
     from jrr_tpu_torch.refine import losses
     from jrr_tpu_torch.render import camera
     from jrr_tpu_torch.render import silhouette as sil
     from jrr_tpu_torch.render import silhouette_pallas as sp
 
-    gt, data = fixtures.make_synthetic_frames(model, j_true, PRODUCT_FRAMES, seed=seed,
-                                              depth_range=PRODUCT_DEPTH)
+    frames = gt.cam_t.shape[0]
     spec = sil.RasterizerSpec(image_size=constants.CROP_RES)
     t, g = spec.tile_size, spec.image_size // spec.tile_size
     consts = (t, *sil.tile_constants(spec))
@@ -1743,7 +1761,7 @@ def check_product_render(model, j_true, seed, data_root):
     with torch.no_grad():
         verts = losses.forward_frame(model, gt).vertices
     reports, images = [], []
-    for lo in range(0, PRODUCT_FRAMES, fixtures._RENDER_CHUNK):
+    for lo in range(0, frames, fixtures._RENDER_CHUNK):
         sl = slice(lo, lo + fixtures._RENDER_CHUNK)
         with torch.no_grad():
             screen = camera.project_points_screen(verts[sl], gt.cam_t[sl], spec.image_size,
@@ -1752,17 +1770,33 @@ def check_product_render(model, j_true, seed, data_root):
         alpha = kernels.tiles_alpha_fwd(*args, *consts)
         again = kernels.tiles_alpha_fwd(*args, *consts)
         torch.cuda.synchronize()
-        _check(torch.equal(alpha, again), "product fixtures: two tiles_alpha_fwd launches differ")
+        _check(torch.equal(alpha, again), f"{where}: two tiles_alpha_fwd launches differ")
         with torch.no_grad():
             for c in range(0, alpha.shape[0], per):
                 a, part = alpha[c:c + per], tuple(x[c:c + per] for x in args)
                 plain = sp.tiles_alpha_plain(*part, *consts)
                 reports.append(_hold_within_flips(
-                    a, plain, _edge_flip_bounds(*part, *consts), "product fixtures: tiles_alpha_fwd",
+                    a, plain, _edge_flip_bounds(*part, *consts), f"{where}: tiles_alpha_fwd",
                     lambda: sp.tiles_alpha_plain(*(x.double() for x in part), *consts))[0])
         images.append(sil._tiles_to_image(alpha.reshape(-1, g * g, t * t), g, t))
     alpha = torch.cat(images)
-    _check(torch.equal(alpha, data.mask), "product fixtures: the rebuilt render differs")
+    _check(torch.equal(alpha, mask), f"{where}: the rebuilt render differs")
+    return dict(frames=frames, tiles=frames * g * g, blur_px2=consts[2],
+                **_merge_flip_reports(reports)), alpha
+
+
+def check_product_render(model, j_true, seed, data_root):
+    """Row 5 on the product path's own tiles (`_hold_tile_render`): the
+    fixture write's mask render of PRODUCT_FRAMES frames, rebuilt from the
+    same draws, whose 8-bit image must be the mask PNG that the loop read
+    (valid-flag pixel aside)."""
+    import numpy as np
+
+    from jrr_tpu_torch.data import fixtures, png
+
+    gt, data = fixtures.make_synthetic_frames(model, j_true, PRODUCT_FRAMES, seed=seed,
+                                              depth_range=PRODUCT_DEPTH)
+    report, alpha = _hold_tile_render(model, gt, data.mask, "product fixtures")
     want = (alpha.cpu().numpy() * 255).astype(np.uint8)
     want[:, 0, 0] = 255  # the valid-flag pixel
     with open(os.path.join(data_root, "precomputed_val", "images.json")) as f:
@@ -1771,8 +1805,7 @@ def check_product_render(model, j_true, seed, data_root):
     mismatched = sum(not np.array_equal(png.read(f"{h}maskSequence{tl}"), want[i])
                      for i, (h, tl) in enumerate(head_tails))
     _check(mismatched == 0, f"product fixtures: {mismatched} mask PNGs differ from the render")
-    return dict(frames=PRODUCT_FRAMES, tiles=PRODUCT_FRAMES * g * g, blur_px2=consts[2],
-                **_merge_flip_reports(reports), mask_pngs_equal=len(paths))
+    return dict(report, mask_pngs_equal=len(paths))
 
 
 def _first_indices(cfg, data_root):
@@ -2021,7 +2054,7 @@ def check_product_bins(model, cfg, data_root, spin_fn=None, where="product"):
             for geometry in ("fine", "coarse")}
 
 
-def run_product_path(data_root):
+def run_product_path(data_root, tmp):
     """The product loop through its entry points, as tools/pipeline_bench.py
     drives jrr_tpu's: the fixtures written into `data_root` at SPIN-crop
     scale (camera z in PRODUCT_DEPTH), the v1 pack and the v2 pack built
@@ -2035,10 +2068,10 @@ def run_product_path(data_root):
     before each run (the first's fixture write and pack builds included)
     and read after it; the out dir is temporary. The three loaders are then
     held against each other on the first batch (`check_loaders`), and rows
-    1, 2 and 5 on the run's own inputs. Returns the phase's record and the
-    body model."""
-    import tempfile
-
+    1, 2 and 5 on the run's own inputs. The runs write under `tmp`, which
+    outlives the phase. Returns the phase's record, the body model and what
+    `run_multi_gpu` holds its runs to: the first run's out dir, launches,
+    evals, regressors and lstsq accumulator."""
     import numpy as np
     import torch
 
@@ -2057,52 +2090,51 @@ def run_product_path(data_root):
     # run_pipeline(demo=True) draws it from cfg.seed before perturbing it.
     j_true = _demo_regressor(model.num_verts, np.random.default_rng(cfg.seed))
     runs = []
-    with tempfile.TemporaryDirectory() as tmp:
-        out_dir = os.path.join(tmp, "run")
-        for name in ("first", "resumed"):
-            metrics_path = os.path.join(tmp, f"metrics_{name}.jsonl")
-            logger = MetricsLogger(path=metrics_path, echo=False)
-            kernels.reset_launches()
-            t0 = time.perf_counter()
-            once = {}
-            try:
-                if name == "first":
-                    fixtures.write_fixture_dataset(
-                        data_root, PRODUCT_FRAMES, seed=cfg.seed, model=model, j_reg_raw=j_true,
-                        depth_range=PRODUCT_DEPTH,
-                    )
-                    torch.cuda.synchronize()
-                    once["fixtures"] = time.perf_counter() - t0
-                    t1 = time.perf_counter()
-                    native_pipeline.pack_dataset(data_root)
-                    once["pack_build"] = time.perf_counter() - t1
-                    t1 = time.perf_counter()
-                    native_pipeline.build_pack2(data_root)
-                    once["pack2_build"] = time.perf_counter() - t1
-                arts = run_pipeline(cfg, data_root=data_root, out_dir=out_dir, demo=True,
-                                    model=model, logger=logger, loader="auto")
-            finally:
-                logger.close()
-            torch.cuda.synchronize()
-            seconds = time.perf_counter() - t0
-            launches = _read_launches()
-            records = _records(metrics_path)
-            evals = {"initial": arts.eval_before_after.before,
-                     "adam_final": arts.eval_before_after.after, "lstsq": arts.eval_lstsq}
-            with np.load(os.path.join(out_dir, "ckpt", "state_00000002.npz")) as f:
-                state = dict(f)
-            runs.append(dict(
-                arts=arts, launches=launches, seconds=seconds, records=records, evals=evals,
-                phase_seconds=dict(arts.seconds, **{"fixtures": 0.0, **once}),
-                shards=ShardManifest(os.path.join(out_dir, "refined")).completed(),
-                saved=os.path.exists(os.path.join(out_dir, "retrained_j_regressor.npz")),
-                state=state,
-            ))
-        killed = run_killed_and_resumed(cfg, data_root, os.path.join(tmp, "killed"), model,
-                                        runs[0], os.path.join(out_dir, "refined"))
-        loaders = check_loaders(cfg, data_root)
-        render = check_product_render(model, j_true, cfg.seed, data_root)
-        bins = check_product_bins(model, cfg, data_root)
+    out_dir = os.path.join(tmp, "product_run")
+    for name in ("first", "resumed"):
+        metrics_path = os.path.join(tmp, f"metrics_{name}.jsonl")
+        logger = MetricsLogger(path=metrics_path, echo=False)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        once = {}
+        try:
+            if name == "first":
+                fixtures.write_fixture_dataset(
+                    data_root, PRODUCT_FRAMES, seed=cfg.seed, model=model, j_reg_raw=j_true,
+                    depth_range=PRODUCT_DEPTH,
+                )
+                torch.cuda.synchronize()
+                once["fixtures"] = time.perf_counter() - t0
+                t1 = time.perf_counter()
+                native_pipeline.pack_dataset(data_root)
+                once["pack_build"] = time.perf_counter() - t1
+                t1 = time.perf_counter()
+                native_pipeline.build_pack2(data_root)
+                once["pack2_build"] = time.perf_counter() - t1
+            arts = run_pipeline(cfg, data_root=data_root, out_dir=out_dir, demo=True,
+                                model=model, logger=logger, loader="auto")
+        finally:
+            logger.close()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = _read_launches()
+        records = _records(metrics_path)
+        evals = {"initial": arts.eval_before_after.before,
+                 "adam_final": arts.eval_before_after.after, "lstsq": arts.eval_lstsq}
+        with np.load(os.path.join(out_dir, "ckpt", "state_00000002.npz")) as f:
+            state = dict(f)
+        runs.append(dict(
+            arts=arts, launches=launches, seconds=seconds, records=records, evals=evals,
+            phase_seconds=dict(arts.seconds, **{"fixtures": 0.0, **once}),
+            shards=ShardManifest(os.path.join(out_dir, "refined")).completed(),
+            saved=os.path.exists(os.path.join(out_dir, "retrained_j_regressor.npz")),
+            state=state, acc=arts.accumulator,
+        ))
+    killed = run_killed_and_resumed(cfg, data_root, os.path.join(tmp, "product_killed"), model,
+                                    runs[0], os.path.join(out_dir, "refined"))
+    loaders = check_loaders(cfg, data_root)
+    render = check_product_render(model, j_true, cfg.seed, data_root)
+    bins = check_product_bins(model, cfg, data_root)
     first, resumed = runs
     _check(first["arts"].loader == resumed["arts"].loader == "pack2",
            f"product path read {first['arts'].loader}, {resumed['arts'].loader}: not the v2 pack")
@@ -2154,7 +2186,8 @@ def run_product_path(data_root):
         jax_state=jax_state,
         loader_check=loaders, render_check=render, bins_check=bins,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, card=_card(),
-    ), model
+    ), model, dict(out_dir=out_dir, launches=first["launches"], evals=first["evals"],
+                   acc=first["acc"], optimize_seconds=a.seconds["optimize"], j_true=j_true)
 
 
 class _Killed(Exception):
@@ -2648,7 +2681,477 @@ def check_fused_alpha_vjp_api(problem):
     return report, total
 
 
+MULTI_GPU_TIMEOUT_S = 420  # the multi_gpu group's deadline; every process is killed past it
+THIN_APPENDAGE_RADIUS = 0.01  # meters: ~2 px wide on the SPIN crop
+AUX_FRAMES = 16  # the thin-appendage render
+AUX_CPU_FRAMES = (8, 4)  # the staged fit's and the image modules' card-against-CPU holds
+STAGED_FIT_ATOL = 1e-4
+IMAGE_DISC_ATOL = 1e-4
+LINEARIZED_ATOL = 1e-5
+
+
+def _collective_ms(mesh, acc, reps=10):
+    """ms per call of each collective an outer step of the product run
+    issues, at its sizes, each alone between synchronizations (after the
+    run; at one process a collective is a copy on the card): the batch's
+    lstsq statistics, the shared gradients (both discriminators and the
+    (17, V) regressor), the metrics, loss curves and rasterizer counters
+    (11 + 1000 + 6 × 100 + 5 × 2 values in float64), the counters'
+    maximum, and the gather of this process's rows of the refined
+    parameters and joints."""
+    import torch
+
+    from jrr_tpu_torch.models import discriminator
+    from jrr_tpu_torch.parallel import mesh as mesh_lib
+
+    dev = mesh.device
+    shared = [p.detach() for m in (discriminator.PoseDiscriminator(device=dev),
+                                   discriminator.ShapeDiscriminator(device=dev))
+              for p in m.parameters()] + [torch.zeros(17, acc.gram.shape[0], device=dev)]
+    rows = BATCH // mesh.world_size
+    refined = {k: torch.zeros((rows,) + shape, device=dev) for k, shape in (
+        ("pose6d", (23, 6)), ("orient6d", (1, 6)), ("betas", (10,)), ("cam_t", (3,)),
+        ("joints3d", (17, 3)))}
+    calls = {
+        "lstsq_statistics": lambda: mesh_lib.sum_over_ranks(mesh, acc),
+        "gradients": lambda: mesh_lib.sum_over_ranks(mesh, shared),
+        "metrics": lambda: mesh_lib.sum_over_ranks(
+            mesh, [torch.zeros(11 + 1000 + 600 + 10, dtype=torch.float64, device=dev)]),
+        "counters_max": lambda: mesh_lib.max_over_ranks(mesh, [torch.zeros(2, dtype=torch.int64,
+                                                                           device=dev)]),
+        "gather_rows": lambda: mesh_lib.gather_rows(mesh, refined),
+    }
+    out = {}
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) / reps * 1e3
+    return out
+
+
+def _multi_gpu_worker(data_root, out_dir, backend) -> int:
+    """One process of `run_multi_gpu`'s group (`chip_smoke.py
+    --multi-gpu-worker DATA_ROOT OUT_DIR BACKEND`, started by
+    `multihost.launch_local`): the product path's `run_pipeline` call, its
+    launches counted from 0, on its own card over NCCL, or on cuda:0 with
+    the other processes over gloo. Writes rank<r>.json and acc_rank<r>.npz
+    into OUT_DIR."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from jrr_tpu_torch import config
+    from jrr_tpu_torch import kernels
+    from jrr_tpu_torch.models import smpl
+    from jrr_tpu_torch.parallel import multihost
+    from jrr_tpu_torch.pipeline import run_pipeline
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    multihost.initialize(backend=backend, timeout_s=MULTI_GPU_TIMEOUT_S)
+    try:
+        mesh = multihost.global_mesh(device="cuda" if backend == "nccl" else "cuda:0")
+        model = smpl.synthetic_smpl_model(seed=0, device=mesh.device)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        arts = run_pipeline(config.PipelineConfig(), data_root=data_root,
+                            out_dir=os.path.join(out_dir, "run"), demo=True, model=model,
+                            loader="auto")
+        torch.cuda.synchronize()
+        nccl = torch.cuda.nccl.version()
+        rec = dict(rank=mesh.rank, world=mesh.world_size, device=str(mesh.device),
+                   backend=dist.get_backend(), nccl=list(nccl) if isinstance(nccl, tuple) else nccl,
+                   seconds=time.perf_counter() - t0, phase_seconds=arts.seconds,
+                   loader=arts.loader, launches=_read_launches())
+        if mesh.is_lead:
+            rec["evals"] = {"initial": _eval_dict(arts.eval_before_after.before),
+                            "adam_final": _eval_dict(arts.eval_before_after.after),
+                            "lstsq": _eval_dict(arts.eval_lstsq)}
+        rec["collective_ms"] = _collective_ms(mesh, arts.accumulator)
+        np.savez(os.path.join(out_dir, f"acc_rank{mesh.rank}.npz"),
+                 **{k: v.cpu().numpy() for k, v in arts.accumulator._asdict().items()})
+        with open(os.path.join(out_dir, f"rank{mesh.rank}.json"), "w") as f:
+            json.dump(rec, f)
+    finally:
+        multihost.shutdown()
+    return 0
+
+
+def _npz_files(root):
+    """Every .npz under `root` (relative path → arrays) and every .json's text."""
+    import numpy as np
+
+    out = {}
+    for d, _, names in os.walk(root):
+        for name in sorted(names):
+            path = os.path.join(d, name)
+            rel = os.path.relpath(path, root)
+            if name.endswith(".npz"):
+                with np.load(path) as f:
+                    out[rel] = dict(f)
+            elif name.endswith(".json"):
+                with open(path) as f:
+                    out[rel] = f.read()
+    return out
+
+
+def run_multi_gpu(data_root, ref, tmp, world=None, backend="nccl"):
+    """The product path's `run_pipeline` (its fixtures and v2 pack, full
+    width, two shards of 256, shipped defaults) as one process per card of
+    an NCCL group (`multihost.launch_local`, torch.cuda.device_count()
+    processes: one here, as this script keeps to one card), or as `world`
+    processes sharing cuda:0 over gloo. At one process it must equal
+    `run_product_path`'s one-process run bit for bit: the shard files, the
+    train state and resume marker, both regressors, the evals, the lstsq
+    accumulator every process holds, and rows 1 and 2's launches; with more
+    each array's largest difference from the one-process run is recorded
+    in chiprun_out/multi_gpu_differences.json (the probe
+    jrr_tpu_torch/probes/multi_gpu.py holds such runs). A run across cards
+    stays unverified here."""
+    import numpy as np
+    import torch
+
+    from jrr_tpu_torch.parallel import multihost
+
+    world = world or torch.cuda.device_count()
+    out = os.path.join(tmp, "multi_gpu")
+    os.makedirs(out)
+    t0 = time.perf_counter()
+    res = multihost.launch_local(
+        [sys.executable, os.path.abspath(__file__), "--multi-gpu-worker", data_root, out, backend],
+        world, MULTI_GPU_TIMEOUT_S, cwd=ROOT)
+    seconds = time.perf_counter() - t0
+    for r, log in enumerate(res.logs):
+        with open(os.path.join(OUT_DIR, f"multi_gpu_rank{r}.log"), "w") as f:
+            f.write(log["stdout"] + "\n--- stderr ---\n" + log["stderr"])
+    _check(res.returncodes == [0] * world, f"multi_gpu: exit codes {res.returncodes}: "
+           + res.logs[0]["stderr"][-1500:])
+    recs = []
+    for r in range(world):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            recs.append(json.load(f))
+    lead = recs[0]
+    # Each process refines its rows of both shards: the one-process run's launches.
+    want = _launches(fused_lossgrad=ref["launches"]["fused_lossgrad"],
+                     fused_alpha_fwd=ref["launches"]["fused_alpha_fwd"])
+    _check(all(r["launches"] == want for r in recs),
+           f"multi_gpu launches {[r['launches'] for r in recs]}, expected {want} per process")
+    _check(all(r["loader"] == "pack2" for r in recs), "multi_gpu: not the v2 pack")
+    got_files = _npz_files(os.path.join(out, "run"))
+    want_files = _npz_files(ref["out_dir"])
+    _check(sorted(got_files) == sorted(want_files),
+           f"multi_gpu files {sorted(got_files)} against {sorted(want_files)}")
+    accs = []
+    for r in range(world):
+        with np.load(os.path.join(out, f"acc_rank{r}.npz")) as f:
+            accs.append(dict(f))
+    ref_acc = {k: v.cpu().numpy() for k, v in ref["acc"]._asdict().items()}
+    if world == 1:
+        for name, w in want_files.items():
+            g = got_files[name]
+            same = g == w if isinstance(w, str) else (
+                g.keys() == w.keys() and all(np.array_equal(g[k], w[k]) for k in w))
+            _check(same, f"multi_gpu: {name} differs from the one-process run's")
+        _check(all(np.array_equal(accs[0][k], ref_acc[k]) for k in ref_acc),
+               "multi_gpu: the accumulator differs from the one-process run's")
+        want_evals = {k: _eval_dict(v) for k, v in ref["evals"].items()}
+        _check(lead["evals"] == want_evals, "multi_gpu: evals differ from the one-process run's")
+        held = "bit for bit"
+    else:
+        # At product scale the refinement's result depends on how a batch is
+        # split into rows at the level of O(0.1-1) (one process refining the
+        # rows as blocks parts as far: jrr_tpu_torch/probes/multi_gpu.py
+        # --split), so the runs are compared, not held: per array the
+        # largest difference and the entries beyond 1e-5. The probe holds
+        # shard 0 to the blocks bit for bit.
+        differences = {}
+        for name, w in want_files.items():
+            if not isinstance(w, str):
+                d = {k: np.abs(got_files[name][k] - w[k]) for k in w if w[k].dtype.kind == "f"}
+                differences[name] = {k: [float(v.max()), int((v > 1e-5).sum())]
+                                     for k, v in d.items()}
+        with open(os.path.join(OUT_DIR, "multi_gpu_differences.json"), "w") as f:
+            json.dump(dict(world=world, backend=backend, differences=differences), f, indent=1)
+        held = "compared, not held (see differences)"
+    cards = len({r["device"] for r in recs})
+    return dict(
+        world=world, backend=lead["backend"], nccl_version=lead["nccl"],
+        devices=[r["device"] for r in recs], seconds=seconds, run_seconds=lead["seconds"],
+        phase_seconds=lead["phase_seconds"],
+        product_frames_per_s=PRODUCT_FRAMES / lead["phase_seconds"]["optimize"],
+        one_process_product_frames_per_s=PRODUCT_FRAMES / ref["optimize_seconds"],
+        collectives_per_outer_step=5, collective_ms=lead["collective_ms"],
+        launches=lead["launches"], held_to_one_process=held, files=len(got_files),
+        cross_card="unverified" if cards < 2 else f"ran on {cards} cards", card=_card(),
+    )
+
+
+def _fake_chumpy():
+    """A stand-in `chumpy` module whose `Ch` pickles as the official SMPL
+    pickle's arrays do (their state dict holds the ndarray under 'x')."""
+    import types
+
+    import numpy as np
+
+    module = types.ModuleType("chumpy")
+
+    class Ch:
+        def __init__(self, x):
+            self.x = np.asarray(x)
+
+    Ch.__module__, Ch.__qualname__ = "chumpy", "Ch"
+    module.Ch = Ch
+    return module
+
+
+def check_body_weights(model, ref, tmp):
+    """The real-weights path at full width: `model` (the synthetic body of
+    the product path) written as the official SMPL pickle lays it out
+    (chumpy arrays in float64, a scipy csc_matrix J_regressor, posedirs
+    (V, 3, 207), a 2³²−1 root in kintree_table), converted by the port and
+    loaded on the card: its arrays and its batch-256 forward equal the
+    model's bit for bit. The shipped regressor loads on the card, its
+    normalized rows sum to 1 within 1e-5 and are ≥ 0; applied to the
+    product path's refined vertices of shard 0 it gives an MPJPE that means
+    nothing on synthetic bodies (they are not SMPL's)."""
+    import pickle
+
+    import numpy as np
+    import scipy.sparse
+    import torch
+
+    from jrr_tpu_torch import assets
+    from jrr_tpu_torch.evals import metrics
+    from jrr_tpu_torch.models import smpl
+    from jrr_tpu_torch.ops import jreg, rotations
+    from jrr_tpu_torch.refine import losses
+
+    v, j = model.num_verts, model.num_joints
+    host = lambda x: x.cpu().numpy().astype(np.float64)  # noqa: E731
+    chumpy = _fake_chumpy()
+    parents = np.asarray(model.parents)
+    payload = {
+        "v_template": chumpy.Ch(host(model.v_template)),
+        "shapedirs": chumpy.Ch(host(model.shapedirs)),
+        "posedirs": chumpy.Ch(host(model.posedirs).T.reshape(v, 3, 9 * (j - 1))),
+        "J_regressor": scipy.sparse.csc_matrix(host(model.j_regressor)),
+        "weights": chumpy.Ch(host(model.lbs_weights)),
+        "f": model.faces.cpu().numpy(),
+        "kintree_table": np.vstack([np.where(parents < 0, 2**32 - 1, parents), np.arange(j)]),
+    }
+    pkl, npz = os.path.join(tmp, "basicmodel_synthetic.pkl"), os.path.join(tmp, "smpl.npz")
+    sys.modules["chumpy"] = chumpy
+    try:
+        with open(pkl, "wb") as f:
+            pickle.dump(payload, f, protocol=2)
+    finally:
+        del sys.modules["chumpy"]
+    t0 = time.perf_counter()
+    smpl.convert_smpl_pickle(pkl, npz)
+    convert_s = time.perf_counter() - t0
+    loaded = smpl.load_smpl_npz(npz, device="cuda")
+    fields = ("v_template", "shapedirs", "posedirs", "j_regressor", "lbs_weights", "faces",
+              "vertex_perm")
+    differ = [f for f in fields if not torch.equal(getattr(loaded, f), getattr(model, f))]
+    _check(not differ and loaded.parents == model.parents,
+           f"body_weights: converted arrays differ from the model's: {differ}")
+    rng = np.random.default_rng(11)
+    betas = torch.as_tensor(rng.normal(size=(BATCH, 10)).astype(np.float32), device="cuda")
+    rots = rotations.axis_angle_to_rotmat(torch.as_tensor(
+        rng.normal(scale=0.3, size=(BATCH, 24, 3)).astype(np.float32), device="cuda"))
+    outs = [smpl.smpl_forward(m, betas, rots[:, :1], rots[:, 1:]) for m in (model, loaded)]
+    _check(torch.equal(outs[0].vertices, outs[1].vertices)
+           and torch.equal(outs[0].joints, outs[1].joints),
+           "body_weights: the converted model's forward differs")
+    regressor = assets.load_retrained_j_regressor(device="cuda")
+    norm = jreg.normalize_jreg(regressor)
+    row_err = float((norm.sum(dim=1) - 1.0).abs().max())
+    _check(tuple(regressor.shape) == (17, 6890) and regressor.is_cuda and row_err <= 1e-5
+           and bool((norm >= 0).all()), f"body_weights: shipped regressor rows off by {row_err}")
+    with np.load(os.path.join(ref["out_dir"], "refined", "shard_000000.npz")) as f:
+        shard = {k: torch.as_tensor(f[k], device="cuda") for k in f.files}
+    with torch.no_grad():
+        verts = losses.forward_frame(
+            model, losses.FrameParams(*(shard[k] for k in losses.FrameParams._fields))).vertices
+        errors = metrics.evaluate(jreg.apply_jreg(norm, verts), shard["gt_j3d"])
+    _check(math.isfinite(float(errors.mpjpe)), "body_weights: non-finite MPJPE")
+    return dict(
+        pickle_mb=os.path.getsize(pkl) / 1e6, convert_seconds=convert_s, forward_batch=BATCH,
+        arrays_equal=len(fields), forward_equal=True, regressor_row_sum_max_err=row_err,
+        regressor_nonzero_share=float((regressor != 0).float().mean()),
+        shipped_regressor_on_refined_mpjpe_mm=float(errors.mpjpe),
+        shipped_regressor_on_refined_pa_mpjpe_mm=float(errors.pa_mpjpe),
+        mpjpe_note="meaningless: the synthetic body's vertices are not SMPL's",
+        card=_card(),
+    )
+
+
+def _rel_max(got, want) -> float:
+    """max|got − want| over max|want|."""
+    return float((got.double() - want.double()).abs().max() / want.double().abs().max().clamp_min(1e-30))
+
+
+def check_aux_modules(model, j_true):
+    """The off-path modules at full width on the card:
+    - thin appendages: a `synthetic_smpl_model(thin_appendage_radius=0.01)`
+      mask render of AUX_FRAMES frames through row 5 (launches counted),
+      held to its plain version as the product path's render is;
+    - the staged fit (`refine.legacy.find_translation_and_pose`, 100 + 100
+      steps) at batch 256 on `model`: finite, the pose stage's loss falling,
+      the translation stage's flat (the loss is pelvis-centred, so the
+      translation is a gauge); at batch 8 its loss curves and quaternions
+      within 1e-4 of the same call on the CPU;
+    - the image discriminator's score and silhouette gradient at batch 256,
+      224², TF32 off, the first 4 frames within 1e-4 of the CPU's;
+    - linearized sampling of 224² crops from 256² frames at batch 256 with
+      noise drawn on the card, value and both gradients on the first 4
+      frames within 1e-5 of the CPU's with the same noise;
+    - random perturbations drawn on the card: finite, near the identity,
+      repeated by the same generator."""
+    import numpy as np
+    import torch
+
+    from jrr_tpu_torch import kernels
+    from jrr_tpu_torch.data import fixtures, perturbation
+    from jrr_tpu_torch.models import image_discriminator as imgd
+    from jrr_tpu_torch.models import smpl
+    from jrr_tpu_torch.ops import rotations, sampling
+    from jrr_tpu_torch.parallel import mesh as mesh_lib
+    from jrr_tpu_torch.refine import legacy
+
+    out = {}
+    cpu = lambda tree: mesh_lib.tree_map(lambda x: x.cpu(), tree)  # noqa: E731
+    # Thin appendages.
+    thin, aux = smpl.synthetic_smpl_model(seed=0, thin_appendage_radius=THIN_APPENDAGE_RADIUS,
+                                          return_aux=True, device="cuda")
+    kernels.reset_launches()
+    gt, data = fixtures.make_synthetic_frames(thin, j_true, AUX_FRAMES, seed=0,
+                                              depth_range=PRODUCT_DEPTH)
+    torch.cuda.synchronize()
+    launches = _read_launches()
+    _check(launches == _launches(tiles_alpha_fwd=launches["tiles_alpha_fwd"])
+           and launches["tiles_alpha_fwd"] >= 1, f"aux_modules: thin render launched {launches}")
+    report, _ = _hold_tile_render(thin, gt, data.mask, "thin appendages")
+    out["thin_appendages"] = dict(report, radius_m=THIN_APPENDAGE_RADIUS,
+                                  appendage_verts=int(len(aux["appendage_verts"])),
+                                  tiles_alpha_fwd_launches=launches["tiles_alpha_fwd"])
+
+    # The staged fit.
+    rng = np.random.default_rng(5)
+    b = BATCH
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device="cuda")  # noqa: E731
+    q_orient = rotations.rotmat_to_quat(
+        rotations.random_rotmat(np.random.default_rng(6), (b, 1), device="cuda"))
+    q_pose = rotations.rotmat_to_quat(
+        rotations.random_rotmat(np.random.default_rng(7), (b, 23), device="cuda"))
+    betas = t(rng.normal(scale=0.4, size=(b, 10)))
+    j_reg = t(j_true)
+    with torch.no_grad():
+        gt_mm = legacy.find_joints_quat(model, betas, q_orient, q_pose, j_reg) * 1000.0
+    args = (gt_mm, q_orient + t(rng.normal(scale=0.03, size=(b, 1, 4))),
+            q_pose + t(rng.normal(scale=0.05, size=(b, 23, 4))), torch.zeros(b, 3, device="cuda"),
+            betas, j_reg)
+    t0 = time.perf_counter()
+    res = legacy.find_translation_and_pose(model, *args)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    _check(all(bool(torch.isfinite(x).all()) for x in res), "aux_modules: staged fit not finite")
+    l1, l2 = res.stage1_loss, res.stage2_loss
+    _check(float(l2[-1]) < 0.5 * float(l2[0]), "aux_modules: the staged fit's pose loss did not fall")
+    stage1_drift = float((l1 - l1[0]).abs().max() / l1[0])
+    _check(stage1_drift <= 1e-4, f"aux_modules: the translation stage moved the loss by {stage1_drift}")
+    n = AUX_CPU_FRAMES[0]
+    small = [a[:n] for a in args[:-1]] + [j_reg]
+    card = legacy.find_translation_and_pose(model, *small)
+    host = legacy.find_translation_and_pose(cpu(model), *(a.cpu() for a in small))
+    fit_err = {k: float((getattr(card, k).cpu() - getattr(host, k)).abs().max())
+               for k in ("stage1_loss", "stage2_loss", "orient_quat", "pose_quat")}
+    _check(max(fit_err.values()) <= STAGED_FIT_ATOL,
+           f"aux_modules: staged fit card against CPU {fit_err}")
+    out["staged_fit"] = dict(batch=b, steps=[len(l1), len(l2)], seconds=fit_s,
+                             stage2_loss_first_last=[float(l2[0]), float(l2[-1])],
+                             stage1_relative_drift=stage1_drift, cpu_frames=n,
+                             cpu_max_abs_err=fit_err, tolerance=STAGED_FIT_ATOL)
+
+    # The image discriminator.
+    n = AUX_CPU_FRAMES[1]
+    disc = imgd.ImageDiscriminator(seed=0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    image = torch.rand((b, 3, 224, 224), generator=gen, device="cuda")
+    sil = torch.rand((b, 224, 224), generator=gen, device="cuda")
+
+    def disc_run(d, img, s):
+        s = s.clone().requires_grad_(True)
+        score = d(img, s)
+        (g,) = torch.autograd.grad(((score - 1.0) ** 2).sum(), [s])  # per-frame, batch-free
+        return score.detach(), g
+
+    disc_run(disc, image, sil)  # warm-up (cuDNN's algorithm choice)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    score, grad = disc_run(disc, image, sil)
+    torch.cuda.synchronize()
+    disc_s = time.perf_counter() - t0
+    h_score, h_grad = disc_run(cpu(disc), image[:n].cpu(), sil[:n].cpu())
+    disc_err = dict(score=float((score[:n].cpu() - h_score).abs().max()),
+                    grad_rel=_rel_max(grad[:n].cpu(), h_grad))
+    _check(bool(torch.isfinite(score).all() & torch.isfinite(grad).all())
+           and max(disc_err.values()) <= IMAGE_DISC_ATOL,
+           f"aux_modules: image discriminator card against CPU {disc_err}")
+    out["image_discriminator"] = dict(batch=b, size=224, seconds=disc_s, cpu_frames=n,
+                                      cpu_err=disc_err, tolerance=IMAGE_DISC_ATOL)
+
+    # Linearized sampling on the SPIN crop.
+    frames = torch.rand((b, 3, 256, 256), generator=gen, device="cuda")
+    homography = perturbation.gen_random_perturbation(b, 0.05, 0.05, 0.05, generator=gen,
+                                                      device="cuda")
+    grid = sampling.make_warp_grid(homography, (224, 224))
+    noise = torch.randn((b, 4, 224, 224, 2), generator=gen, device="cuda")
+    w = torch.rand((b, 3, 224, 224), generator=gen, device="cuda")
+
+    def lin_run(img, g, z, wt):
+        img, g = img.clone().requires_grad_(True), g.clone().requires_grad_(True)
+        value = sampling.linearized_sample(img, g, z)
+        gi, gg = torch.autograd.grad((value * wt).sum(), [img, g])
+        return value.detach(), gi, gg
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    value, gi, gg = lin_run(frames, grid, noise, w)
+    torch.cuda.synchronize()
+    lin_s = time.perf_counter() - t0
+    bil = sampling.grid_sample(frames, grid)
+    hv, hgi, hgg = lin_run(*(x[:n].cpu() for x in (frames, grid, noise, w)))
+    lin_err = dict(value=float((value[:n].cpu() - hv).abs().max()),
+                   value_vs_bilinear=float((value - bil).abs().max()),
+                   grad_image_rel=_rel_max(gi[:n].cpu(), hgi), grad_grid_rel=_rel_max(gg[:n].cpu(), hgg))
+    _check(all(bool(torch.isfinite(x).all()) for x in (value, gi, gg))
+           and max(lin_err.values()) <= LINEARIZED_ATOL,
+           f"aux_modules: linearized sampling card against CPU {lin_err}")
+    out["linearized_sampling"] = dict(batch=b, size=[256, 224], num_aux=4, seconds=lin_s,
+                                      cpu_frames=n, cpu_err=lin_err, tolerance=LINEARIZED_ATOL)
+
+    # Perturbations.
+    mats = perturbation.gen_random_perturbation(
+        b, generator=torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    again = perturbation.gen_random_perturbation(
+        b, generator=torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    dev = float((mats - torch.eye(3, device="cuda")).abs().max())
+    _check(bool(torch.isfinite(mats).all()) and dev < 0.25 and torch.equal(mats, again),
+           f"aux_modules: perturbations {dev} from the identity")
+    out["perturbation"] = dict(batch=b, max_abs_from_identity=dev)
+    out["card"] = _card()
+    return out
+
+
 def main() -> int:
+    if len(sys.argv) == 5 and sys.argv[1] == "--multi-gpu-worker":
+        return _multi_gpu_worker(*sys.argv[2:])
     # cuBLAS's setting for deterministic results, read when its handle is
     # made; PyTorch's deterministic mode (the plain reference run) needs it.
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -2735,12 +3238,20 @@ def main() -> int:
     done("h5_check")
     with tempfile.TemporaryDirectory() as tmp:
         data_root = os.path.join(tmp, "fixtures")
-        product, model = run_product_path(data_root)
+        product, model, product_ref = run_product_path(data_root, tmp)
         _emit({"product_path": product})
         done("product_path")
+        multi_gpu = run_multi_gpu(data_root, product_ref, tmp)
+        _emit({"multi_gpu": multi_gpu})
+        done("multi_gpu")
+        _emit({"body_weights": check_body_weights(model, product_ref, tmp)})
+        done("body_weights")
         consumer = run_consumer_path(data_root, model)
         _emit({"consumer_path": consumer})
         done("consumer_path")
+        aux = check_aux_modules(model, product_ref["j_true"])
+        _emit({"aux_modules": aux})
+        done("aux_modules")
     _emit({"kernel_checks": checks})
     _emit({"tile_kernel_checks": tile_checks})
     _emit({"phase_seconds": phases})
@@ -2795,6 +3306,7 @@ def main() -> int:
     spin_bins = consumer["bins_check"].values()
     for row, name in ((alpha_fwd, "fused_alpha_fwd"), (lossgrad, "fused_lossgrad")):
         row["spin_product_launches"] = consumer["launches"][name]
+        row["multi_gpu_launches"] = multi_gpu["launches"][name]
     alpha_fwd.update(max_abs_err=max(alpha_fwd["max_abs_err"], *(
         r[k] for r in spin_bins for k in ("alpha_max_abs_err", "rebin_alpha_max_abs_err"))))
     alpha_fwd["spin_decision_flips"] = sum(r["flips"] + r["rebin_flips"] for r in spin_bins)
@@ -2809,9 +3321,12 @@ def main() -> int:
     tiles_fwd.update(
         product_launches=product["launches"]["tiles_alpha_fwd"],
         spin_product_launches=consumer["launches"]["tiles_alpha_fwd"],
-        max_abs_err=max(tiles_fwd["max_abs_err"], render["alpha_max_abs_err"]),
+        max_abs_err=max(tiles_fwd["max_abs_err"], render["alpha_max_abs_err"],
+                        aux["thin_appendages"]["alpha_max_abs_err"]),
         product_decision_flips=render["flips"],
-        product_flips_nearer_float64=render["flips_kernel_nearer_f64"])
+        product_flips_nearer_float64=render["flips_kernel_nearer_f64"],
+        thin_appendage_launches=aux["thin_appendages"]["tiles_alpha_fwd_launches"],
+        thin_appendage_decision_flips=aux["thin_appendages"]["flips"])
     # The main path launches it on the bins before the skip.
     alpha_fwd.update(rebin_ms=checks["fine"]["fwd_rebin_ms"],
                      coarse_rebin_ms=checks["coarse"]["fwd_rebin_ms"],

@@ -7,6 +7,11 @@ Usage:
 
     python -m jrr_tpu_torch.cli --demo --device cpu --vibe-checkpoint vibe_model.pth.tar
 
+    torchrun --nproc_per_node=4 -m jrr_tpu_torch.cli --data-root data/h36m ...  # 4 GPUs
+
+Under torchrun each process takes its own card, cuda:$LOCAL_RANK (NCCL;
+gloo with `--device cpu`), refines its rows of every batch, and rank 0
+alone writes the outputs and the metrics file and prints the MPJPE block.
 Flags follow jrr_tpu's CLI; its `--platform` is `--device {cuda,cpu}` here
 (default cuda, and `--demo` too runs on the card). `--loader native` reads
 the split through the host runtime's pack loader: frames.jrrpack (raw
@@ -147,8 +152,16 @@ def main(argv=None) -> None:
             data=dataclasses.replace(cfg.data, batch_size=min(args.batch_size, 8)),
         )
 
+    from jrr_tpu_torch.parallel import mesh as mesh_lib, multihost
+
+    multihost.initialize(backend="nccl" if args.device == "cuda" else "gloo")
+    device = args.device
+    if mesh_lib.initialized() and device == "cuda":
+        device = f"cuda:{mesh_lib.local_rank()}"
+    lead = multihost.process_info()["process_index"] == 0
+
     wandb_run = None
-    if args.wandb_log:
+    if args.wandb_log and lead:
         try:
             import wandb
 
@@ -161,7 +174,7 @@ def main(argv=None) -> None:
 
     logger = MetricsLogger(
         path=args.metrics_jsonl or f"{args.out}/metrics.jsonl", wandb_run=wandb_run
-    )
+    ) if lead else None
     try:
         run_pipeline(
             cfg, data_root=args.data_root, out_dir=args.out, demo=args.demo,
@@ -170,10 +183,12 @@ def main(argv=None) -> None:
             loader=args.loader,
             vibe_checkpoint=args.vibe_checkpoint, meva_checkpoint=args.meva_checkpoint,
             consumer_seqlen=args.consumer_seqlen or (4 if args.demo else 16),
-            device=args.device,
+            device=device,
         )
     finally:
-        logger.close()
+        if logger is not None:
+            logger.close()
+        multihost.shutdown()
 
 
 if __name__ == "__main__":

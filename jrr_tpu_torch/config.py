@@ -112,11 +112,12 @@ class DataConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """Device settings. The port runs on one card: `num_devices` > 1 raises
-    in `pipeline.run_optimize` (multi-GPU is not ported yet)."""
+    """Device settings. The port runs one process per GPU (parallel/):
+    `num_devices`, when set, must be the process count of the
+    `torch.distributed` group (`pipeline.run_optimize` raises otherwise)."""
 
     data_axis: str = "data"
-    num_devices: Optional[int] = None  # None = one card
+    num_devices: Optional[int] = None  # None = the process count (one card without a group)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -21,6 +21,7 @@ from jrr_tpu_torch import config as config_lib
 from jrr_tpu_torch import resolve_device
 from jrr_tpu_torch.models import convert_util
 from jrr_tpu_torch.models import discriminator as disc_lib
+from jrr_tpu_torch.models import image_discriminator as imgd_lib
 from jrr_tpu_torch.models import meva as meva_lib
 from jrr_tpu_torch.models import smpl as smpl_lib
 from jrr_tpu_torch.models import spin as spin_lib
@@ -122,6 +123,19 @@ def shape_discriminator(params: Mapping, device="cuda") -> disc_lib.ShapeDiscrim
     """JAX shape-discriminator param dict (w1, b1, w2, b2, w3, b3)."""
     return _disc_from_jax(disc_lib.ShapeDiscriminator(device="cpu"), params, _SHAPE_DISC_KEYS,
                           device)
+
+
+def image_discriminator_from_jax(params: Mapping, device="cuda") -> imgd_lib.ImageDiscriminator:
+    """JAX image-discriminator param dict (w0…w3, b0…b3 with HWIO kernels,
+    w_out, b_out) → `models.image_discriminator.ImageDiscriminator`."""
+    disc = imgd_lib.ImageDiscriminator(device="cpu")
+    convs = list(disc.convs) + [disc.out]
+    names = [str(i) for i in range(len(disc.convs))] + ["_out"]
+    with torch.no_grad():
+        for conv, n in zip(convs, names):
+            conv.weight.copy_(torch.as_tensor(_conv_weight(params[f"w{n}"])))
+            conv.bias.copy_(torch.as_tensor(_np(params[f"b{n}"])))
+    return disc.to(resolve_device(device))
 
 
 def frame_params(src, device="cuda") -> FrameParams:

@@ -7,13 +7,16 @@
     verts    = LBS(W, A, v_posed)           ((V,24)@(24,12) product + affine)
 
 `synthetic_smpl_model` is the same numpy generator as the JAX package's, so
-one seed gives the same arrays in both packages.
+one seed gives the same arrays in both packages. `convert_smpl_pickle`
+turns the official chumpy-pickled SMPL `.pkl` into the `.npz` that
+`load_smpl_npz` reads, with neither chumpy nor scipy installed.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import pickle
 from typing import Optional, Tuple
 
 import numpy as np
@@ -177,11 +180,20 @@ def synthetic_smpl_model(
     num_betas: int = constants.NUM_BETAS,
     num_faces: Optional[int] = None,
     device="cuda",
-) -> SMPLModel:
+    thin_appendage_radius: float = 0.0,
+    return_aux: bool = False,
+):
     """Structurally consistent synthetic SMPL-like model (the real arrays are
     license-gated): tube surfaces along a T-pose skeleton, faces joining
     nearest neighbours. The numpy draws are those of
-    jrr_tpu.models.smpl.synthetic_smpl_model (thin appendages not ported)."""
+    jrr_tpu.models.smpl.synthetic_smpl_model.
+
+    `thin_appendage_radius > 0` (meters) moves two thirds of each hand and
+    foot tip joint's vertices (at least 8) onto a thin tube of that radius,
+    0.18 m long, along the tip's bone: finger-scale structures, ~2 px wide
+    at radius 0.01 on a SPIN crop. The faces join them into a surface as
+    they join the rest. With `return_aux=True` returns (model,
+    {"appendage_verts": indices, "appendage_groups": [indices per tip]})."""
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
     if num_joints == constants.NUM_SMPL_JOINTS:
@@ -218,6 +230,29 @@ def synthetic_smpl_model(
         rng.uniform(0.04, 0.07, size=(num_verts, 1)),
     )
     v_template = (base + dirs * radius).astype(np.float32)
+
+    appendage_verts = np.zeros((0,), np.int64)
+    appendage_groups = []
+    if thin_appendage_radius > 0.0:
+        if num_joints != constants.NUM_SMPL_JOINTS:
+            raise ValueError("thin appendages need the 24-joint SMPL tree")
+        for k in (22, 23, 10, 11):  # SMPL tips: hands, then feet
+            vk = np.where(vert_joint == k)[0]
+            take = vk[: max(8, (2 * len(vk)) // 3)]
+            if len(take) == 0:
+                continue
+            d = j_rest[k] - j_rest[parents[k]]
+            d = d / max(float(np.linalg.norm(d)), 1e-6)
+            t = rng.uniform(0.0, 1.0, size=(len(take), 1)).astype(np.float32)
+            ring = rng.normal(size=(len(take), 3)).astype(np.float32)
+            ring -= (ring @ d)[:, None] * d  # the component across the bone
+            ring /= np.linalg.norm(ring, axis=1, keepdims=True) + 1e-9
+            v_template[take] = (
+                j_rest[k] + d[None, :] * (t * 0.18) + ring * thin_appendage_radius
+            ).astype(np.float32)
+            appendage_groups.append(take)
+        if appendage_groups:
+            appendage_verts = np.concatenate(appendage_groups)
 
     w = np.zeros((num_verts, num_joints), dtype=np.float32)
     w[np.arange(num_verts), vert_joint] = 0.8
@@ -256,7 +291,7 @@ def synthetic_smpl_model(
         extra[np.arange(9), rng.integers(0, num_verts, size=9)] = 1.0
 
     t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
-    return SMPLModel(
+    model = SMPLModel(
         v_template=t(v_template),
         shapedirs=t(shapedirs),
         posedirs=t(posedirs),
@@ -267,6 +302,77 @@ def synthetic_smpl_model(
         parents=parents,
         vertex_perm=t(vertex_locality_perm(v_template).astype(np.int64)),
     )
+    if return_aux:
+        return model, {"appendage_verts": appendage_verts, "appendage_groups": appendage_groups}
+    return model
+
+
+# ---------------------------------------------------------------------------
+# The official SMPL pickle → npz
+# ---------------------------------------------------------------------------
+
+
+class _ChumpyUnpickler(pickle.Unpickler):
+    """Unpickles the official SMPL .pkl without chumpy or scipy installed.
+
+    Its arrays are chumpy objects, whose state dict holds the ndarray under
+    'x', and its J_regressor a scipy.sparse.csc_matrix, whose state holds
+    data, indices, indptr and the shape. `find_class` returns stand-ins
+    that keep just those: the 2015 Python-2 pickles name the class in
+    `scipy.sparse.csc`, newer ones in `scipy.sparse._csc`."""
+
+    class _Ch:
+        def __setstate__(self, state):
+            self.data = np.asarray(state.get("x")) if isinstance(state, dict) else None
+
+    class _Csc:
+        def __setstate__(self, state):
+            self.state = state
+
+        def todense(self) -> np.ndarray:
+            st = self.state
+            shape = tuple(int(n) for n in st.get("_shape", st.get("shape")))
+            data, indices = np.asarray(st["data"]), np.asarray(st["indices"], np.int64)
+            indptr = np.asarray(st["indptr"], np.int64)
+            out = np.zeros(shape, dtype=data.dtype)
+            cols = np.repeat(np.arange(shape[1]), np.diff(indptr))
+            np.add.at(out, (indices, cols), data)  # duplicates add, as scipy's todense does
+            return out
+
+    def find_class(self, module, name):
+        if module.startswith("chumpy"):
+            return _ChumpyUnpickler._Ch
+        if module == "scipy.sparse.csc" or (
+            module.startswith("scipy.sparse") and name == "csc_matrix"
+        ):
+            return _ChumpyUnpickler._Csc
+        return super().find_class(module, name)
+
+
+def _to_dense(x) -> np.ndarray:
+    if hasattr(x, "todense"):
+        return np.asarray(x.todense())
+    if hasattr(x, "data") and not isinstance(x, np.ndarray):
+        return np.asarray(x.data)
+    return np.asarray(x)
+
+
+def convert_smpl_pickle(pkl_path: str, npz_path: str) -> None:
+    """One-time converter: official SMPL .pkl (chumpy) → plain .npz, with
+    jrr_tpu's keys, dtypes and layouts (so either package's `load_smpl_npz`
+    reads it)."""
+    with open(pkl_path, "rb") as f:
+        data = _ChumpyUnpickler(f, encoding="latin1").load()
+    np.savez(
+        npz_path,
+        v_template=_to_dense(data["v_template"]).astype(np.float32),
+        shapedirs=_to_dense(data["shapedirs"]).astype(np.float32),
+        posedirs=_to_dense(data["posedirs"]).astype(np.float32),
+        j_regressor=_to_dense(data["J_regressor"]).astype(np.float32),
+        lbs_weights=_to_dense(data["weights"]).astype(np.float32),
+        faces=_to_dense(data["f"]).astype(np.int32),
+        kintree_parents=np.asarray(data["kintree_table"])[0].astype(np.int64),
+    )
 
 
 def load_smpl_npz(
@@ -275,7 +381,8 @@ def load_smpl_npz(
     j_regressor_extra_path: Optional[str] = None,
     device="cuda",
 ) -> SMPLModel:
-    """Load a converted SMPL model (.npz from jrr_tpu's `convert_smpl_pickle`)."""
+    """Load a converted SMPL model (.npz from `convert_smpl_pickle`, this
+    package's or jrr_tpu's)."""
     dev = resolve_device(device)
     with np.load(npz_path) as data:
         data = dict(data)

@@ -1,19 +1,23 @@
-"""Differentiable bilinear image sampling (counterpart of the bilinear path of
-jrr_tpu/ops/sampling.py:30-69,110-152; reference scripts/sampling_helper.py:5-69).
+"""Differentiable image sampling (counterpart of jrr_tpu/ops/sampling.py;
+reference scripts/sampling_helper.py:5-69, scripts/linearized.py:141-204).
 
 - `grid_sample`: torch.nn.functional.grid_sample semantics for
   mode='bilinear', padding='zeros', align_corners=False — grid coords in
   [-1, 1], pixel = ((g + 1) · size − 1) / 2, zero padding outside. Written
   as JAX's four-corner gather with the same product order, so both packages
   give the same numbers.
+- `mode="linearized"`: the bilinear value, with a gradient with respect
+  to the grid taken from a local linear model fitted to four jittered
+  samples around each output pixel (jrr_tpu :70-123; unused on the
+  reference's hot path). Its noise comes from an explicit
+  `torch.Generator`; `linearized_sample` takes the noise itself.
 - `warp_image`: homography warp (grid from an output-shape mesh, the 3×3
   transform with perspective divide, sample, NaN scrub).
-
-The linearized multi-sampling mode (JAX's `mode="linearized"`, unused on
-the reference's hot path) is not ported yet.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -34,8 +38,7 @@ def _gather_2d(image: torch.Tensor, ix: torch.Tensor, iy: torch.Tensor) -> torch
     return torch.where(inb[:, None], vals, vals.new_zeros(()))
 
 
-def grid_sample(image: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
-    """image (B, C, H, W), grid (B, Ho, Wo, 2) in [-1,1] (x, y) → (B, C, Ho, Wo)."""
+def _bilinear(image: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     h, w = image.shape[-2:]
     x = _unnormalize(grid[..., 0], w)
     y = _unnormalize(grid[..., 1], h)
@@ -55,6 +58,61 @@ def grid_sample(image: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
         + v10 * (1 - dx) * dy
         + v11 * dx * dy
     )
+
+
+def linearized_sample(image: torch.Tensor, grid: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """Linearized multi-sampling with the standard-normal `noise`
+    (B, A, Ho, Wo, 2) given: the A jitters are `noise` pixels (in grid
+    units, 2/size per pixel). Value = bilinear(grid); the gradient
+    with respect to the grid flows through the least-squares fit
+    value ≈ a + J·d over the A + 1 samples, J held constant; the image's
+    flows through the exact sample.
+
+    The fit is jrr_tpu's ridge system (XᵀX + 1e-6·I) c = Xᵀv over
+    X = [d, 1], formed and solved in float64: its condition number reaches
+    ~1e4 on 256² frames, where float32 loses ~1e-3 of J. Each product of
+    two float32 values is exact in float64 and the A + 1 terms are summed
+    in a fixed order, so the CPU and the card form the same system."""
+    b, c, h, w = image.shape
+    ho, wo = grid.shape[1:3]
+    scale = torch.tensor([2.0 / w, 2.0 / h], dtype=grid.dtype, device=grid.device)
+    noise = noise * scale
+    offsets = torch.cat([torch.zeros_like(noise[:, :1]), noise], dim=1)  # (B, A+1, Ho, Wo, 2)
+    a1 = offsets.shape[1]
+    grids = grid.detach()[:, None] + offsets
+    samples = _bilinear(
+        image.repeat_interleave(a1, dim=0), grids.reshape(b * a1, ho, wo, 2)
+    ).reshape(b, a1, c, ho, wo)
+    x_mat = torch.cat([offsets, torch.ones_like(offsets[..., :1])], dim=-1).double()
+    xtx = xtv = 0.0
+    for a in range(a1):
+        x = x_mat[:, a, ..., :, None]  # (B, Ho, Wo, 3, 1)
+        xtx = xtx + x * x.transpose(-1, -2)
+        xtv = xtv + x * samples[:, a].detach().double().permute(0, 2, 3, 1)[..., None, :]
+    eye = torch.eye(3, dtype=xtx.dtype, device=xtx.device) * 1e-6
+    jac = torch.linalg.solve(xtx + eye, xtv)[..., :2, :].to(grid.dtype)  # (B, Ho, Wo, 2, C)
+    delta = grid - grid.detach()  # zero value, carries the gradient
+    return samples[:, 0] + torch.einsum("bhwd,bhwdc->bchw", delta, jac)
+
+
+def grid_sample(
+    image: torch.Tensor,
+    grid: torch.Tensor,
+    mode: str = "bilinear",
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """image (B, C, H, W), grid (B, Ho, Wo, 2) in [-1,1] (x, y) → (B, C, Ho, Wo).
+
+    `mode="linearized"` draws its (B, 4, Ho, Wo, 2) noise (jrr_tpu's four
+    jitters a pixel) from `generator` (a generator on the grid's device;
+    None: the default one)."""
+    if mode == "bilinear":
+        return _bilinear(image, grid)
+    if mode == "linearized":
+        noise = torch.randn((grid.shape[0], 4) + tuple(grid.shape[1:]),
+                            generator=generator, dtype=grid.dtype, device=grid.device)
+        return linearized_sample(image, grid, noise)
+    raise ValueError(f"unknown sampling mode: {mode}")
 
 
 def _linspace(n: int, like: torch.Tensor) -> torch.Tensor:
@@ -77,8 +135,12 @@ def make_warp_grid(homography: torch.Tensor, out_shape: tuple) -> torch.Tensor:
     return xy.permute(0, 2, 1).reshape(-1, ho, wo, 2)
 
 
-def warp_image(image: torch.Tensor, homography: torch.Tensor, out_shape: tuple) -> torch.Tensor:
+def warp_image(
+    image: torch.Tensor, homography: torch.Tensor, out_shape: tuple,
+    mode: str = "bilinear", generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
     """Differentiable homography warp (B, C, H, W) → (B, C, Ho, Wo)."""
-    out = grid_sample(image, make_warp_grid(homography, out_shape))
+    out = grid_sample(image, make_warp_grid(homography, out_shape), mode=mode,
+                      generator=generator)
     # NaN scrub, as the reference does (scripts/sampling_helper.py:36-38).
     return torch.where(torch.isnan(out), out.new_zeros(()), out)

@@ -36,8 +36,19 @@ through those video models, frame by frame and over real sequences
 The batches come from the host runtime's pack loader
 (`data/native_pipeline.py`) with `loader="native"`, or with "auto" when the
 split has a frames.jrrpack (the pre-warped frames.jrrpack2 is read when it
-exists); otherwise from H36MDataset + BatchLoader. Not ported yet, and
-raising `NotImplementedError`: more than one device.
+exists); otherwise from H36MDataset + BatchLoader.
+
+Under `torch.distributed` (one process per GPU, `parallel/`), every process
+loads each global batch and refines its contiguous rows of it, so batch k
+covers the frames it covers in a one-process run. Per outer step the main
+thread of every process issues the same collectives in the same order: the
+shared gradients and the metrics (refine/trainer.py), the batch's lstsq
+statistics (so every process holds the global accumulator) and a gather of
+the refined rows. Rank 0 alone writes files (its writer thread issues no
+collective) and runs the fit, the evals and the consumers while the others
+wait at a barrier; every process restores the same state on resume, and
+replays only its rows of a completed shard. Without `torch.distributed`
+nothing of this runs.
 """
 
 from __future__ import annotations
@@ -60,6 +71,7 @@ from jrr_tpu_torch.data import fixtures, h36m, native_pipeline
 from jrr_tpu_torch.evals import consumers, harness
 from jrr_tpu_torch.models import smpl as smpl_lib
 from jrr_tpu_torch.models import spin as spin_lib
+from jrr_tpu_torch.parallel import mesh as mesh_lib
 from jrr_tpu_torch.refine import engine, losses, trainer
 from jrr_tpu_torch.utils import checkpoint as ckpt_lib
 from jrr_tpu_torch.utils import precision
@@ -85,7 +97,9 @@ class PipelineArtifacts:
     j_reg_initial: np.ndarray
     j_reg_final: np.ndarray
     j_reg_lstsq: Optional[np.ndarray]
-    eval_before_after: harness.BeforeAfter
+    # None on the ranks other than 0 of a multi-process run, which run no
+    # fit and no eval.
+    eval_before_after: Optional[harness.BeforeAfter]
     out_dir: str
     eval_lstsq: Optional[harness.EvalResult] = None
     # Wall seconds of each phase: fixtures (demo), optimize, fit, eval, and
@@ -98,6 +112,8 @@ class PipelineArtifacts:
     # kind ("vibe"/"meva" [+ " (sequence)"]) → BeforeAfter, when consumer
     # checkpoints were given (reference: main.py:26-27 runs both).
     consumer_evals: Dict[str, harness.BeforeAfter] = dataclasses.field(default_factory=dict)
+    # The lstsq statistics the fit solved (global sums), on the run's device.
+    accumulator: Optional[trainer.JRegLstsqAccumulator] = None
 
 
 def _to_device(x, device) -> torch.Tensor:
@@ -224,6 +240,33 @@ def _timed(iterator):
         yield time.perf_counter() - t0, item
 
 
+def _run_mesh(cfg: PipelineConfig, dev) -> Optional[mesh_lib.Mesh]:
+    """The process mesh of a run under `torch.distributed`, else None; a
+    configured device count must be the process count."""
+    n = cfg.mesh.num_devices
+    if not mesh_lib.initialized():
+        if n is not None and n > 1:
+            raise ValueError(f"mesh.num_devices={n} in a single process: "
+                             + mesh_lib.launch_hint(n))
+        return None
+    mesh = mesh_lib.make_mesh(n, device=dev)
+    if mesh.device != dev:
+        raise ValueError(f"rank {mesh.rank} runs on {dev}, not its own device {mesh.device}")
+    if cfg.data.batch_size % mesh.world_size:
+        raise ValueError(
+            f"batch size {cfg.data.batch_size} does not split over {mesh.world_size} processes; "
+            f"{mesh_lib.feasible_device_count(cfg.data.batch_size, mesh.world_size)} would")
+    return mesh
+
+
+def _local_rows(batch: Dict[str, np.ndarray], rows: Optional[slice]) -> Dict[str, np.ndarray]:
+    """A process's rows of every per-frame entry of a host batch."""
+    if rows is None:
+        return batch
+    n = len(batch["gt_j3d"])
+    return {k: v[rows] if hasattr(v, "__len__") and len(v) == n else v for k, v in batch.items()}
+
+
 def run_optimize(
     cfg: PipelineConfig,
     model,
@@ -244,13 +287,15 @@ def run_optimize(
     every launch comes from one thread in a fixed order (a resumed shard
     needs no estimates and runs no network).
 
-    Returns (final TrainState, JRegLstsqAccumulator, ShardManifest)."""
-    if cfg.mesh.num_devices is not None and cfg.mesh.num_devices > 1:
-        raise NotImplementedError(
-            f"mesh.num_devices={cfg.mesh.num_devices}: multi-GPU is not ported "
-            "(ROADMAP Queue 1, multi-GPU); the port runs on one card"
-        )
+    Under `torch.distributed` each process refines its rows of every batch
+    (module docstring); `cfg.mesh.num_devices`, when set, must be the
+    process count, and the model must sit on this process's device.
+
+    Returns (final TrainState, JRegLstsqAccumulator, ShardManifest); the
+    state and the accumulator are global and the same on every process."""
     dev = model.v_template.device
+    mesh = _run_mesh(cfg, dev)
+    lead = mesh is None or mesh.is_lead
     manifest = ckpt_lib.ShardManifest(os.path.join(out_dir, "refined"))
     ckpt_dir = os.path.join(out_dir, "ckpt")
     snap_dir = os.path.join(out_dir, "jreg_snapshots")
@@ -265,11 +310,7 @@ def run_optimize(
     covered = -1
     if resume:
         state, covered = _restore_train_state(ckpt_dir, marker, state)
-    if covered is not None and os.path.isdir(snap_dir):
-        for name in os.listdir(snap_dir):
-            m = _SNAP_FILE.fullmatch(name)
-            if m and int(m.group(1)) > covered:
-                os.remove(os.path.join(snap_dir, name))
+    done = set(manifest.completed()) if resume else set()
 
     acc = trainer.JRegLstsqAccumulator.zero(model.num_verts, device=dev)
     acc_upto = -1
@@ -281,6 +322,16 @@ def run_optimize(
                     *(torch.as_tensor(f[k], device=dev) for k in ("gram", "rhs", "count"))
                 )
                 acc_upto = upto
+    if mesh is not None:
+        mesh_lib.barrier(mesh)  # every process has read the out dir before rank 0 writes
+    if lead and covered is not None and os.path.isdir(snap_dir):
+        for name in os.listdir(snap_dir):
+            m = _SNAP_FILE.fullmatch(name)
+            if m and int(m.group(1)) > covered:
+                os.remove(os.path.join(snap_dir, name))
+    # The batch's statistics summed over the processes before they are
+    # added: every process holds the global accumulator.
+    reduce = None if mesh is None else (lambda part: mesh_lib.sum_over_ranks(mesh, part))
 
     def write(item):
         kind, sid, payload = item
@@ -306,11 +357,18 @@ def run_optimize(
             host = [x.cpu().numpy() for x in payload]
             ckpt_lib.savez_atomic(acc_path, gram=host[0], rhs=host[1], count=host[2], upto=sid)
 
+    # Rank 0's writer; the other processes write nothing.
+    writer = _OrderedWriter(write) if lead else None
+
+    def put(item):
+        if writer is not None:
+            writer.put(item)
+
     def maybe_ckpt_acc(shard_id, acc):
         if shard_id % ACC_CKPT_EVERY == ACC_CKPT_EVERY - 1:
             # Ordered after this shard's manifest entry and train state: a
             # resume never counts a shard twice.
-            writer.put(("acc_ckpt", shard_id, acc))
+            put(("acc_ckpt", shard_id, acc))
 
     # JRR_PHASE_TIMING=1 splits each batch's wall time at device barriers
     # (a diagnostic mode: the barriers change the overlap).
@@ -321,18 +379,20 @@ def run_optimize(
             torch.cuda.synchronize(dev)
 
     def stage(batch):
-        init = (_stored_init(batch, dev) if spin_fn is None
-                else _to_device(batch["spin_image"], dev))
-        return batch, init, _frame_batch(batch, cfg, dev)
+        rows = None if mesh is None else mesh_lib.local_rows(mesh, len(batch["gt_j3d"]))
+        local = _local_rows(batch, rows)
+        init = (_stored_init(local, dev) if spin_fn is None
+                else _to_device(local["spin_image"], dev))
+        return batch, rows, init, _frame_batch(local, cfg, dev)
 
     staged = _prefetch_iter(map(stage, batches), cfg.data.prefetch)
-    writer = _OrderedWriter(write)
     try:
-        for shard_id, (loader_wait, (batch, init, data)) in enumerate(_timed(staged)):
-            writer.check()
-            if resume and (covered is None or shard_id <= covered) and manifest.is_done(shard_id):
+        for shard_id, (loader_wait, (batch, rows, init, data)) in enumerate(_timed(staged)):
+            if writer is not None:
+                writer.check()
+            if resume and (covered is None or shard_id <= covered) and shard_id in done:
                 if shard_id > acc_upto:  # else already in the checkpointed accumulator
-                    acc = _replay_shard(manifest, shard_id, batch, model, acc)
+                    acc = _replay_shard(manifest, shard_id, batch, model, acc, rows, reduce)
                     maybe_ckpt_acc(shard_id, acc)
                 continue
             t0 = time.time()
@@ -343,36 +403,38 @@ def run_optimize(
                 barrier()
                 phases["prep"] = time.time() - t0
             t1 = time.time()
-            state, m, result = trainer.outer_step(state, model, init, data, cfg)
+            state, m, result = trainer.outer_step(state, model, init, data, cfg, mesh=mesh)
             if phase_timing:
                 barrier()
                 phases["step"] = time.time() - t1
             t1 = time.time()
             acc = trainer.jreg_lstsq_accumulate(
-                acc, result.vertices, data.gt_j3d, result.joints3d[:, :1]
+                acc, result.vertices, data.gt_j3d, result.joints3d[:, :1], reduce=reduce
             )
             if phase_timing:
                 barrier()
                 phases["acc"] = time.time() - t1
             t1 = time.time()
-            writer.put(("shard", shard_id, {
+            refined = {
                 "pose6d": result.params.pose6d,
                 "orient6d": result.params.orient6d,
                 "betas": result.params.betas,
                 "cam_t": result.params.cam_t,
                 "joints3d": result.joints3d,
-                # Frame identity for the resume-time pairing check.
-                "gt_j3d": np.asarray(batch["gt_j3d"]),
-            }))
+            }
+            if mesh is not None:
+                refined = mesh_lib.gather_rows(mesh, refined)
+            # Frame identity for the resume-time pairing check.
+            put(("shard", shard_id, dict(refined, gt_j3d=np.asarray(batch["gt_j3d"]))))
             if phase_timing:
                 phases["write_enqueue"] = time.time() - t1
             t1 = time.time()
             snap_every = cfg.jreg.snapshot_interval
             if snap_every and shard_id % snap_every == snap_every - 1:
-                writer.put(("jreg_snap", shard_id, state.j_reg_raw))
-            writer.put(("state", shard_id, state))
+                put(("jreg_snap", shard_id, state.j_reg_raw))
+            put(("state", shard_id, state))
             maybe_ckpt_acc(shard_id, acc)
-            if logger is not None:
+            if logger is not None and lead:
                 if phase_timing:
                     phases["ckpt"] = time.time() - t1
                 t1 = time.time()
@@ -388,13 +450,17 @@ def run_optimize(
                 logger.log(rec, step=state.step)
     finally:
         staged.close()
-        writer.close()
-    writer.check()
+        if writer is not None:
+            writer.close()
+    if writer is not None:
+        writer.check()
     # The writer saved the state of every shard that ran; a run that ran
     # none (all resumed, or no data) saves the state it ends with, as
     # jrr_tpu does.
-    if not os.path.exists(os.path.join(ckpt_dir, f"state_{state.step:08d}.npz")):
+    if lead and not os.path.exists(os.path.join(ckpt_dir, f"state_{state.step:08d}.npz")):
         ckpt_lib.save_train_state(ckpt_dir, state, state.step)
+    if mesh is not None:
+        mesh_lib.barrier(mesh)  # rank 0's files are whole before any process goes on
     return state, acc, manifest
 
 
@@ -416,9 +482,11 @@ def _restore_train_state(ckpt_dir: str, marker: str, template):
     return template, -1
 
 
-def _replay_shard(manifest, shard_id: int, batch, model, acc):
+def _replay_shard(manifest, shard_id: int, batch, model, acc, rows=None, reduce=None):
     """Add a completed shard to the accumulator from its saved refined
-    parameters, after checking that the shard pairs with this run's batch."""
+    parameters, after checking that the shard pairs with this run's batch.
+    `rows`: this process's rows of the shard (the others replay theirs;
+    `reduce` sums the statistics over the processes)."""
     saved = manifest.read_shard(shard_id)
     # Shards pair with batches by position: a resume under another
     # shuffle/seed/batch size would cross-pair refined vertices with the
@@ -441,11 +509,13 @@ def _replay_shard(manifest, shard_id: int, batch, model, acc):
             "original config."
         )
     dev = model.v_template.device
-    t = lambda k: torch.as_tensor(saved[k], device=dev)  # noqa: E731
+    rows = slice(None) if rows is None else rows
+    t = lambda k: torch.as_tensor(saved[k][rows], device=dev)  # noqa: E731
     params = losses.FrameParams(*(t(k) for k in losses.FrameParams._fields))
     return trainer.jreg_lstsq_accumulate(
         acc, _replay_vertices(model, params),
-        torch.as_tensor(np.asarray(batch["gt_j3d"]), device=dev), t("joints3d")[:, :1],
+        torch.as_tensor(np.asarray(batch["gt_j3d"])[rows], device=dev), t("joints3d")[:, :1],
+        reduce=reduce,
     )
 
 
@@ -495,6 +565,20 @@ def _demo_regressor(num_verts: int, rng: np.random.Generator) -> np.ndarray:
     return j_reg
 
 
+def demo_regressors(num_verts: int, seed: int):
+    """(true, initial): the demo's true regressor, which generates its
+    fixtures, and the perturbed copy training starts from, so that the
+    before/after comparison has real error to recover."""
+    rng = np.random.default_rng(seed)
+    j_true = _demo_regressor(num_verts, rng)
+    j_initial = j_true + np.abs(
+        rng.normal(scale=0.15, size=j_true.shape)
+    ).astype(np.float32) * (j_true == 0) * (
+        rng.uniform(size=j_true.shape) < 0.05
+    ) + rng.normal(scale=0.08, size=j_true.shape).astype(np.float32) * (j_true > 0)
+    return j_true, j_initial
+
+
 def run_pipeline(
     cfg: PipelineConfig,
     data_root: Optional[str] = None,
@@ -532,11 +616,30 @@ def run_pipeline(
     `vibe_checkpoint` / `meva_checkpoint` score the initial and retrained
     regressors through those video models after retraining (reference:
     main.py:26-27 → scripts/test.py:141-301): frame by frame, and over
-    `consumer_seqlen`-frame sequences in the dataset's temporal order."""
+    `consumer_seqlen`-frame sequences in the dataset's temporal order.
+
+    Under `torch.distributed` every process calls this with the same
+    arguments and its own device (cuda:LOCAL_RANK): rank 0 writes the demo
+    fixtures and builds a missing pack while the others wait, every process
+    optimizes its rows of each batch (`run_optimize`), and rank 0 alone
+    fits, evaluates and prints; the others return artifacts with no fit and
+    no evals."""
     if loader not in ("auto", "python", "native"):
         raise ValueError(f"unknown loader {loader!r} (auto, python or native)")
     dev = model.v_template.device if model is not None else resolve_device(device)
     os.makedirs(out_dir, exist_ok=True)
+    mesh = _run_mesh(cfg, dev)
+    lead = mesh is None or mesh.is_lead
+
+    def lead_first(make):
+        """`make()` on rank 0 before the other processes run it (it writes
+        what they then find)."""
+        if mesh is None:
+            return make()
+        out = make() if lead else None
+        mesh_lib.barrier(mesh)
+        return out if lead else make()
+
     if demo:
         data_root = data_root or os.path.join(out_dir, "fixtures")
 
@@ -546,24 +649,18 @@ def run_pipeline(
             model = smpl_lib.synthetic_smpl_model(
                 seed=cfg.seed, num_verts=256, num_faces=500, device=dev
             )
-        rng = np.random.default_rng(cfg.seed)
-        j_reg_initial = _demo_regressor(model.num_verts, rng)
+        j_true, j_reg_initial = demo_regressors(model.num_verts, cfg.seed)
         t0 = time.perf_counter()
-        if not os.path.exists(os.path.join(data_root, "precomputed_val")):
-            fixtures.write_fixture_dataset(
-                data_root, num_frames=demo_frames or cfg.data.batch_size * 2,
-                seed=cfg.seed, model=model, j_reg_raw=j_reg_initial,
-            )
+
+        def write_fixtures():
+            if not os.path.exists(os.path.join(data_root, "precomputed_val")):
+                fixtures.write_fixture_dataset(
+                    data_root, num_frames=demo_frames or cfg.data.batch_size * 2,
+                    seed=cfg.seed, model=model, j_reg_raw=j_true,
+                )
+
+        lead_first(write_fixtures)
         seconds["fixtures"] = time.perf_counter() - t0
-        # Train from a perturbed regressor so the before/after comparison has
-        # real error to recover (the true regressor generated the fixtures).
-        j_reg_initial = j_reg_initial + np.abs(
-            rng.normal(scale=0.15, size=j_reg_initial.shape)
-        ).astype(np.float32) * (j_reg_initial == 0) * (
-            rng.uniform(size=j_reg_initial.shape) < 0.05
-        ) + rng.normal(scale=0.08, size=j_reg_initial.shape).astype(np.float32) * (
-            j_reg_initial > 0
-        )
     else:
         # Training starts from SPIN's original J_regressor_h36m.npy
         # (reference: scripts/optimize.py:105-107), never from a retrained one.
@@ -592,7 +689,7 @@ def run_pipeline(
     sub = "precomputed_train" if cfg.data.split == "train" else "precomputed_val"
     pack_path = os.path.join(data_root or "", sub, "frames.jrrpack")
     if loader == "native" or (loader == "auto" and os.path.exists(pack_path)):
-        packed = native_pipeline.PackedH36MDataset(data_root, cfg.data.split)
+        packed = lead_first(lambda: native_pipeline.PackedH36MDataset(data_root, cfg.data.split))
         index_source, source = packed, "pack2" if packed.prewarped else "pack"
 
         def epoch_batches(for_eval: bool = False):
@@ -619,8 +716,15 @@ def run_pipeline(
         cfg, model, j_reg_initial, epoch_batches(), out_dir, logger=logger, spin_fn=spin_fn
     )
     seconds["optimize"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
     j_reg_final = state.j_reg_raw.cpu().numpy()
+    if not lead:  # rank 0 fits and evaluates; wait for it
+        mesh_lib.barrier(mesh)
+        return PipelineArtifacts(
+            j_reg_initial=j_reg_initial, j_reg_final=j_reg_final, j_reg_lstsq=None,
+            eval_before_after=None, out_dir=out_dir, seconds=seconds, loader=source,
+            accumulator=acc,
+        )
+    t0 = time.perf_counter()
     j_reg_lstsq = trainer.jreg_lstsq_solve(acc, cfg.jreg.lstsq_ridge).cpu().numpy()
     seconds["fit"] = time.perf_counter() - t0
     np.savez(
@@ -702,6 +806,8 @@ def run_pipeline(
             print(f"\n{kind.upper()} (sequence)\n{seq_evals[kind].summary()}")
             consumer_evals[f"{kind} (sequence)"] = seq_evals[kind]
 
+    if mesh is not None:
+        mesh_lib.barrier(mesh)
     return PipelineArtifacts(
         j_reg_initial=j_reg_initial,
         j_reg_final=j_reg_final,
@@ -712,4 +818,5 @@ def run_pipeline(
         seconds=seconds,
         consumer_evals=consumer_evals,
         loader=source,
+        accumulator=acc,
     )

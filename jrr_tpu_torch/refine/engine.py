@@ -46,6 +46,9 @@ class RefineResult(NamedTuple):
     vertices: torch.Tensor  # (B, V, 3) final vertices
     # Rasterizer capacity counters, worst rebin chunk (None without fused bins).
     bin_stats: Optional[sf.BinStats] = None
+    # The same counters per rebin chunk, each field (chunks,): what a
+    # data-parallel step reduces over its processes before taking the worst.
+    chunk_stats: Optional[sf.BinStats] = None
 
 
 class _Adam:
@@ -90,12 +93,20 @@ def refine_batch(
     shape_disc=None,
     jreg_mask: Optional[torch.Tensor] = None,
     freeze_hand_feet: bool = False,
+    batch_share: float = 1.0,
 ) -> RefineResult:
     """Run stage A + stage B on a batch of frames.
 
     Float32 products stay float32 on the card: TF32 is off for matmuls and
     cuDNN while this runs (the SMPL and regressor products would otherwise
     keep only ~3 decimal digits), and the caller's flags are restored after.
+
+    `batch_share`: this batch's frames over the global batch's, when the
+    batch is one process's rows of a data-parallel batch. Each loss (a mean
+    over the frames here) is scaled by it, so each frame's gradient is the
+    one the global batch's mean gives, and the returned loss curves are
+    this process's parts of the global means (their sum over the
+    processes). At 1.0 nothing is scaled.
     """
     sil = cfg.silhouette
     coarse_steps = int(sil.coarse_frac * cfg.stage_b_steps)
@@ -109,7 +120,7 @@ def refine_batch(
     ):
         return _refine_coarse_to_fine(
             model, j_reg_raw, init, data, cfg, coarse_steps, pose_disc, shape_disc,
-            jreg_mask, freeze_hand_feet,
+            jreg_mask, freeze_hand_feet, batch_share,
         )
 
     j_reg_norm = jreg_lib.normalize_jreg(j_reg_raw, jreg_mask)
@@ -125,6 +136,8 @@ def refine_batch(
     for _ in range(cfg.stage_a_steps):
         pred2d = losses.reproject_joints(joints3d_fixed, cam_t, cfg)
         loss = torch.mean(losses.j2d_loss(pred2d, data.gt_j2d))
+        if batch_share != 1.0:
+            loss = loss * batch_share
         (g,) = torch.autograd.grad(loss, [cam_t])
         opt_a.step([cam_t], [g])
         loss_a.append(loss.detach())
@@ -160,6 +173,9 @@ def refine_batch(
             model, j_reg_norm, pose_disc, shape_disc, p, data, cfg,
             bins=bins, sil_active=sil_active, sil_scale=sil_scale,
         )
+        if batch_share != 1.0:
+            terms = LossTerms(*(t * batch_share for t in terms))
+            total = terms.total
         grads = list(torch.autograd.grad(total, leaves))
         if freeze_hand_feet:
             grads[0] = grads[0].clone()
@@ -231,12 +247,14 @@ def refine_batch(
             sf.BinStats(*(torch.stack(col).amax() for col in zip(*chunk_stats)))
             if chunk_stats else None
         ),
+        chunk_stats=sf.BinStats(*(torch.stack(col) for col in zip(*chunk_stats)))
+        if chunk_stats else None,
     )
 
 
 def _refine_coarse_to_fine(
     model, j_reg_raw, init, data, cfg, coarse_steps, pose_disc, shape_disc,
-    jreg_mask, freeze_hand_feet,
+    jreg_mask, freeze_hand_feet, batch_share,
 ) -> RefineResult:
     """Stage B's first `coarse_steps` at image_size/coarse_factor (tile and
     bin margin divided alike, mask mean-pooled, focal auto-scaled), the rest
@@ -267,11 +285,11 @@ def _refine_coarse_to_fine(
     )
     res1 = refine_batch(
         model, j_reg_raw, init, data._replace(mask=_pool_mask(data.mask, factor)),
-        cfg_coarse, pose_disc, shape_disc, jreg_mask, freeze_hand_feet,
+        cfg_coarse, pose_disc, shape_disc, jreg_mask, freeze_hand_feet, batch_share,
     )
     res2 = refine_batch(
         model, j_reg_raw, res1.params, data, cfg_fine, pose_disc, shape_disc,
-        jreg_mask, freeze_hand_feet,
+        jreg_mask, freeze_hand_feet, batch_share,
     )
     terms = LossTerms(*(
         torch.cat([a, b]) for a, b in zip(res1.stage_b_terms, res2.stage_b_terms)
@@ -280,7 +298,10 @@ def _refine_coarse_to_fine(
         stats = res1.bin_stats if res2.bin_stats is None else res2.bin_stats
     else:
         stats = sf.BinStats(*(torch.maximum(a, b) for a, b in zip(res1.bin_stats, res2.bin_stats)))
-    return res2._replace(stage_a_loss=res1.stage_a_loss, stage_b_terms=terms, bin_stats=stats)
+    chunks = [r.chunk_stats for r in (res1, res2) if r.chunk_stats is not None]
+    chunks = sf.BinStats(*(torch.cat(col) for col in zip(*chunks))) if chunks else None
+    return res2._replace(stage_a_loss=res1.stage_a_loss, stage_b_terms=terms, bin_stats=stats,
+                         chunk_stats=chunks)
 
 
 def spin_prediction_to_params(

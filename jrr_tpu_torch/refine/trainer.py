@@ -16,6 +16,13 @@ The three optimizers are the engine's optax-formula `_Adam`. `outer_step`
 leaves its input state as it was and returns a new one (copies of the
 discriminators and optimizer moments, updated in place).
 
+With a distributed `mesh` (parallel/mesh.py) the batch is this process's
+rows of the global batch: every mean is scaled by the rows' share of the
+global batch, the three gradients are summed over the processes in one
+all-reduce before the Adam steps, and the metrics, loss curves and
+rasterizer counters are reduced once at the end (one sum, one maximum),
+so every process leaves with the same state and jrr_tpu's global metrics.
+
 `jreg_lstsq_accumulate`/`jreg_lstsq_solve` fit the regressor in closed form
 from summed normal-equation statistics, projected onto the per-joint
 simplex that `normalize_jreg` deploys.
@@ -32,8 +39,10 @@ from jrr_tpu_torch.config import PipelineConfig
 from jrr_tpu_torch.evals import metrics as metrics_lib
 from jrr_tpu_torch.models import discriminator as disc_lib
 from jrr_tpu_torch.ops import jreg as jreg_lib
+from jrr_tpu_torch.parallel import mesh as mesh_lib
 from jrr_tpu_torch.refine import engine, losses
 from jrr_tpu_torch.refine.losses import FrameBatch, FrameParams
+from jrr_tpu_torch.render import silhouette_fused as sf
 
 
 class TrainState(NamedTuple):
@@ -90,13 +99,40 @@ def jreg_supervision_loss(j_reg_raw, vertices, gt_j3d_mm, jreg_mask=None) -> tor
     return torch.mean((jreg_lib.move_pelvis(joints) - gt) ** 2)
 
 
-def _disc_step(disc, opt, real_in, fake_in):
-    """One LSGAN Adam step on a copy of `disc`: (loss, new disc, new opt)."""
-    disc, opt = copy.deepcopy(disc), copy.deepcopy(opt)
+def _disc_grads(disc, real_in, fake_in, share):
+    """The LSGAN loss (scaled by `share`) and its gradients."""
     params = list(disc.parameters())
     loss = disc_lib.discriminator_loss(disc(real_in), disc(fake_in))
-    opt.step(params, list(torch.autograd.grad(loss, params)))
-    return loss.detach(), disc, opt
+    if share != 1.0:
+        loss = loss * share
+    return loss.detach(), list(torch.autograd.grad(loss, params))
+
+
+def _disc_step(disc, opt, grads):
+    """One Adam step on copies of `disc` and `opt`: (new disc, new opt)."""
+    disc, opt = copy.deepcopy(disc), copy.deepcopy(opt)
+    opt.step(list(disc.parameters()), grads)
+    return disc, opt
+
+
+_COUNTERS = tuple(f for f in sf.BinStats._fields if f != "max_faces_per_tile")
+
+
+def sum_means_and_counters(mesh, means, chunk_stats):
+    """Batch means and rasterizer counters over every process's frames:
+    one sum of the means (scaled shares, through float64) and of the
+    counters per rebin chunk (exact in float64), then one maximum of each
+    chunk's largest candidate count, and the worst chunk as `refine_batch`
+    takes it. Returns (summed means, BinStats or None)."""
+    counters = [] if chunk_stats is None else [getattr(chunk_stats, f) for f in _COUNTERS]
+    summed = mesh_lib.sum_over_ranks(mesh, [m.double() for m in means] + counters)
+    n = len(means)
+    means = [total.to(m.dtype) for total, m in zip(summed[:n], means)]
+    if chunk_stats is None:
+        return means, None
+    top = mesh_lib.max_over_ranks(mesh, [chunk_stats.max_faces_per_tile])[0]
+    per_chunk = chunk_stats._replace(max_faces_per_tile=top, **dict(zip(_COUNTERS, summed[n:])))
+    return means, sf.BinStats(*(col.amax() for col in per_chunk))
 
 
 def outer_step(
@@ -106,31 +142,42 @@ def outer_step(
     data: FrameBatch,
     cfg: PipelineConfig,
     jreg_mask: Optional[torch.Tensor] = None,
+    mesh: Optional[mesh_lib.Mesh] = None,
 ):
-    """One outer iteration on a batch. Returns (state, OuterMetrics, RefineResult)."""
+    """One outer iteration on a batch. Returns (state, OuterMetrics, RefineResult).
+
+    With a distributed `mesh`, `spin_init` and `data` are this process's
+    rows and the result's params, joints and vertices stay so; the state
+    and the metrics are global (module docstring)."""
+    distributed = mesh is not None and mesh.distributed
+    share = 1.0 / mesh.world_size if distributed else 1.0
     # --- 1. Refinement (the shared state as constants) ----------------------
     result = engine.refine_batch(
         model, state.j_reg_raw.detach(), spin_init, data, cfg.refiner,
-        state.pose_disc, state.shape_disc, jreg_mask=jreg_mask,
+        state.pose_disc, state.shape_disc, jreg_mask=jreg_mask, batch_share=share,
     )
     refined = result.params
     verts = result.vertices.detach()
 
-    # --- 2. Discriminator updates (SPIN = real, refined = fake) -------------
+    # --- 2. Discriminator gradients (SPIN = real, refined = fake) -----------
     with torch.enable_grad():
         spin_rot6d = torch.cat([spin_init.orient6d, spin_init.pose6d], dim=1)
         refined_rot6d = torch.cat([refined.orient6d, refined.pose6d], dim=1).detach()
-        pd_loss, pose_disc, pose_disc_opt = _disc_step(
-            state.pose_disc, state.pose_disc_opt, spin_rot6d, refined_rot6d
-        )
-        sd_loss, shape_disc, shape_disc_opt = _disc_step(
-            state.shape_disc, state.shape_disc_opt, spin_init.betas, refined.betas.detach()
-        )
+        pd_loss, pd_grads = _disc_grads(state.pose_disc, spin_rot6d, refined_rot6d, share)
+        sd_loss, sd_grads = _disc_grads(state.shape_disc, spin_init.betas,
+                                        refined.betas.detach(), share)
 
-        # --- 3. J-regressor step on the detached refined vertices -----------
+        # --- 3. J-regressor gradient on the detached refined vertices -------
         j_reg = state.j_reg_raw.detach().clone().requires_grad_(True)
         jr_loss = jreg_supervision_loss(j_reg, verts, data.gt_j3d, jreg_mask)
+        if share != 1.0:
+            jr_loss = jr_loss * share
         (jr_grad,) = torch.autograd.grad(jr_loss, [j_reg])
+    if distributed:
+        pd_grads, sd_grads, (jr_grad,) = mesh_lib.sum_over_ranks(
+            mesh, [pd_grads, sd_grads, [jr_grad]])
+    pose_disc, pose_disc_opt = _disc_step(state.pose_disc, state.pose_disc_opt, pd_grads)
+    shape_disc, shape_disc_opt = _disc_step(state.shape_disc, state.shape_disc_opt, sd_grads)
     j_reg = j_reg.detach()
     jreg_opt = copy.deepcopy(state.jreg_opt)
     jreg_opt.step([j_reg], [jr_grad])
@@ -138,7 +185,11 @@ def outer_step(
     with torch.no_grad():
         def evaluate(j_raw, vertices):
             joints = jreg_lib.apply_jreg(jreg_lib.normalize_jreg(j_raw, jreg_mask), vertices)
-            return metrics_lib.evaluate(joints, data.gt_j3d)
+            errors = metrics_lib.evaluate(joints, data.gt_j3d)
+            if share != 1.0:
+                errors = errors._replace(mpjpe=errors.mpjpe * share,
+                                         pa_mpjpe=errors.pa_mpjpe * share)
+            return errors
 
         eval_before = evaluate(state.j_reg_raw, verts)
         eval_after = evaluate(j_reg, verts)
@@ -165,6 +216,22 @@ def outer_step(
         final = lambda x: x.new_zeros(())  # noqa: E731
     zero = torch.zeros((), dtype=torch.int64, device=verts.device)
     stats = result.bin_stats
+    if distributed:
+        # One sum over the processes for every mean, the loss curves and the
+        # counters; one maximum.
+        means = [pd_loss, sd_loss, jr_loss.detach(), eval_before.mpjpe, eval_before.pa_mpjpe,
+                 eval_after.mpjpe, eval_after.pa_mpjpe, eval_init.mpjpe, result.stage_a_loss,
+                 *terms]
+        means, reduced_stats = sum_means_and_counters(mesh, means, result.chunk_stats)
+        pd_loss, sd_loss, jr_loss, mb, pb, ma, pa, mi, stage_a, *summed_terms = means
+        terms = type(terms)(*summed_terms)
+        eval_before = eval_before._replace(mpjpe=mb, pa_mpjpe=pb)
+        eval_after = eval_after._replace(mpjpe=ma, pa_mpjpe=pa)
+        eval_init = eval_init._replace(mpjpe=mi)
+        result = result._replace(stage_a_loss=stage_a, stage_b_terms=terms)
+        if reduced_stats is not None:
+            stats = reduced_stats
+            result = result._replace(bin_stats=stats)
     metrics = OuterMetrics(
         joint_loss=final(terms.j3d),
         pose_disc_gen_loss=final(terms.pose_disc),
@@ -207,16 +274,23 @@ class JRegLstsqAccumulator(NamedTuple):
         )
 
 
-def jreg_lstsq_accumulate(acc: JRegLstsqAccumulator, vertices, gt_j3d_mm, pelvis_ref):
+def jreg_lstsq_accumulate(acc: JRegLstsqAccumulator, vertices, gt_j3d_mm, pelvis_ref, reduce=None):
     """Add a batch: vertices (B, V, 3) refined pseudo-GT, gt_j3d_mm (B, 17, 3),
     pelvis_ref (B, 1, 3) the pelvis in vertex space (meters) from the
     current regressor. The target re-anchors the centred GT there:
-    Y = gt_centred + pelvis_ref."""
+    Y = gt_centred + pelvis_ref. `reduce` (a sum over processes, when each
+    holds some rows of the batch) is applied to the batch's statistics
+    before they are added, so every process holds the global sums."""
     target = jreg_lib.move_pelvis(gt_j3d_mm) / 1000.0 + pelvis_ref
-    gram = torch.einsum("bvc,bwc->vw", vertices, vertices)
-    rhs = torch.einsum("bvc,bjc->vj", vertices, target)
+    batch = JRegLstsqAccumulator(
+        gram=torch.einsum("bvc,bwc->vw", vertices, vertices),
+        rhs=torch.einsum("bvc,bjc->vj", vertices, target),
+        count=torch.full((), float(vertices.shape[0]), device=vertices.device),
+    )
+    if reduce is not None:
+        batch = reduce(batch)
     return JRegLstsqAccumulator(
-        gram=acc.gram + gram, rhs=acc.rhs + rhs, count=acc.count + vertices.shape[0]
+        gram=acc.gram + batch.gram, rhs=acc.rhs + batch.rhs, count=acc.count + batch.count
     )
 
 

@@ -1,7 +1,9 @@
 """The port stands alone: no module of jrr_tpu_torch, no line of
 chip_smoke.py and no port tool (tools/torch_*.py) imports JAX, the JAX
-package or h5py, and entry points that create
-state refuse to fall back to the CPU when no card is present."""
+package or h5py; importing every module loads neither them nor scipy or
+matplotlib (the SMPL converter needs no scipy, viz imports matplotlib
+when it draws); and entry points that create state refuse to fall back to
+the CPU when no card is present."""
 
 import ast
 import os
@@ -16,6 +18,8 @@ ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "jrr_tpu_torch"
 # h5py too: the port reads HDF5 with its own reader (data/hdf5.py).
 FORBIDDEN = ("jax", "jaxlib", "optax", "flax", "jrr_tpu", "h5py")
+# Imported by no module at import time (a lazy import inside a function is allowed).
+NOT_EAGER = ("scipy", "matplotlib")
 
 
 def _imported_roots(path: Path):
@@ -55,7 +59,7 @@ def test_importing_every_module_loads_no_jax():
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        f"{FORBIDDEN!r})\n"
+        f"{FORBIDDEN + NOT_EAGER!r})\n"
         "assert not bad, bad\n"
         "print(len(sys.modules))\n"
     )
@@ -70,8 +74,9 @@ def test_importing_every_module_loads_no_jax():
 def test_state_entry_points_need_a_card_or_cpu(monkeypatch):
     import numpy as np
 
-    from jrr_tpu_torch import problem
-    from jrr_tpu_torch.models import discriminator, smpl
+    from jrr_tpu_torch import assets, problem
+    from jrr_tpu_torch.data import perturbation
+    from jrr_tpu_torch.models import discriminator, image_discriminator, smpl
     from jrr_tpu_torch.ops import rotations
     from jrr_tpu_torch.probes import bf16_probe, kernel_probe, kernel_probe2
 
@@ -85,6 +90,11 @@ def test_state_entry_points_need_a_card_or_cpu(monkeypatch):
         lambda **kw: kernel_probe.make_inputs(16, **kw),
         lambda **kw: kernel_probe2.make_inputs(16, **kw),
         lambda **kw: bf16_probe.make_input(16, **kw),
+        lambda **kw: smpl.synthetic_smpl_model(num_verts=96, num_faces=160,
+                                               thin_appendage_radius=0.0, **kw),
+        lambda **kw: assets.load_retrained_j_regressor(**kw),
+        lambda **kw: image_discriminator.ImageDiscriminator(**kw),
+        lambda **kw: perturbation.gen_random_perturbation(4, **kw),
     ):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()

@@ -355,9 +355,11 @@ def test_outside_the_demo_an_initial_regressor_is_required(tmp_path):
 
 @pytest.mark.parametrize("option", ["mesh"])
 def test_unported_options_raise(tmp_path, port_root, option):
+    """Two devices asked of one process: the run raises and names the
+    launch (one process per GPU, tests/test_torch_parallel.py)."""
     cfg = _port_cfg(use_silhouette=False)
     cfg = dataclasses.replace(cfg, mesh=cfg_lib.MeshConfig(num_devices=2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node=2"):
         _port_run(cfg, port_root, str(tmp_path / "run"))
 
 
