@@ -129,7 +129,15 @@
    version, the legacy staged fit at batch 256 (and at batch 8 against
    the CPU), the image discriminator and linearized sampling at batch 256
    against the CPU on their first frames, perturbations drawn on the card;
-19. prints the kernels line, the card's name and power limit, and the
+19. scores regressor recovery on the product run (`recovery`, the
+   analysis of jrr_tpu_torch/probes/recovery.py): a 256-frame held-out
+   fixture split written through row 5, then every regressor (perturbed
+   start, Adam final, oracle, lstsq@k, adam@k) scored on it and on the
+   product fixtures, on the card and on the CPU over the same files; rows
+   with no solve within 1e-3 mm of the CPU's, the prefix fits' MPJPE
+   within RECOVERY_LSTSQ_MM, and the run's own fit equal to the card's
+   replay of its shards;
+20. prints the kernels line, the card's name and power limit, and the
    contract line `{"ok": true, "device": {...}}` last.
 
 Any failed check raises (non-zero exit, no result line). Needs one CUDA card
@@ -231,6 +239,12 @@ CONSUMER_CHUNKS = 2  # sequence chunks of the consumers' card-against-CPU hold
 SPIN_FEATURE_RTOL = 1e-4  # of the largest feature
 SPIN_OUTPUT_ATOL = 1e-6
 CONSUMER_ATOL = 1e-6  # meters
+RECOVERY_HELDOUT = 256  # held-out fixture frames of the recovery phase
+RECOVERY_NO_SOLVE_MM = 1e-3  # card vs CPU, rows of regressors read from files
+# Card vs CPU, the prefix fits' MPJPE: float64 solves of float32 sums that
+# cuBLAS and the CPU add in different orders, at rank ≤ 3·512 of 6890; the
+# gaps measured 0.064-0.27 mm on these files (weights 0.087-0.12 apart).
+RECOVERY_LSTSQ_MM = 1.0
 
 
 def _emit(obj) -> None:
@@ -2996,6 +3010,89 @@ def _rel_max(got, want) -> float:
     return float((got.double() - want.double()).abs().max() / want.double().abs().max().clamp_min(1e-30))
 
 
+def run_recovery(data_root, tmp, model, product_ref):
+    """Regressor recovery on the product path's run (`recovery`): a held-out
+    split of RECOVERY_HELDOUT fixture frames (seed 101, camera depth in
+    PRODUCT_DEPTH, the product path's true regressor) written on the card
+    through row 5; then `probes.recovery.analyze` on the card over the
+    killed-and-resumed product run (two full-width shards, bit for bit the
+    first run, with an Adam-path snapshot per shard), scoring each
+    regressor on the held-out split and on the product fixtures; then the
+    same analysis on the CPU over the same files. Rows with no solve
+    (perturbed start, Adam final, oracle, adam@k) and the scores on the
+    refined vertices hold within RECOVERY_NO_SOLVE_MM of the CPU's; the
+    lstsq@k rows by MPJPE within RECOVERY_LSTSQ_MM, their weights' relative
+    gap reported (at two shards, rank ≤ 3·512 < 6890: not identified)."""
+    import numpy as np
+    import torch
+
+    from jrr_tpu_torch import kernels
+    from jrr_tpu_torch.data import fixtures
+    from jrr_tpu_torch.models import smpl
+    from jrr_tpu_torch.pipeline import demo_regressors
+    from jrr_tpu_torch.probes import recovery
+
+    j_true, j_init = demo_regressors(model.num_verts, recovery.SEED)
+    _check(np.array_equal(j_true, product_ref["j_true"])
+           and np.array_equal(j_true, recovery.true_regressor(model.num_verts)),
+           "recovery: the product path's true regressor is not the tool's")
+    heldout = os.path.join(tmp, "recovery_heldout")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    fixtures.write_fixture_dataset(heldout, RECOVERY_HELDOUT, seed=recovery.HELDOUT_SEED,
+                                   model=model, j_reg_raw=j_true, depth_range=PRODUCT_DEPTH)
+    torch.cuda.synchronize()
+    heldout_s = time.perf_counter() - t0
+    heldout_launches = _read_launches()
+    _check(heldout_launches == _launches(tiles_alpha_fwd=heldout_launches["tiles_alpha_fwd"])
+           and heldout_launches["tiles_alpha_fwd"] >= 1,
+           f"recovery: held-out fixtures launched {heldout_launches}")
+    run_dir = os.path.join(tmp, "product_killed")
+    splits = {"heldout": heldout, "train": data_root}
+    reports, fits, seconds = {}, {}, {}
+    kernels.reset_launches()
+    for dev, body in (("cuda", model), ("cpu", smpl.synthetic_smpl_model(seed=0, device="cpu"))):
+        t0 = time.perf_counter()
+        reports[dev], fits[dev] = recovery.analyze(run_dir, j_true, j_init, splits, body,
+                                                   batch=BATCH, exact=True, log=None)
+        seconds[dev] = time.perf_counter() - t0
+    _check(_read_launches() == _launches(), "recovery: the analysis launched a kernel")
+    card, cpu = reports["cuda"], reports["cpu"]
+    _check(card["n_shards"] == cpu["n_shards"] == 2, f"recovery: {card['n_shards']} shards")
+    gaps, lstsq = {}, {}
+    for split in splits:
+        rows, want = card["splits"][split], cpu["splits"][split]
+        _check(list(rows) == list(want) and "adam@2" in rows and "lstsq@2" in rows,
+               f"recovery: rows {list(rows)}")
+        for name, row in rows.items():
+            gap = max(abs(row[k] - want[name][k]) for k in ("mpjpe", "pa_mpjpe"))
+            tol = RECOVERY_LSTSQ_MM if name.startswith("lstsq@") else RECOVERY_NO_SOLVE_MM
+            _check(math.isfinite(row["mpjpe"]) and gap <= tol,
+                   f"recovery: {split} {name} card {row} CPU {want[name]} (tolerance {tol} mm)")
+            (lstsq if name.startswith("lstsq@") else gaps)[f"{split} {name}"] = gap
+    refined_gap = max(abs(row[k] - cpu["on_refined_vertices"][name][k])
+                      for name, row in card["on_refined_vertices"].items()
+                      for k in ("mpjpe", "pa_mpjpe"))
+    _check(refined_gap <= RECOVERY_NO_SOLVE_MM,
+           f"recovery: scores on the refined vertices differ by {refined_gap} mm")
+    # The run's online accumulator and the card's replay: the same sums in
+    # the same order on the same device, so the same fit exactly (as
+    # tests/test_torch_recovery.py holds on the CPU). The CPU's replay is
+    # not held: the weights are not identified at two shards.
+    _check(card["run_lstsq_matches_replay_rel"] == 0.0,
+           f"recovery: the run's fit and the replay's differ by {card['run_lstsq_matches_replay_rel']}")
+    weight_gap = {k: float(np.linalg.norm(fits["cuda"][k] - fits["cpu"][k])
+                           / np.linalg.norm(fits["cpu"][k])) for k in fits["cpu"]}
+    return dict(
+        heldout_frames=RECOVERY_HELDOUT, heldout_seconds=heldout_s,
+        heldout_launches=heldout_launches, run_dir="product_killed", n_shards=card["n_shards"],
+        card_report=card, cpu_report=cpu, analyze_seconds=seconds,
+        max_no_solve_gap_mm=max(gaps.values()), max_lstsq_gap_mm=max(lstsq.values()),
+        lstsq_gap_mm=lstsq, on_refined_max_gap_mm=refined_gap, lstsq_weight_rel_gap=weight_gap,
+        tolerance_mm=dict(no_solve=RECOVERY_NO_SOLVE_MM, lstsq=RECOVERY_LSTSQ_MM), card=_card(),
+    )
+
+
 def check_aux_modules(model, j_true):
     """The off-path modules at full width on the card:
     - thin appendages: a `synthetic_smpl_model(thin_appendage_radius=0.01)`
@@ -3252,6 +3349,9 @@ def main() -> int:
         aux = check_aux_modules(model, product_ref["j_true"])
         _emit({"aux_modules": aux})
         done("aux_modules")
+        recovery = run_recovery(data_root, tmp, model, product_ref)
+        _emit({"recovery": recovery})
+        done("recovery")
     _emit({"kernel_checks": checks})
     _emit({"tile_kernel_checks": tile_checks})
     _emit({"phase_seconds": phases})
@@ -3326,7 +3426,8 @@ def main() -> int:
         product_decision_flips=render["flips"],
         product_flips_nearer_float64=render["flips_kernel_nearer_f64"],
         thin_appendage_launches=aux["thin_appendages"]["tiles_alpha_fwd_launches"],
-        thin_appendage_decision_flips=aux["thin_appendages"]["flips"])
+        thin_appendage_decision_flips=aux["thin_appendages"]["flips"],
+        recovery_heldout_launches=recovery["heldout_launches"]["tiles_alpha_fwd"])
     # The main path launches it on the bins before the skip.
     alpha_fwd.update(rebin_ms=checks["fine"]["fwd_rebin_ms"],
                      coarse_rebin_ms=checks["coarse"]["fwd_rebin_ms"],

@@ -175,7 +175,7 @@ def _batch_to_device_inputs(batch: Dict[str, np.ndarray], cfg: PipelineConfig, d
 
 
 @torch.no_grad()
-def _replay_vertices(model, params: losses.FrameParams) -> torch.Tensor:
+def replay_vertices(model, params: losses.FrameParams) -> torch.Tensor:
     """The refined vertices of saved parameters, computed as `refine_batch`
     computes its final ones (TF32 off)."""
     with precision.float32_products():
@@ -513,7 +513,7 @@ def _replay_shard(manifest, shard_id: int, batch, model, acc, rows=None, reduce=
     t = lambda k: torch.as_tensor(saved[k][rows], device=dev)  # noqa: E731
     params = losses.FrameParams(*(t(k) for k in losses.FrameParams._fields))
     return trainer.jreg_lstsq_accumulate(
-        acc, _replay_vertices(model, params),
+        acc, replay_vertices(model, params),
         torch.as_tensor(np.asarray(batch["gt_j3d"])[rows], device=dev), t("joints3d")[:, :1],
         reduce=reduce,
     )

@@ -99,3 +99,18 @@ def test_state_entry_points_need_a_card_or_cpu(monkeypatch):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
         make(device="cpu")
+
+
+def test_recovery_tool_needs_a_card_or_cpu(monkeypatch, tmp_path):
+    """The recovery tool runs on the card by default and refuses, before
+    writing anything, when there is none."""
+    from jrr_tpu_torch.probes import recovery
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    root = tmp_path / "root"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        recovery.main(["--phase", "all", "--root", str(root), "--num-verts", "96"])
+    assert not root.exists()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        recovery.make_model(96, "cuda")
+    assert recovery.make_model(96, "cpu").num_verts == 96
