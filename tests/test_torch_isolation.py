@@ -16,8 +16,9 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "jrr_tpu_torch"
-# h5py too: the port reads HDF5 with its own reader (data/hdf5.py).
-FORBIDDEN = ("jax", "jaxlib", "optax", "flax", "jrr_tpu", "h5py")
+# h5py too: the port reads HDF5 with its own reader (data/hdf5.py); and
+# __graft_entry__, whose counterpart is jrr_tpu_torch/graft_entry.py.
+FORBIDDEN = ("jax", "jaxlib", "optax", "flax", "jrr_tpu", "h5py", "__graft_entry__")
 # Imported by no module at import time (a lazy import inside a function is allowed).
 NOT_EAGER = ("scipy", "matplotlib")
 
@@ -46,8 +47,10 @@ def test_no_jax_imports(path):
 
 def test_the_checks_cover_the_probes():
     names = {str(p.relative_to(ROOT)) for p in _port_modules()}
-    for probe in ("__init__", "kernel_probe", "kernel_probe2", "bf16_probe"):
+    for probe in ("__init__", "kernel_probe", "kernel_probe2", "bf16_probe", "quality",
+                  "silhouette_quality", "c2f_probe"):
         assert f"jrr_tpu_torch/probes/{probe}.py" in names
+    assert "jrr_tpu_torch/graft_entry.py" in names
 
 
 def test_importing_every_module_loads_no_jax():
@@ -114,3 +117,20 @@ def test_recovery_tool_needs_a_card_or_cpu(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         recovery.make_model(96, "cuda")
     assert recovery.make_model(96, "cpu").num_verts == 96
+
+
+def test_quality_tools_need_a_card_or_cpu(monkeypatch, capsys):
+    """The quality probes and their problem run on the card by default and
+    refuse, before refining anything, when there is none."""
+    from jrr_tpu_torch.probes import c2f_probe, quality, silhouette_quality
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    small = ["--batch", "1", "--num-verts", "64", "--image", "32", "--stage-a", "1",
+             "--stage-b", "1"]
+    for main in (silhouette_quality.main, c2f_probe.main):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main(small)
+    assert capsys.readouterr().out == ""
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        quality.shape_mismatch_problem(1, 64, 32)
+    assert quality.shape_mismatch_problem(1, 64, 32, device="cpu").init.cam_t.device.type == "cpu"
