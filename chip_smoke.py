@@ -27,7 +27,17 @@
 3. drives the main path once: `refine_batch` at batch 256, 1000 + 100
    steps, shipped defaults, live discriminators (one warm-up, then three
    timed runs, the median reported), with every kernel's launch count set to
-   0 just before each timed run and read just after;
+   0 just before each timed run and read just after; the calls run as
+   captured CUDA graphs (the default on the card), and `graphs` holds
+   them against the same calls under `engine.disable_graphs()`: on the
+   fused, lane-packed and round-1 routes the two agree bit for bit (params,
+   loss curves, vertices, bin and chunk counters) with the same launches;
+   for the fused route both sides' median seconds, stage A alone, profiled
+   device-busy seconds, idle share and host-side launches (a graph replay
+   is one), and peak memory, with the captured profile seeing as many
+   device operations as the eager one within the rebins' count; and
+   `profiling.log_compile_time` of the stage-A and the fine phase's first
+   stage-B step;
 4. runs a short full-width refinement (seed 1) twice through the kernels
    (equal bit for bit), twice through the plain versions and once through
    them in float64, and compares the parameters (kernel vs plain ≤ 5e-4);
@@ -269,6 +279,13 @@ QUALITY_CONFIGS = ("no_sil", "ref_exact_full", "r4_shipped_c4")
 # the control) and the interior skip's rebins (r4_shipped_c4 one a phase,
 # the control two a call); row 5 once, the problem's mask.
 QUALITY_LAUNCHES = dict(fused_lossgrad=238, fused_alpha_fwd=11, tiles_alpha_fwd=1)
+# The routes the graphs phase holds captured against eager: (silhouette
+# backend, lane_pack, the launches of one call).
+GRAPH_ROUTES = {
+    "fused": ("auto", False, dict(fused_lossgrad=38, fused_alpha_fwd=2)),
+    "lane_pack": ("auto", True, dict(fused_lossgrad_packed=38, fused_alpha_fwd=2)),
+    "round1": ("pallas", False, dict(tiles_alpha_fwd=38, tiles_alpha_bwd=38)),
+}
 ENTRY_RTOL = ERR_RTOL  # graft_entry's loss terms, kernels vs plain versions on the card
 
 
@@ -1125,6 +1142,11 @@ def profile_main_path(problem, pose_disc, shape_disc, timed_seconds):
     )
 
 
+# The CUDA runtime and driver calls that enqueue work on the card.
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+                     "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
 def _profile(filename, timed_seconds, fn):
     """`fn()` once under torch.profiler: device time by kernel (written to
     chiprun_out/`filename`) and the device-idle share of the timed,
@@ -1140,13 +1162,17 @@ def _profile(filename, timed_seconds, fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    events = prof.key_averages()
     # Device-side events only (kernels, copies, fills).
     rows = sorted(
-        ((e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
+        ((e.self_device_time_total, e.count, e.key) for e in events
          if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
         reverse=True,
     )
     busy_s = sum(r[0] for r in rows) / 1e6
+    # The host's launch calls (runtime API events): a graph replay is one.
+    api = {e.key: e.count for e in events if e.device_type == DeviceType.CPU}
+    host_launches = sum(api.get(k, 0) for k in HOST_LAUNCH_CALLS) if api else None
     overhead_s = time.perf_counter() - start - wall  # profiler set-up and aggregation
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, filename), "w") as f:
@@ -1157,9 +1183,150 @@ def _profile(filename, timed_seconds, fn):
         profiled_wall_s=wall, profiler_overhead_s=overhead_s, device_busy_s=busy_s,
         timed_run_s=timed_seconds,
         device_idle_share=max(0.0, 1.0 - busy_s / timed_seconds),
-        kernel_launches=sum(r[1] for r in rows),
+        kernel_launches=sum(r[1] for r in rows), host_launches=host_launches,
+        graph_replays=api.get("cudaGraphLaunch", 0) if api else None,
         top=[{"ms": us / 1e3, "count": n, "kernel": key[:80]} for us, n, key in rows[:8]],
     )
+
+
+def _bits(res):
+    """The RefineResult tensors the graphs phase holds bit for bit, by name,
+    each as its bytes."""
+    import torch
+
+    out = {f"params.{k}": v for k, v in res.params._asdict().items()}
+    out.update({f"stage_b_terms.{k}": v for k, v in res.stage_b_terms._asdict().items()})
+    out.update(stage_a_loss=res.stage_a_loss, vertices=res.vertices)
+    for name in ("bin_stats", "chunk_stats"):
+        stats = getattr(res, name)
+        out.update({f"{name}.{k}": v for k, v in (stats._asdict() if stats else {}).items()})
+    return {k: v.reshape(-1).contiguous().view(torch.uint8) for k, v in out.items()}
+
+
+def _rebin_device_ops(problem, pose_disc, shape_disc, cfg):
+    """Device operations (kernels, copies, fills) of the rebins of one
+    refine_batch call under `cfg`, each phase's rebin run as often as the
+    call runs it, in one profile. What the eager and the captured call's
+    profiles may differ by."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from jrr_tpu_torch.refine import engine
+
+    model, j_reg, _, init, data = problem
+    coarse_steps = int(cfg.silhouette.coarse_frac * cfg.stage_b_steps)
+    coarse, fine = engine.coarse_to_fine_configs(cfg, coarse_steps)
+    pooled = data._replace(mask=engine._pool_mask(data.mask, cfg.silhouette.coarse_factor))
+    phases = [engine.Refinement(model, j_reg, init, phase_data, phase_cfg, pose_disc, shape_disc)
+              for phase_cfg, phase_data in ((coarse, pooled), (fine, data))]
+    for r in phases:
+        r.start_stage_b()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for r in phases:
+            for _ in range(r.cfg.stage_b_steps // r.inner):
+                r.rebin()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+
+
+def run_graphs(problem, pose_disc, shape_disc, main_path, main_profile):
+    """refine_batch captured as CUDA graphs (the default on the card)
+    against the same call under engine.disable_graphs(), at the main path's
+    problem (batch 256, full width, 1000 + 100 steps, shipped defaults):
+    on the fused, lane-packed and round-1 routes the two must agree bit for
+    bit (params, both loss curves, vertices, bin and chunk counters) with
+    the same launch counts, the routes' own. For the fused route, eager:
+    the median of MAIN_RUNS calls, stage A alone, a profile (device-busy
+    seconds, idle share, host-side launches), peak memory; captured: the
+    main path's (its profile must see as many device operations as the
+    eager one's, within the rebins' share: else the profiler drops graph
+    nodes and its idle share means nothing); and log_compile_time of the
+    stage-A and the fine phase's first stage-B (silhouette active) step."""
+    import torch
+
+    from jrr_tpu_torch import kernels
+    from jrr_tpu_torch.refine import engine
+    from jrr_tpu_torch.utils import precision, profiling
+
+    model, j_reg, cfg, init, data = problem
+    cfg = dataclasses.replace(cfg, stage_a_steps=1000, stage_b_steps=100)
+
+    def timed(run_cfg):
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = engine.refine_batch(model, j_reg, init, data, run_cfg, pose_disc, shape_disc)
+        torch.cuda.synchronize()
+        return (res, time.perf_counter() - t0, _read_launches(),
+                torch.cuda.max_memory_allocated() / 1e9)
+
+    routes = {}
+    for route, (backend, lane_pack, want) in GRAPH_ROUTES.items():
+        run_cfg = _with_backend(cfg, backend, lane_pack)
+        captured, captured_s, captured_launches, captured_mem = timed(run_cfg)
+        with engine.disable_graphs():
+            eager_runs = [timed(run_cfg) for _ in range(MAIN_RUNS if route == "fused" else 1)]
+        eager, _, eager_launches, eager_mem = eager_runs[-1]
+        got, ref = _bits(captured), _bits(eager)
+        differ = sorted(k for k in ref if k not in got or not torch.equal(got[k], ref[k]))
+        _check(got.keys() == ref.keys() and not differ,
+               f"{route}: captured and eager refinements differ in {differ}")
+        _check(captured_launches == eager_launches == _launches(**want),
+               f"{route}: launches captured {captured_launches}, eager {eager_launches}, "
+               f"expected {want}")
+        eager_s = sorted(r[1] for r in eager_runs)
+        routes[route] = dict(
+            equal_bits=True, launches={k: v for k, v in captured_launches.items() if v},
+            captured_seconds=captured_s, eager_seconds=eager_s[len(eager_s) // 2],
+            eager_seconds_runs=eager_s, captured_peak_mem_gb=captured_mem,
+            eager_peak_mem_gb=eager_mem,
+        )
+    fused = routes["fused"]
+    with engine.disable_graphs():
+        t0 = time.perf_counter()
+        engine.refine_batch(model, j_reg, init, data, dataclasses.replace(cfg, stage_b_steps=0),
+                            pose_disc, shape_disc)
+        torch.cuda.synchronize()
+        fused["eager_stage_a_only_seconds"] = time.perf_counter() - t0
+        eager_profile = _profile(
+            "profile_eager.txt", fused["eager_seconds"],
+            lambda: engine.refine_batch(model, j_reg, init, data, cfg, pose_disc, shape_disc),
+        )
+    rebin_ops = _rebin_device_ops(problem, pose_disc, shape_disc, cfg)
+    seen = main_profile["kernel_launches"] - eager_profile["kernel_launches"]
+    _check(abs(seen) <= rebin_ops,
+           f"the captured profile saw {main_profile['kernel_launches']} device operations, the "
+           f"eager one {eager_profile['kernel_launches']}: beyond the rebins' {rebin_ops}")
+    fused.update(
+        captured_median_seconds=main_path["seconds"],
+        captured_stage_a_only_seconds=main_path["stage_a_only_seconds"],
+        captured_profile={k: main_profile[k] for k in (
+            "device_busy_s", "device_idle_share", "kernel_launches", "host_launches",
+            "graph_replays")},
+        eager_profile={k: eager_profile[k] for k in (
+            "device_busy_s", "device_idle_share", "kernel_launches", "host_launches",
+            "graph_replays", "top")},
+        device_ops_captured_minus_eager=seen, rebin_device_ops=rebin_ops,
+    )
+
+    # The capture costs of the two main kinds of step.
+    coarse_steps = int(cfg.silhouette.coarse_frac * cfg.stage_b_steps)
+    _, fine_cfg = engine.coarse_to_fine_configs(cfg, coarse_steps)
+    with precision.float32_products():
+        r = engine.Refinement(model, j_reg, init, data, cfg, pose_disc, shape_disc)
+        stage_a = profiling.log_compile_time(r.stage_a_step, r.cam_t)
+        r = engine.Refinement(model, j_reg, init, data, fine_cfg, pose_disc, shape_disc)
+        r.start_stage_b()
+        r.rebin()
+        kind = r.stage_b_kind(0)
+        _check(kind[0] is True, f"the fine phase's first stage-B step is {kind}, not active")
+        stage_b = profiling.log_compile_time(r.stage_b_step(kind), *r.leaves)
+    return dict(batch=BATCH, stage_a_steps=1000, stage_b_steps=100, routes=routes,
+                log_compile_time={"stage_a_step": stage_a, "fine_stage_b_active_step": stage_b},
+                card=_card())
 
 
 @contextlib.contextmanager
@@ -3432,6 +3599,8 @@ def main() -> int:
     main_profile = profile_main_path(problem, pose_disc, shape_disc, main_path["seconds"])
     _emit({"profile": main_profile})
     done("main_path")
+    _emit({"graphs": run_graphs(problem, pose_disc, shape_disc, main_path, main_profile)})
+    done("graphs")
     refine = compare_kernel_and_plain_refine(pose_disc, shape_disc)
     _emit({"kernel_vs_plain_refine": refine})
     _check(refine["max_param_abs_diff"] <= REFINE_PARAM_ATOL,

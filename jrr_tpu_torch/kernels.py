@@ -7,12 +7,15 @@ with ctypes: pointers and the stream as c_void_p, ints as c_int (element
 counts as c_longlong), floats as c_float. Each wrapper checks its tensors,
 allocates its outputs, launches on the current stream, raises if the launch
 reported an error, and counts its launches in a plain integer attribute
-`launches`. Wrappers take CUDA tensors only: the plain versions live beside
+`launches`: the kernels executed, for a CUDA graph's capture takes its
+calls off the counts and each replay adds them back (`captured_launches`,
+`add_launches`). Wrappers take CUDA tensors only: the plain versions live beside
 their callers in render/ and probes/.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import math
@@ -616,3 +619,27 @@ WRAPPERS = (fused_lossgrad, fused_alpha_fwd, fused_alpha_bwd, tiles_alpha_fwd, t
 def reset_launches() -> None:
     for w in WRAPPERS:
         w.launches = 0
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """Around a CUDA graph capture, where a wrapper's call records its
+    launch into the graph and runs nothing: yields a dict that on exit holds
+    each wrapper's calls inside the block (wrapper → count), and takes them
+    off the wrappers' counts again. `add_launches` puts them back once for
+    every replay of the graph, so the counts are kernels executed."""
+    before = {w: w.launches for w in WRAPPERS}
+    counts = {}
+    try:
+        yield counts
+    finally:
+        for w in WRAPPERS:
+            if w.launches != before[w]:
+                counts[w] = w.launches - before[w]
+                w.launches = before[w]
+
+
+def add_launches(counts) -> None:
+    """Count the launches of a replayed graph (`captured_launches`)."""
+    for w, n in counts.items():
+        w.launches += n

@@ -73,6 +73,13 @@ class SMPLModel:
     # page-gather rasterizer (render/silhouette_fused.py).
     vertex_perm: Optional[torch.Tensor] = None
 
+    def __post_init__(self):
+        # The parents of joints 1.. as an index on the arrays' device, made
+        # here: `_fk` gathers by it inside captured CUDA graphs, which
+        # refuse the host-to-device copy of a Python list index.
+        object.__setattr__(self, "parent_index", torch.tensor(
+            self.parents[1:], dtype=torch.int64, device=self.v_template.device))
+
     @property
     def num_verts(self) -> int:
         return self.v_template.shape[0]
@@ -90,14 +97,14 @@ class SMPLOutput:
 
 
 def _fk(
-    rotmats: torch.Tensor, j_rest: torch.Tensor, parents: Tuple[int, ...]
+    rotmats: torch.Tensor, j_rest: torch.Tensor, parents: Tuple[int, ...],
+    parent_index: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward kinematics: (B, J, 3, 3) local rotations + (B, J, 3) rest joints
-    → (R_global (B, J, 3, 3), t_global (B, J, 3))."""
+    → (R_global (B, J, 3, 3), t_global (B, J, 3)); `parent_index` holds
+    parents[1:] on the joints' device."""
     num_joints = len(parents)
-    rel_t = j_rest - torch.cat(
-        [j_rest[:, :1], j_rest[:, [parents[k] for k in range(1, num_joints)]]], dim=1
-    )
+    rel_t = j_rest - torch.cat([j_rest[:, :1], j_rest[:, parent_index]], dim=1)
     rs = [rotmats[:, 0]]
     ts = [j_rest[:, 0]]
     for k in range(1, num_joints):
@@ -124,7 +131,7 @@ def smpl_forward(
     pose_feature = (rotmats[:, 1:] - ident).reshape(b, -1)  # (B, 9*(J-1))
     v_posed = v_shaped + (pose_feature @ model.posedirs).reshape(b, model.num_verts, 3)
 
-    r_glob, t_glob = _fk(rotmats, j_rest, model.parents)
+    r_glob, t_glob = _fk(rotmats, j_rest, model.parents, model.parent_index)
 
     # Skinning transforms with rest-pose correction: A_k = [R_k | t_k − R_k·j_rest_k].
     a_t = t_glob - torch.einsum("bjik,bjk->bji", r_glob, j_rest)

@@ -17,12 +17,31 @@ with `coarse_frac > 0`, runs its first steps at image_size/coarse_factor.
 
 Adam is written by hand with optax's formula, elementwise:
 m ← b1·m + (1−b1)·g, v ← b2·v + (1−b2)·g², p ← p − lr · m̂ / (√v̂ + eps),
-m̂ = m/(1−b1^t), v̂ = v/(1−b2^t), b1 0.9, b2 0.999, eps 1e-8 after the sqrt.
+m̂ = m/(1−b1^t), v̂ = v/(1−b2^t), b1 0.9, b2 0.999, eps 1e-8 after the sqrt;
+the engine keeps t and the bias corrections on the device (float64, as the
+Python numbers were, rounded to the params' type for the division).
+
+jrr_tpu compiles a batch's whole refinement into one XLA program
+(jrr_tpu :9-13). The port's counterpart (`Refinement`): each kind of step
+is a closure over tensors allocated before the loop, writing its loss
+terms into preallocated buffers at a device-side step index. The kinds are
+the stage-A step and the stage-B step per silhouette variant (active,
+inactive, and with `fine_warm_frac > 0` the warm stride's scale). On CUDA
+tensors each kind's first step runs eagerly and is captured into a CUDA
+graph that its later steps replay; the rebins stay eager and copy their
+bins into the static bins the graphs read. Every route captures: the fused,
+lane-packed, round-1 and "xla" bins, and the per-step binning of
+`rebin_interval=1` (the tile loop's checkpointed chunks included). On the
+CPU, and on the card under `disable_graphs()` (the counterpart of
+`jax.disable_jit()`), the same closures run eagerly, bit for bit the
+captured run.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 from typing import List, NamedTuple, Optional
 
 import torch
@@ -35,7 +54,7 @@ from jrr_tpu_torch.refine.losses import FrameBatch, FrameParams, LossTerms
 from jrr_tpu_torch.render import camera as camera_lib
 from jrr_tpu_torch.render import silhouette as sil_lib
 from jrr_tpu_torch.render import silhouette_fused as sf
-from jrr_tpu_torch.utils import precision
+from jrr_tpu_torch.utils import precision, profiling
 
 
 class RefineResult(NamedTuple):
@@ -52,19 +71,34 @@ class RefineResult(NamedTuple):
 
 
 class _Adam:
-    """optax.adam(lr) on a list of tensors, updated in place."""
+    """optax.adam(lr) on a list of tensors, updated in place.
 
-    def __init__(self, params: List[torch.Tensor], lr: float, b1=0.9, b2=0.999, eps=1e-8):
+    With `device_count` the step count is a 0-dim float64 tensor on the
+    params' device, and the bias corrections 1 − b^count are computed from
+    it there in float64 and rounded to the params' type, as the Python int
+    count gives them: a captured step then replays with the count it has
+    reached, and on the CPU the steps are the int count's bit for bit.
+    Without it the count is a Python int (the trainer's optimizers, whose
+    counts the train-state files hold)."""
+
+    def __init__(self, params: List[torch.Tensor], lr: float, b1=0.9, b2=0.999, eps=1e-8,
+                 device_count: bool = False):
         self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
         self.m = [torch.zeros_like(p) for p in params]
         self.v = [torch.zeros_like(p) for p in params]
-        self.count = 0
+        self.count = (torch.zeros((), dtype=torch.float64, device=params[0].device)
+                      if device_count else 0)
 
     @torch.no_grad()
     def step(self, params: List[torch.Tensor], grads: List[torch.Tensor]) -> None:
-        self.count += 1
-        bc1 = 1.0 - self.b1**self.count
-        bc2 = 1.0 - self.b2**self.count
+        if torch.is_tensor(self.count):
+            self.count.add_(1.0)
+            bc1 = (1.0 - torch.pow(self.b1, self.count)).to(params[0].dtype)
+            bc2 = (1.0 - torch.pow(self.b2, self.count)).to(params[0].dtype)
+        else:
+            self.count += 1
+            bc1 = 1.0 - self.b1**self.count
+            bc2 = 1.0 - self.b2**self.count
         for p, g, m, v in zip(params, grads, self.m, self.v):
             m.mul_(self.b1).add_((1.0 - self.b1) * g)
             v.mul_(self.b2).add_((1.0 - self.b2) * (g * g))
@@ -78,8 +112,249 @@ def _pool_mask(mask: torch.Tensor, factor: int) -> torch.Tensor:
     return mask.reshape(b, t, factor, t, factor).mean(dim=(2, 4))
 
 
-def _leaves(params: FrameParams) -> List[torch.Tensor]:
-    return [x.detach().clone().requires_grad_(True) for x in params]
+class _GraphsOff(threading.local):
+    depth = 0
+
+
+_graphs_off = _GraphsOff()
+
+
+@contextlib.contextmanager
+def disable_graphs():
+    """Run `refine_batch`'s steps eagerly on the card too: the counterpart
+    of `jax.disable_jit()`, for holding a captured run against an eager one.
+    Nests; applies to the calling thread; inert on the CPU, which always
+    runs eagerly."""
+    _graphs_off.depth += 1
+    try:
+        yield
+    finally:
+        _graphs_off.depth -= 1
+
+
+class _Steps:
+    """Runs each kind of step: on CUDA tensors its first step runs eagerly
+    (on a side stream, as a real step of the refinement) and is then
+    captured into a CUDA graph, which every later step of that kind
+    replays; on the CPU, or under `disable_graphs()`, every step runs
+    eagerly. The graphs live as long as this object, one `refine_batch`
+    call (the first graph of a device is kept, never replayed, to hold
+    the memory pool all graphs share: `profiling._graph_pool`). A failed
+    capture raises."""
+
+    def __init__(self, device: torch.device):
+        self.capture = device.type == "cuda" and _graphs_off.depth == 0
+        self.graphs = {}
+
+    def __call__(self, kind, fn, *args) -> None:
+        if not self.capture:
+            fn(*args)
+        elif kind in self.graphs:
+            self.graphs[kind].replay()
+        else:
+            self.graphs[kind] = profiling.capture(fn, *args)
+
+
+def _record(buf: torch.Tensor, positions: torch.Tensor, step: torch.Tensor, value) -> None:
+    """buf[..., step] = value at the device-side step index `step` (0-dim),
+    which then advances: a captured step writes where its replay is."""
+    buf.copy_(torch.where(positions == step, value[..., None], buf))
+    step.add_(1)
+
+
+def _copy_bins(static, new):
+    """Copy every tensor field of `new` bins into `static` (same layout and
+    shapes: bins are static in shape, as under jrr_tpu's scan), except the
+    capacity counters, which the steps do not read."""
+    for name, dst, src in zip(new._fields, static, new):
+        if name == "stats" or src is None:
+            continue
+        if dst.shape != src.shape or dst.dtype != src.dtype:
+            raise RuntimeError(f"bins field {name} changed from {tuple(dst.shape)} {dst.dtype} "
+                               f"to {tuple(src.shape)} {src.dtype} between rebins")
+        dst.copy_(src)
+
+
+class Refinement:
+    """One single-resolution `refine_batch` call: its state and its step
+    closures.
+
+    Every tensor a step reads or writes is allocated before the loop: the
+    leaves, the Adam moments and device-side counts, `joints3d_fixed`,
+    `j_reg_norm`, the batch, the bins (copied into after each rebin), the
+    loss buffers and their device-side step indices. So a step is a
+    closure over static buffers, which a CUDA graph can replay:
+    `stage_a_step(cam_t)` and, per kind of stage-B step (`stage_b_kind`),
+    `stage_b_step(kind)(*leaves)`. `run()` drives them through `_Steps`."""
+
+    def __init__(self, model, j_reg_raw, init: FrameParams, data: FrameBatch, cfg: RefinerConfig,
+                 pose_disc=None, shape_disc=None, jreg_mask: Optional[torch.Tensor] = None,
+                 freeze_hand_feet: bool = False, batch_share: float = 1.0):
+        self.model, self.data, self.cfg = model, data, cfg
+        self.pose_disc, self.shape_disc = pose_disc, shape_disc
+        self.freeze_hand_feet, self.batch_share = freeze_hand_feet, batch_share
+        sil = cfg.silhouette
+        self.stride = max(1, sil.step_stride)
+        self.warm_stride = sil.fine_warm_stride
+        if self.warm_stride is not None and sil.fine_warm_frac > 0.0:
+            if self.warm_stride < 1:
+                raise ValueError(
+                    f"fine_warm_stride={self.warm_stride} must be >= 1 when "
+                    f"fine_warm_frac={sil.fine_warm_frac} > 0"
+                )
+            if not 0.0 <= sil.fine_warm_frac <= 1.0:
+                raise ValueError(f"fine_warm_frac={sil.fine_warm_frac} must lie in [0, 1]")
+            self.warm_steps = int(sil.fine_warm_frac * cfg.stage_b_steps)
+        else:
+            self.warm_steps = 0
+
+        # Rebin amortization: the candidate lists from a chunk's start stay
+        # covering for `inner` steps thanks to the bin margin.
+        inner = sil.rebin_interval if cfg.use_silhouette else 1
+        inner = max(1, min(inner, cfg.stage_b_steps))
+        while cfg.stage_b_steps % inner != 0:
+            inner -= 1
+        self.inner = inner
+        self.use_bins = cfg.use_silhouette and data.mask is not None and inner > 1
+        self.spec = losses.rasterizer_spec(cfg)
+        # interior_skip exists on the fused amortized-bins path only. None =
+        # auto (on exactly there), True = require (raises elsewhere), False = off.
+        self.skip_path = self.use_bins and losses.resolve_silhouette_backend(self.spec) == "fused"
+        self.interior_skip = self.skip_path if sil.interior_skip is None else sil.interior_skip
+        if (
+            self.interior_skip and cfg.use_silhouette and data.mask is not None
+            and cfg.stage_b_steps > 0 and not self.skip_path
+        ):
+            raise ValueError(
+                "interior_skip=True requires the fused silhouette backend and rebin "
+                f"amortization (rebin_interval > 1); got backend={sil.backend!r}, "
+                f"rebin_interval={sil.rebin_interval}"
+            )
+
+        dev = init.cam_t.device
+        self.j_reg_norm = jreg_lib.normalize_jreg(j_reg_raw, jreg_mask)
+        with torch.no_grad():
+            self.joints3d_fixed = losses.joints_from_verts(
+                self.j_reg_norm, losses.forward_frame(model, init).vertices
+            )
+        self.init = init
+        self.cam_t = init.cam_t.detach().clone().requires_grad_(True)
+        self.opt_a = _Adam([self.cam_t], cfg.stage_a_lr, device_count=True)
+        self.loss_a = init.cam_t.new_zeros((cfg.stage_a_steps,))
+        self.pos_a = torch.arange(cfg.stage_a_steps, device=dev)
+        self.index_a = torch.zeros((), dtype=torch.int64, device=dev)
+        # Stage B starts from stage A's camera: its leaves are made after it.
+        self.leaves: List[torch.Tensor] = []
+        self.opt_b: Optional[_Adam] = None
+        self.terms_b = init.cam_t.new_zeros((len(LossTerms._fields), cfg.stage_b_steps))
+        self.pos_b = torch.arange(cfg.stage_b_steps, device=dev)
+        self.index_b = torch.zeros((), dtype=torch.int64, device=dev)
+        self.hand_feet = torch.tensor(constants.HAND_FEET_ROT_INDICES, device=dev)
+        self.bins = None  # the static bins the stage-B steps read
+        self.chunk_stats: List[sf.BinStats] = []
+
+    def stage_a_step(self, cam_t: torch.Tensor) -> None:
+        """One camera-only Adam step on the 2D reprojection loss."""
+        pred2d = losses.reproject_joints(self.joints3d_fixed, cam_t, self.cfg)
+        loss = torch.mean(losses.j2d_loss(pred2d, self.data.gt_j2d))
+        if self.batch_share != 1.0:
+            loss = loss * self.batch_share
+        (g,) = torch.autograd.grad(loss, [cam_t])
+        self.opt_a.step([cam_t], [g])
+        _record(self.loss_a, self.pos_a, self.index_a, loss.detach())
+
+    def start_stage_b(self) -> None:
+        """Stage B's leaves (from stage A's camera) and fresh Adam state."""
+        params = self.init._replace(cam_t=self.cam_t.detach())
+        self.leaves = [x.detach().clone().requires_grad_(True) for x in params]
+        self.opt_b = _Adam(self.leaves, self.cfg.stage_b_lr, device_count=True)
+
+    def stage_b_kind(self, step_idx: int):
+        """(sil_active, sil_scale) of stage-B step `step_idx`: the variants
+        the silhouette striding produces, each its own step closure."""
+        if self.warm_steps > 0:
+            stride_here = self.warm_stride if step_idx < self.warm_steps else self.stride
+            return step_idx % stride_here == 0, float(stride_here)
+        return (None if self.stride == 1 else step_idx % self.stride == 0), None
+
+    def stage_b_step(self, kind):
+        """The stage-B step of one kind: fn(*leaves), an Adam step on the
+        five-term loss through the static bins."""
+        sil_active, sil_scale = kind
+
+        def step(*leaves):
+            p = FrameParams(*leaves)
+            total, terms = losses.stage_b_loss(
+                self.model, self.j_reg_norm, self.pose_disc, self.shape_disc, p, self.data,
+                self.cfg, bins=self.bins, sil_active=sil_active, sil_scale=sil_scale,
+            )
+            if self.batch_share != 1.0:
+                terms = LossTerms(*(t * self.batch_share for t in terms))
+                total = terms.total
+            grads = list(torch.autograd.grad(total, leaves))
+            if self.freeze_hand_feet:
+                grads[0] = grads[0].index_fill(1, self.hand_feet, 0.0)
+            self.opt_b.step(list(leaves), grads)
+            _record(self.terms_b, self.pos_b, self.index_b, torch.stack(terms).detach())
+
+        return step
+
+    @torch.no_grad()
+    def rebin(self) -> None:
+        """Bin at the current leaves (eagerly) and copy the bins into the
+        static ones the steps read (the first rebin's bins become them)."""
+        model, spec = self.model, self.spec
+        p_now = FrameParams(*(x.detach() for x in self.leaves))
+        verts_now = losses.forward_frame(model, p_now).vertices
+        if self.skip_path:
+            bins = sf.compute_fused_bins(verts_now, model, p_now.cam_t, spec)
+            if self.interior_skip:
+                bins = sf.apply_interior_skip(bins, verts_now, model, p_now.cam_t, spec)
+            if self.cfg.silhouette.lane_pack:
+                # After the skip, so pairs form on the tiles left occupied.
+                bins = sf.pack_bins(bins, model.num_verts)
+            self.chunk_stats.append(bins.stats)
+        else:  # round-1 bins carry no capacity counters (jrr_tpu :302-306)
+            bins = sil_lib.compute_bins(verts_now, model.faces, p_now.cam_t, spec)
+        if self.bins is None:
+            self.bins = bins
+        else:
+            _copy_bins(self.bins, bins)
+
+    def run(self) -> RefineResult:
+        cfg = self.cfg
+        steps = _Steps(self.cam_t.device)
+        for _ in range(cfg.stage_a_steps):
+            steps("a", self.stage_a_step, self.cam_t)
+        self.start_stage_b()
+        closures = {}
+        for s in range(cfg.stage_b_steps):
+            if self.use_bins and s % self.inner == 0:
+                self.rebin()
+            kind = self.stage_b_kind(s)
+            if kind not in closures:
+                closures[kind] = self.stage_b_step(kind)
+            steps(("b",) + kind, closures[kind], *self.leaves)
+
+        params = FrameParams(*(x.detach() for x in self.leaves))
+        with torch.no_grad():
+            out = losses.forward_frame(self.model, params)
+            joints3d = losses.joints_from_verts(self.j_reg_norm, out.vertices)
+        chunk_stats = self.chunk_stats
+        return RefineResult(
+            params=params,
+            stage_a_loss=self.loss_a,
+            stage_b_terms=LossTerms(*self.terms_b.unbind(0)),
+            joints3d=joints3d,
+            vertices=out.vertices,
+            # Worst chunk is the representative per-batch figure.
+            bin_stats=(
+                sf.BinStats(*(torch.stack(col).amax() for col in zip(*chunk_stats)))
+                if chunk_stats else None
+            ),
+            chunk_stats=sf.BinStats(*(torch.stack(col) for col in zip(*chunk_stats)))
+            if chunk_stats else None,
+        )
 
 
 @precision.float32_products()
@@ -99,7 +374,8 @@ def refine_batch(
 
     Float32 products stay float32 on the card: TF32 is off for matmuls and
     cuDNN while this runs (the SMPL and regressor products would otherwise
-    keep only ~3 decimal digits), and the caller's flags are restored after.
+    keep only ~3 decimal digits, and the graphs are captured with it off),
+    and the caller's flags are restored after.
 
     `batch_share`: this batch's frames over the global batch's, when the
     batch is one process's rows of a data-parallel batch. Each loss (a mean
@@ -122,143 +398,15 @@ def refine_batch(
             model, j_reg_raw, init, data, cfg, coarse_steps, pose_disc, shape_disc,
             jreg_mask, freeze_hand_feet, batch_share,
         )
-
-    j_reg_norm = jreg_lib.normalize_jreg(j_reg_raw, jreg_mask)
-
-    # ---- Stage A: camera-only 2D alignment -------------------------------
-    with torch.no_grad():
-        joints3d_fixed = losses.joints_from_verts(
-            j_reg_norm, losses.forward_frame(model, init).vertices
-        )
-    cam_t = init.cam_t.detach().clone().requires_grad_(True)
-    opt_a = _Adam([cam_t], cfg.stage_a_lr)
-    loss_a = []
-    for _ in range(cfg.stage_a_steps):
-        pred2d = losses.reproject_joints(joints3d_fixed, cam_t, cfg)
-        loss = torch.mean(losses.j2d_loss(pred2d, data.gt_j2d))
-        if batch_share != 1.0:
-            loss = loss * batch_share
-        (g,) = torch.autograd.grad(loss, [cam_t])
-        opt_a.step([cam_t], [g])
-        loss_a.append(loss.detach())
-    params = init._replace(cam_t=cam_t.detach())
-
-    # ---- Stage B: full five-term refinement ------------------------------
-    leaves = _leaves(params)
-    opt_b = _Adam(leaves, cfg.stage_b_lr)
-    stride = max(1, sil.step_stride)
-    warm_stride = sil.fine_warm_stride
-    if warm_stride is not None and sil.fine_warm_frac > 0.0:
-        if warm_stride < 1:
-            raise ValueError(
-                f"fine_warm_stride={warm_stride} must be >= 1 when "
-                f"fine_warm_frac={sil.fine_warm_frac} > 0"
-            )
-        if not 0.0 <= sil.fine_warm_frac <= 1.0:
-            raise ValueError(f"fine_warm_frac={sil.fine_warm_frac} must lie in [0, 1]")
-        warm_steps = int(sil.fine_warm_frac * cfg.stage_b_steps)
-    else:
-        warm_steps = 0
-    hand_feet = list(constants.HAND_FEET_ROT_INDICES)
-
-    def step_b(step_idx: int, bins) -> LossTerms:
-        if warm_steps > 0:
-            stride_here = warm_stride if step_idx < warm_steps else stride
-            sil_active, sil_scale = step_idx % stride_here == 0, float(stride_here)
-        else:
-            sil_active = None if stride == 1 else step_idx % stride == 0
-            sil_scale = None
-        p = FrameParams(*leaves)
-        total, terms = losses.stage_b_loss(
-            model, j_reg_norm, pose_disc, shape_disc, p, data, cfg,
-            bins=bins, sil_active=sil_active, sil_scale=sil_scale,
-        )
-        if batch_share != 1.0:
-            terms = LossTerms(*(t * batch_share for t in terms))
-            total = terms.total
-        grads = list(torch.autograd.grad(total, leaves))
-        if freeze_hand_feet:
-            grads[0] = grads[0].clone()
-            grads[0][:, hand_feet, :] = 0.0
-        opt_b.step(leaves, grads)
-        return LossTerms(*(t.detach() for t in terms))
-
-    # Rebin amortization: the candidate lists from a chunk's start stay
-    # covering for `inner` steps thanks to the bin margin.
-    inner = sil.rebin_interval if cfg.use_silhouette else 1
-    inner = max(1, min(inner, cfg.stage_b_steps))
-    while cfg.stage_b_steps % inner != 0:
-        inner -= 1
-    use_bins = cfg.use_silhouette and data.mask is not None and inner > 1
-    spec = losses.rasterizer_spec(cfg)
-    # interior_skip exists on the fused amortized-bins path only. None = auto
-    # (on exactly there), True = require (raises elsewhere), False = off.
-    skip_path = use_bins and losses.resolve_silhouette_backend(spec) == "fused"
-    interior_skip = skip_path if sil.interior_skip is None else sil.interior_skip
-    if (
-        interior_skip and cfg.use_silhouette and data.mask is not None
-        and cfg.stage_b_steps > 0 and not skip_path
-    ):
-        raise ValueError(
-            "interior_skip=True requires the fused silhouette backend and rebin "
-            f"amortization (rebin_interval > 1); got backend={sil.backend!r}, "
-            f"rebin_interval={sil.rebin_interval}"
-        )
-
-    terms_b: List[LossTerms] = []
-    chunk_stats: List[sf.BinStats] = []
-    if use_bins:
-        for chunk in range(cfg.stage_b_steps // inner):
-            with torch.no_grad():
-                p_now = FrameParams(*(x.detach() for x in leaves))
-                verts_now = losses.forward_frame(model, p_now).vertices
-                if skip_path:
-                    bins = sf.compute_fused_bins(verts_now, model, p_now.cam_t, spec)
-                    if interior_skip:
-                        bins = sf.apply_interior_skip(bins, verts_now, model, p_now.cam_t, spec)
-                    if sil.lane_pack:
-                        # After the skip, so pairs form on the tiles left occupied.
-                        bins = sf.pack_bins(bins, model.num_verts)
-                    chunk_stats.append(bins.stats)
-                else:  # round-1 bins carry no capacity counters (jrr_tpu :302-306)
-                    bins = sil_lib.compute_bins(verts_now, model.faces, p_now.cam_t, spec)
-            for s in range(inner):
-                terms_b.append(step_b(chunk * inner + s, bins))
-    else:
-        for s in range(cfg.stage_b_steps):
-            terms_b.append(step_b(s, None))
-
-    params = FrameParams(*(x.detach() for x in leaves))
-    with torch.no_grad():
-        out = losses.forward_frame(model, params)
-        joints3d = losses.joints_from_verts(j_reg_norm, out.vertices)
-    empty = joints3d.new_zeros((0,))
-    return RefineResult(
-        params=params,
-        stage_a_loss=torch.stack(loss_a) if loss_a else empty,
-        stage_b_terms=(
-            LossTerms(*(torch.stack(col) for col in zip(*terms_b)))
-            if terms_b else LossTerms(*([empty] * 6))
-        ),
-        joints3d=joints3d,
-        vertices=out.vertices,
-        # Worst chunk is the representative per-batch figure.
-        bin_stats=(
-            sf.BinStats(*(torch.stack(col).amax() for col in zip(*chunk_stats)))
-            if chunk_stats else None
-        ),
-        chunk_stats=sf.BinStats(*(torch.stack(col) for col in zip(*chunk_stats)))
-        if chunk_stats else None,
-    )
+    return Refinement(model, j_reg_raw, init, data, cfg, pose_disc, shape_disc, jreg_mask,
+                      freeze_hand_feet, batch_share).run()
 
 
-def _refine_coarse_to_fine(
-    model, j_reg_raw, init, data, cfg, coarse_steps, pose_disc, shape_disc,
-    jreg_mask, freeze_hand_feet, batch_share,
-) -> RefineResult:
-    """Stage B's first `coarse_steps` at image_size/coarse_factor (tile and
-    bin margin divided alike, mask mean-pooled, focal auto-scaled), the rest
-    at full resolution; Adam is fresh per phase."""
+def coarse_to_fine_configs(cfg: RefinerConfig, coarse_steps: int):
+    """(cfg_coarse, cfg_fine) of the two phases of a coarse-to-fine stage
+    B: the first `coarse_steps` steps at image_size/coarse_factor (tile and
+    bin margin divided alike, coarse stride, no warm striding), then the
+    rest at full resolution with no stage A."""
     sil = cfg.silhouette
     if not 0.0 < sil.coarse_frac < 1.0:
         raise ValueError(f"coarse_frac={sil.coarse_frac} must lie in [0, 1)")
@@ -283,6 +431,19 @@ def _refine_coarse_to_fine(
         cfg, stage_a_steps=0, stage_b_steps=cfg.stage_b_steps - coarse_steps,
         silhouette=dataclasses.replace(sil, coarse_frac=0.0),
     )
+    return cfg_coarse, cfg_fine
+
+
+def _refine_coarse_to_fine(
+    model, j_reg_raw, init, data, cfg, coarse_steps, pose_disc, shape_disc,
+    jreg_mask, freeze_hand_feet, batch_share,
+) -> RefineResult:
+    """Stage B's first `coarse_steps` at image_size/coarse_factor (tile and
+    bin margin divided alike, mask mean-pooled, focal auto-scaled), the rest
+    at full resolution; Adam is fresh per phase. Each phase is its own
+    single-resolution call with its own graphs (their shapes differ)."""
+    factor = cfg.silhouette.coarse_factor
+    cfg_coarse, cfg_fine = coarse_to_fine_configs(cfg, coarse_steps)
     res1 = refine_batch(
         model, j_reg_raw, init, data._replace(mask=_pool_mask(data.mask, factor)),
         cfg_coarse, pose_disc, shape_disc, jreg_mask, freeze_hand_feet, batch_share,

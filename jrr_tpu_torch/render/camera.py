@@ -18,7 +18,12 @@ SMPL_TO_CAM_FLIP_SCALE = (-2.0, -2.0, 2.0)
 
 
 def smpl_to_camera_frame(points: torch.Tensor) -> torch.Tensor:
-    return points * points.new_tensor(SMPL_TO_CAM_FLIP_SCALE)
+    # The scale filled on the device (fill_, not a copy of host values,
+    # which a CUDA graph capture refuses).
+    scale = points.new_empty((3,))
+    for axis, factor in enumerate(SMPL_TO_CAM_FLIP_SCALE):
+        scale[axis].fill_(factor)
+    return points * scale
 
 
 def weak_perspective_to_translation(

@@ -365,7 +365,9 @@ def render_silhouette(verts_screen: torch.Tensor, faces: torch.Tensor,
     chunks of G tiles of every frame, as jrr_tpu maps over tiles in chunks
     of G. Under autograd each chunk runs in `torch.utils.checkpoint`, so the
     backward pass keeps the (B, G², T²) α and recomputes a chunk's
-    (tiles, T², K) intermediates instead of storing them."""
+    (tiles, T², K) intermediates instead of storing them. The α draws no
+    random numbers, so the recompute keeps no RNG state (restoring the
+    card's would be refused inside a CUDA graph capture)."""
     b = verts_screen.shape[0]
     t = spec.tile_size
     g = spec.image_size // t
@@ -383,7 +385,8 @@ def render_silhouette(verts_screen: torch.Tensor, faces: torch.Tensor,
         args = (origin[lo : lo + g].expand(b, -1, -1).reshape(-1, 2),
                 tri[:, lo : lo + g].reshape(-1, 6, k), valid[:, lo : lo + g].reshape(-1, 1, k),
                 t, *consts)
-        alpha = (checkpoint_lib.checkpoint(_tiles_alpha_xla, *args, use_reentrant=False)
+        alpha = (checkpoint_lib.checkpoint(_tiles_alpha_xla, *args, use_reentrant=False,
+                                           preserve_rng_state=False)
                  if remat else _tiles_alpha_xla(*args))
         alphas.append(alpha.reshape(b, -1, t * t))
     return _tiles_to_image(torch.cat(alphas, dim=1), g, t)

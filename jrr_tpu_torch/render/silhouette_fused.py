@@ -115,8 +115,10 @@ def build_tables(verts_screen: torch.Tensor, perm: torch.Tensor):
     first_dump = _round_up(v, _LANES) - v
     dump_x = verts_screen.new_full((pad,), _DUMP_X[0])
     dump_y = verts_screen.new_full((pad,), _DUMP_Y[0])
-    dump_x[first_dump + 1] = _DUMP_X[1]
-    dump_y[first_dump + 2] = _DUMP_Y[2]
+    # fill_, not item assignment, which copies the host's value: a CUDA
+    # graph capture refuses that copy.
+    dump_x[first_dump + 1].fill_(_DUMP_X[1])
+    dump_y[first_dump + 2].fill_(_DUMP_Y[2])
     tx = torch.cat([xy[..., 0], dump_x.expand(b, pad)], dim=1).reshape(b, pg, _LANES)
     ty = torch.cat([xy[..., 1], dump_y.expand(b, pad)], dim=1).reshape(b, pg, _LANES)
     return tx, ty
