@@ -1130,16 +1130,36 @@ def run_main_path(problem, pose_disc, shape_disc):
     ), launches
 
 
-def profile_main_path(problem, pose_disc, shape_disc, timed_seconds):
-    """One more refine_batch under torch.profiler (chiprun_out/profile.txt)."""
-    from jrr_tpu_torch.refine import engine
+def _profile_warm_refiner(filename, problem, cfg, pose_disc, shape_disc):
+    """The refinement as the outer-step program runs it from its second
+    batch on: a refiner (`engine.refiner`) run once, which captures its
+    graphs, then timed over one run of replays and profiled over another
+    (chiprun_out/`filename`): the profile sees replays only."""
+    import torch
 
-    model, j_reg, cfg, init, data = problem
-    cfg = dataclasses.replace(cfg, stage_a_steps=1000, stage_b_steps=100)
-    return _profile(
-        "profile.txt", timed_seconds,
-        lambda: engine.refine_batch(model, j_reg, init, data, cfg, pose_disc, shape_disc),
-    )
+    from jrr_tpu_torch.refine import engine
+    from jrr_tpu_torch.utils import precision
+
+    model, j_reg, _, init, data = problem
+    r = engine.refiner(model, j_reg, init, data, cfg, pose_disc, shape_disc)
+
+    def run():
+        with precision.float32_products():
+            r.run()
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    return _profile(filename, time.perf_counter() - t0, run)
+
+
+def profile_main_path(problem, pose_disc, shape_disc):
+    """A warm refiner of the main path under torch.profiler
+    (chiprun_out/profile.txt)."""
+    cfg = dataclasses.replace(problem[2], stage_a_steps=1000, stage_b_steps=100)
+    return _profile_warm_refiner("profile.txt", problem, cfg, pose_disc, shape_disc)
 
 
 # The CUDA runtime and driver calls that enqueue work on the card.
@@ -1221,6 +1241,7 @@ def _rebin_device_ops(problem, pose_disc, shape_disc, cfg):
     phases = [engine.Refinement(model, j_reg, init, phase_data, phase_cfg, pose_disc, shape_disc)
               for phase_cfg, phase_data in ((coarse, pooled), (fine, data))]
     for r in phases:
+        r.start()
         r.start_stage_b()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1240,9 +1261,10 @@ def run_graphs(problem, pose_disc, shape_disc, main_path, main_profile):
     the same launch counts, the routes' own. For the fused route, eager:
     the median of MAIN_RUNS calls, stage A alone, a profile (device-busy
     seconds, idle share, host-side launches), peak memory; captured: the
-    main path's (its profile must see as many device operations as the
-    eager one's, within the rebins' share: else the profiler drops graph
-    nodes and its idle share means nothing); and log_compile_time of the
+    main path's warm refiner (its profile must see as many device
+    operations as the eager one's, within the rebins' share: else the
+    profiler drops graph nodes and its idle share means nothing); and
+    log_compile_time of the
     stage-A and the fine phase's first stage-B (silhouette active) step."""
     import torch
 
@@ -1317,8 +1339,10 @@ def run_graphs(problem, pose_disc, shape_disc, main_path, main_profile):
     _, fine_cfg = engine.coarse_to_fine_configs(cfg, coarse_steps)
     with precision.float32_products():
         r = engine.Refinement(model, j_reg, init, data, cfg, pose_disc, shape_disc)
+        r.start()
         stage_a = profiling.log_compile_time(r.stage_a_step, r.cam_t)
         r = engine.Refinement(model, j_reg, init, data, fine_cfg, pose_disc, shape_disc)
+        r.start()
         r.start_stage_b()
         r.rebin()
         kind = r.stage_b_kind(0)
@@ -1525,10 +1549,7 @@ def run_round1_path(problem, pose_disc, shape_disc):
     _check(last < first, f"round-1 stage-B total did not decrease: {first} -> {last}")
     _check(all(bool(torch.isfinite(p).all()) for p in res.params), "round-1: non-finite params")
     _check(res.bin_stats is None, "round-1 bins carry no capacity counters")
-    prof = _profile(
-        "profile_round1.txt", seconds,
-        lambda: engine.refine_batch(model, j_reg, init, data, cfg, pose_disc, shape_disc),
-    )
+    prof = _profile_warm_refiner("profile_round1.txt", problem, cfg, pose_disc, shape_disc)
 
     short = short_problem(1)
     k1 = short_refine(short, pose_disc, shape_disc, backend="pallas")
@@ -1790,12 +1811,45 @@ def _perturbed_regressor(j_reg, seed=0):
     ) + rng.normal(scale=0.08, size=j.shape).astype(np.float32) * (j > 0)
 
 
+def _state_bits(state):
+    """The TrainState tensors (regressor, discriminators, Adam moments and
+    counts) by name, each as its bytes."""
+    import torch
+
+    out = {"j_reg_raw": state.j_reg_raw}
+    for name in ("pose_disc", "shape_disc"):
+        out.update({f"{name}.{k}": v for k, v in getattr(state, name).named_parameters()})
+    for name in ("jreg_opt", "pose_disc_opt", "shape_disc_opt"):
+        opt = getattr(state, name)
+        out[f"{name}.count"] = opt.count
+        out.update({f"{name}.{kind}{i}": t for kind in ("m", "v")
+                    for i, t in enumerate(getattr(opt, kind))})
+    return {k: v.detach().reshape(-1).contiguous().view(torch.uint8).clone()
+            for k, v in out.items()}
+
+
+def _step_bits(state, metrics, res):
+    """Everything an outer step returns, by name, as bytes (the step too)."""
+    import torch
+
+    out = {f"state.{k}": v for k, v in _state_bits(state).items()}
+    out["state.step"] = torch.tensor([state.step])
+    out.update({f"metrics.{k}": v.reshape(-1).contiguous().view(torch.uint8)
+                for k, v in metrics._asdict().items()})
+    out.update({f"result.{k}": v for k, v in _bits(res).items()})
+    out["result.joints3d"] = res.joints3d.reshape(-1).contiguous().view(torch.uint8)
+    return out
+
+
 def run_training():
     """The training path: one synthetic problem of TRAIN_STEPS·BATCH frames
     (full width; its mask rendered through the round-1 tile kernel), cut
-    into TRAIN_STEPS batches; `outer_step` on each at 1000 + 100 steps and
-    shipped defaults, from the perturbed true regressor; then the
-    closed-form regressor fit over those batches at V = 6890."""
+    into TRAIN_STEPS batches; the eager `trainer.outer_step` on each at
+    1000 + 100 steps and shipped defaults, from the perturbed true
+    regressor, each leaving the state passed in as it was; then the
+    closed-form regressor fit over those batches at V = 6890. Returns the
+    phase's record and what `run_outer_program` holds the program to: the
+    model, config, initial state, batches and each step's outputs."""
     import torch
 
     from jrr_tpu_torch import config, kernels
@@ -1817,17 +1871,24 @@ def run_training():
     )
     j_init = torch.as_tensor(_perturbed_regressor(j_true), device="cuda")
     state0 = trainer.init_train_state(j_init, pcfg, seed=7)
-    state, steps, kept = state0, [], []
+    state, steps, kept, batches, outputs = state0, [], [], [], []
+    torch.cuda.reset_peak_memory_stats()
     for i in range(TRAIN_STEPS):
         sl = slice(i * BATCH, (i + 1) * BATCH)
         init_i = type(init)(*(x[sl] for x in init))
         data_i = type(data)(*(x[sl] for x in data))
         kernels.reset_launches()
-        state_prev = state
+        before = _state_bits(state)
         t0 = time.perf_counter()
+        state_in = state
         state, m, res = trainer.outer_step(state, model, init_i, data_i, pcfg)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
+        after = _state_bits(state_in)
+        # outer_step leaves the state passed in as it was.
+        _check(after.keys() == before.keys() and all(torch.equal(after[k], before[k])
+                                                     for k in before),
+               f"outer step {i} changed the state passed in")
         launches = _read_launches()
         _check(launches == _launches(fused_lossgrad=38, fused_alpha_fwd=2),
                f"outer step {i} launches {launches}, expected 38 fused_lossgrad + 2 fused_alpha_fwd")
@@ -1836,16 +1897,15 @@ def run_training():
         steps.append(dict(seconds=seconds, frames_per_s=BATCH / seconds, launches=launches,
                           metrics=values))
         kept.append((res.vertices, res.joints3d[:, :1], data_i.gt_j3d))
+        batches.append((init_i, data_i))
+        outputs.append(_step_bits(state, m, res))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     _check(state.step == TRAIN_STEPS, f"state.step {state.step} != {TRAIN_STEPS}")
     _check(bool((state.j_reg_raw != state0.j_reg_raw).any()), "the regressor did not change")
     for name in ("pose_disc", "shape_disc"):
         changed = any(bool((a != b).any()) for a, b in zip(
             getattr(state, name).parameters(), getattr(state0, name).parameters()))
         _check(changed, f"the {name} did not change")
-    # outer_step leaves its input state as it was: profile the last step again.
-    prof = _profile("profile_outer_step.txt", steps[-1]["seconds"],
-                    lambda: trainer.outer_step(state_prev, model, init_i, data_i, pcfg))
-
     t0 = time.perf_counter()
     acc = trainer.JRegLstsqAccumulator.zero(model.num_verts, device="cuda")
     for verts, pelvis, gt in kept:
@@ -1866,10 +1926,70 @@ def run_training():
     return dict(
         batch=BATCH, outer_steps=TRAIN_STEPS, stage_a_steps=1000, stage_b_steps=100,
         problem_launches=problem_launches, steps=steps,
-        seconds_per_step=[st["seconds"] for st in steps], state_step=state.step, profile=prof,
+        seconds_per_step=[st["seconds"] for st in steps], state_step=state.step,
+        input_state_unchanged=True,
         lstsq=dict(frames=int(acc.count), num_verts=model.num_verts, seconds=lstsq_seconds,
                    mpjpe_fit_mm=fit, mpjpe_initial_mm=initial, mpjpe_adam_mm=adam),
-        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, card=_card(),
+        peak_mem_gb=peak_gb, card=_card(),
+    ), dict(model=model, cfg=pcfg, state0=state0, batches=batches, outputs=outputs,
+            eager_seconds=[st["seconds"] for st in steps], eager_peak_mem_gb=peak_gb)
+
+
+def run_outer_program(training):
+    """The outer-step program (`trainer.compile_outer_step`, what
+    `run_optimize` runs) on the training path's problem: its TRAIN_STEPS
+    batches (batch 256, full width, 1000 + 100 steps, shipped defaults)
+    from the same state, each step with the launch counts set to 0 just
+    before it and read just after. The first call captures the graphs, the
+    later ones replay them. Every step must equal the eager
+    `trainer.outer_step`'s (`run_training`) bit for bit: state, metrics,
+    refinement result, and 38 + 2 launches. Then the last step again from
+    its input state under the profiler (chiprun_out/profile_outer_step.txt:
+    host launches and graph replays of a warm step), each graph's
+    `log_compile_time` split and the peak allocated beside the eager
+    steps'."""
+    import torch
+
+    from jrr_tpu_torch import kernels
+    from jrr_tpu_torch.refine import trainer
+
+    model, pcfg = training["model"], training["cfg"]
+    program = trainer.compile_outer_step(pcfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, steps = training["state0"], []
+    for i, ((init_i, data_i), want) in enumerate(zip(training["batches"], training["outputs"])):
+        kernels.reset_launches()
+        state_prev = state
+        t0 = time.perf_counter()
+        state, m, res = program(state, model, init_i, data_i)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = _read_launches()
+        _check(launches == _launches(fused_lossgrad=38, fused_alpha_fwd=2),
+               f"program step {i} launches {launches}, expected 38 fused_lossgrad + "
+               "2 fused_alpha_fwd")
+        got = _step_bits(state, m, res)
+        differ = sorted(k for k in want if k not in got or not torch.equal(got[k], want[k]))
+        _check(got.keys() == want.keys() and not differ,
+               f"program step {i} differs from the eager outer_step in {differ}")
+        steps.append(dict(seconds=seconds, launches={k: v for k, v in launches.items() if v}))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    _check(len(program.entries) == 1, f"{len(program.entries)} program entries for one shape")
+    warm = [st["seconds"] for st in steps[1:]]
+    prof = _profile("profile_outer_step.txt", warm[-1],
+                    lambda: program(state_prev, model, init_i, data_i))
+    eager = training["eager_seconds"]
+    return dict(
+        batch=BATCH, outer_steps=TRAIN_STEPS, stage_a_steps=1000, stage_b_steps=100,
+        equal_bits=True, steps=steps, seconds_per_step=[st["seconds"] for st in steps],
+        warm_seconds_per_step=warm, eager_seconds_per_step=eager,
+        eager_warm_seconds_per_step=eager[1:],
+        host_launches_per_warm_step=prof["host_launches"],
+        graph_replays_per_warm_step=prof["graph_replays"],
+        graphs=sum(len(t) for t in program.compile_times.values()),
+        log_compile_time=program.compile_times, profile=prof,
+        peak_mem_gb=peak_gb, eager_peak_mem_gb=training["eager_peak_mem_gb"], card=_card(),
     )
 
 
@@ -2396,6 +2516,7 @@ def run_product_path(data_root, tmp):
         seconds=first["seconds"], phase_seconds=first["phase_seconds"],
         loader_wait_s=[r["loader_wait_s"] for r in first["records"]],
         step_s=[r["batch_seconds"] for r in first["records"]],
+        batch_seconds=[r["batch_seconds"] for r in first["records"]],
         product_frames_per_s=frames / a.seconds["optimize"],
         end_to_end_frames_per_s=frames / first["seconds"],
         evals={k: _eval_dict(v) for k, v in first["evals"].items()},
@@ -2409,7 +2530,8 @@ def run_product_path(data_root, tmp):
         loader_check=loaders, render_check=render, bins_check=bins,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, card=_card(),
     ), model, dict(out_dir=out_dir, launches=first["launches"], evals=first["evals"],
-                   acc=first["acc"], optimize_seconds=a.seconds["optimize"], j_true=j_true)
+                   acc=first["acc"], optimize_seconds=a.seconds["optimize"], j_true=j_true,
+                   batch_seconds=[r["batch_seconds"] for r in first["records"]])
 
 
 class _Killed(Exception):
@@ -2419,7 +2541,8 @@ class _Killed(Exception):
 def run_killed_and_resumed(cfg, data_root, out_dir, model, first, first_refined):
     """The product run of `run_product_path` again in a new out dir, with a
     regressor snapshot after every shard, killed in its second outer step
-    (after shard 0: `trainer.outer_step` raises), then resumed with the
+    (after shard 0: the run's program, `trainer.compile_outer_step`'s,
+    raises), then resumed with the
     same arguments. The killed run must leave shard 0, its snapshot and the
     train state after it, nothing of shard 1; the resume must run shard 1
     alone (one refinement's launches) and end bit for bit where the
@@ -2434,16 +2557,21 @@ def run_killed_and_resumed(cfg, data_root, out_dir, model, first, first_refined)
     from jrr_tpu_torch.utils.checkpoint import ShardManifest
 
     cfg = dataclasses.replace(cfg, jreg=dataclasses.replace(cfg.jreg, snapshot_interval=1))
-    step, calls = trainer.outer_step, []
+    compile_step, calls = trainer.compile_outer_step, []
 
-    def killed_step(*args, **kwargs):
-        if calls:
-            raise _Killed("killed in the outer step of shard 1")
-        calls.append(1)
-        return step(*args, **kwargs)
+    def compile_killed(*args, **kwargs):
+        step = compile_step(*args, **kwargs)
+
+        def killed_step(*args, **kwargs):
+            if calls:
+                raise _Killed("killed in the outer step of shard 1")
+            calls.append(1)
+            return step(*args, **kwargs)
+
+        return killed_step
 
     snaps = os.path.join(out_dir, "jreg_snapshots")
-    trainer.outer_step = killed_step
+    trainer.compile_outer_step = compile_killed
     t0 = time.perf_counter()
     try:
         run_pipeline(cfg, data_root=data_root, out_dir=out_dir, demo=True, model=model,
@@ -2452,7 +2580,7 @@ def run_killed_and_resumed(cfg, data_root, out_dir, model, first, first_refined)
     except _Killed:
         pass
     finally:
-        trainer.outer_step = step
+        trainer.compile_outer_step = compile_step
     torch.cuda.synchronize()
     killed_s = time.perf_counter() - t0
     with open(os.path.join(out_dir, "resume.json")) as f:
@@ -2520,7 +2648,7 @@ def check_jax_state():
     _check(differ == 0 and back.j_reg_raw.is_cuda and back.step == 1,
            f"jax_state: {differ} values differ from the file's")
     return dict(file=os.path.relpath(JAX_STATE, ROOT), keys=len(got), differing_values=differ,
-                step=back.step, pose_disc_adam_count=back.pose_disc_opt.count)
+                step=back.step, pose_disc_adam_count=int(back.pose_disc_opt.count))
 
 
 def _fabricate(module, gen, skip=(), head=(), head_scale=1e-3, identity=()):
@@ -2972,6 +3100,7 @@ def _multi_gpu_worker(data_root, out_dir, backend) -> int:
     from jrr_tpu_torch.models import smpl
     from jrr_tpu_torch.parallel import multihost
     from jrr_tpu_torch.pipeline import run_pipeline
+    from jrr_tpu_torch.utils.logging import MetricsLogger
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2979,11 +3108,16 @@ def _multi_gpu_worker(data_root, out_dir, backend) -> int:
     try:
         mesh = multihost.global_mesh(device="cuda" if backend == "nccl" else "cuda:0")
         model = smpl.synthetic_smpl_model(seed=0, device=mesh.device)
+        metrics_path = os.path.join(out_dir, f"metrics_rank{mesh.rank}.jsonl")
+        logger = MetricsLogger(path=metrics_path, echo=False)
         kernels.reset_launches()
         t0 = time.perf_counter()
-        arts = run_pipeline(config.PipelineConfig(), data_root=data_root,
-                            out_dir=os.path.join(out_dir, "run"), demo=True, model=model,
-                            loader="auto")
+        try:
+            arts = run_pipeline(config.PipelineConfig(), data_root=data_root,
+                                out_dir=os.path.join(out_dir, "run"), demo=True, model=model,
+                                logger=logger, loader="auto")
+        finally:
+            logger.close()
         torch.cuda.synchronize()
         nccl = torch.cuda.nccl.version()
         rec = dict(rank=mesh.rank, world=mesh.world_size, device=str(mesh.device),
@@ -2991,6 +3125,8 @@ def _multi_gpu_worker(data_root, out_dir, backend) -> int:
                    seconds=time.perf_counter() - t0, phase_seconds=arts.seconds,
                    loader=arts.loader, launches=_read_launches())
         if mesh.is_lead:
+            # Rank 0 logs one record per shard: the first batch is cold.
+            rec["batch_seconds"] = [r["batch_seconds"] for r in _records(metrics_path)]
             rec["evals"] = {"initial": _eval_dict(arts.eval_before_after.before),
                             "adam_final": _eval_dict(arts.eval_before_after.after),
                             "lstsq": _eval_dict(arts.eval_lstsq)}
@@ -3104,7 +3240,8 @@ def run_multi_gpu(data_root, ref, tmp, world=None, backend="nccl"):
     return dict(
         world=world, backend=lead["backend"], nccl_version=lead["nccl"],
         devices=[r["device"] for r in recs], seconds=seconds, run_seconds=lead["seconds"],
-        phase_seconds=lead["phase_seconds"],
+        phase_seconds=lead["phase_seconds"], batch_seconds=lead["batch_seconds"],
+        one_process_batch_seconds=ref["batch_seconds"],
         product_frames_per_s=PRODUCT_FRAMES / lead["phase_seconds"]["optimize"],
         one_process_product_frames_per_s=PRODUCT_FRAMES / ref["optimize_seconds"],
         collectives_per_outer_step=5, collective_ms=lead["collective_ms"],
@@ -3596,7 +3733,7 @@ def main() -> int:
     done("tile_kernel_checks")
     main_path, launches = run_main_path(problem, pose_disc, shape_disc)
     _emit({"main_path": main_path})
-    main_profile = profile_main_path(problem, pose_disc, shape_disc, main_path["seconds"])
+    main_profile = profile_main_path(problem, pose_disc, shape_disc)
     _emit({"profile": main_profile})
     done("main_path")
     _emit({"graphs": run_graphs(problem, pose_disc, shape_disc, main_path, main_profile)})
@@ -3608,8 +3745,12 @@ def main() -> int:
     done("kernel_vs_plain_refine")
     _emit({"kernel_vs_plain_silhouette_gradient": compare_silhouette_gradients()})
     done("silhouette_gradients")
-    _emit({"training_path": run_training()})
+    training, training_ref = run_training()
+    _emit({"training_path": training})
     done("training_path")
+    _emit({"outer_program": run_outer_program(training_ref)})
+    del training_ref
+    done("outer_program")
     round1, round1_launches, round1_res = run_round1_path(problem, pose_disc, shape_disc)
     _emit({"round1_path": round1})
     done("round1_path")

@@ -162,9 +162,10 @@ def _adam_moments(opt_state):
 
 def _adam(params, lr: float, moments, to_params) -> engine._Adam:
     """An `_Adam` over `params` whose moments are the JAX moments laid out
-    like the parameters (`to_params` maps a JAX tree to a list)."""
-    opt = engine._Adam(params, lr)
-    opt.count = int(np.array(moments.count))
+    like the parameters (`to_params` maps a JAX tree to a list), its int32
+    count on the device as the trainer keeps it."""
+    opt = engine._Adam(params, lr, device_count=True)
+    opt.set_count(int(np.array(moments.count)))
     opt.m = [t.detach().clone() for t in to_params(moments.mu)]
     opt.v = [t.detach().clone() for t in to_params(moments.nu)]
     return opt
@@ -206,7 +207,8 @@ def train_state_arrays(state: trainer.TrainState) -> Dict[str, np.ndarray]:
     ".jreg_opt[0].count" / ".mu" / ".nu" (optax's ScaleByAdamState, the
     first entry of adam's chain), ".pose_disc['w1']",
     ".pose_disc_opt[0].mu['w1']", ... Counts and the step are int32."""
-    i32 = lambda x: np.asarray(x, np.int32)  # noqa: E731
+    # int() reads a count on the device as well as a Python int.
+    i32 = lambda x: np.asarray(int(x), np.int32)  # noqa: E731
     opt = state.jreg_opt
     out = {
         ".j_reg_raw": state.j_reg_raw.detach().cpu().numpy(), ".step": i32(state.step),

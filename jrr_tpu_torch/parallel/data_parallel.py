@@ -40,14 +40,12 @@ def make_sharded_refine(mesh: mesh_lib.Mesh, cfg: RefinerConfig, freeze_hand_fee
 
 
 def make_sharded_outer_step(mesh: mesh_lib.Mesh, cfg: PipelineConfig):
-    """trainer.outer_step on this process's rows: fn(state, model, spin_init,
-    data) → (state, OuterMetrics, RefineResult), the state and metrics the
-    same on every process."""
-
-    def step(state, model, spin_init, data):
-        return trainer.outer_step(state, model, spin_init, data, cfg, mesh=mesh)
-
-    return step
+    """The outer-step program for this process's rows
+    (`trainer.compile_outer_step` on the mesh; jrr_tpu :67-78): fn(state,
+    model, spin_init, data) → (state, OuterMetrics, RefineResult), the
+    state and metrics the same on every process, equal to
+    `trainer.outer_step(..., mesh=mesh)`."""
+    return trainer.compile_outer_step(cfg, mesh=mesh)
 
 
 def host_shard_slice(global_batch: int, num_hosts: int, host_id: int) -> slice:

@@ -131,7 +131,7 @@ def tree_map(fn: Callable, tree: Any) -> Any:
     """`fn` on every tensor or ndarray leaf of a tree of NamedTuples, tuples,
     lists, dicts, dataclasses, `nn.Module`s (a copy, its parameters and
     buffers mapped) and Adam states (`engine._Adam`: a copy, its moments
-    mapped); other leaves stay as they are."""
+    and a count on the device mapped); other leaves stay as they are."""
     if isinstance(tree, (torch.Tensor, np.ndarray)):
         return fn(tree)
     if isinstance(tree, nn.Module):
@@ -152,6 +152,8 @@ def tree_map(fn: Callable, tree: Any) -> Any:
     if isinstance(tree, engine._Adam):
         out = copy.copy(tree)
         out.m, out.v = tree_map(fn, tree.m), tree_map(fn, tree.v)
+        if torch.is_tensor(tree.count):
+            out.count = fn(tree.count)
         return out
     return tree
 

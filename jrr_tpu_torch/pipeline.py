@@ -278,8 +278,10 @@ def run_optimize(
     spin_fn=None,
 ):
     """The `optimize_pose_refiner` equivalent (reference:
-    scripts/optimize.py:88-337), on the model's device: one `outer_step` per
-    batch, shard writes, the lstsq accumulator, resume.
+    scripts/optimize.py:88-337), on the model's device: one outer step per
+    batch through the run's program (`trainer.compile_outer_step`, and
+    `trainer.compile_accumulate` for the lstsq accumulator; CUDA graphs
+    captured at the first batch of each shape), shard writes, resume.
 
     With `spin_fn` (`make_spin_fn`) each refined batch starts from SPIN's
     estimates on its crops: the prefetch thread stages the crops, and the
@@ -332,6 +334,11 @@ def run_optimize(
     # The batch's statistics summed over the processes before they are
     # added: every process holds the global accumulator.
     reduce = None if mesh is None else (lambda part: mesh_lib.sum_over_ranks(mesh, part))
+    # One program per run, as jrr_tpu builds its jitted step and accumulate
+    # (jrr_tpu/pipeline.py:204-211): captured at the first batch of each
+    # shape, replayed for the others.
+    step_fn = trainer.compile_outer_step(cfg, mesh=mesh)
+    accumulate = trainer.compile_accumulate(mesh)
 
     def write(item):
         kind, sid, payload = item
@@ -403,14 +410,12 @@ def run_optimize(
                 barrier()
                 phases["prep"] = time.time() - t0
             t1 = time.time()
-            state, m, result = trainer.outer_step(state, model, init, data, cfg, mesh=mesh)
+            state, m, result = step_fn(state, model, init, data)
             if phase_timing:
                 barrier()
                 phases["step"] = time.time() - t1
             t1 = time.time()
-            acc = trainer.jreg_lstsq_accumulate(
-                acc, result.vertices, data.gt_j3d, result.joints3d[:, :1], reduce=reduce
-            )
+            acc = accumulate(acc, result.vertices, data.gt_j3d, result.joints3d[:, :1])
             if phase_timing:
                 barrier()
                 phases["acc"] = time.time() - t1

@@ -78,8 +78,7 @@ class _Adam:
     it there in float64 and rounded to the params' type, as the Python int
     count gives them: a captured step then replays with the count it has
     reached, and on the CPU the steps are the int count's bit for bit.
-    Without it the count is a Python int (the trainer's optimizers, whose
-    counts the train-state files hold)."""
+    Without it the count is a Python int (the legacy staged fit)."""
 
     def __init__(self, params: List[torch.Tensor], lr: float, b1=0.9, b2=0.999, eps=1e-8,
                  device_count: bool = False):
@@ -88,6 +87,32 @@ class _Adam:
         self.v = [torch.zeros_like(p) for p in params]
         self.count = (torch.zeros((), dtype=torch.float64, device=params[0].device)
                       if device_count else 0)
+
+    def set_count(self, n: int) -> None:
+        """Set the step count to `n`, on the device when it lives there."""
+        if torch.is_tensor(self.count):
+            self.count = torch.full((), float(n), dtype=torch.float64, device=self.count.device)
+        else:
+            self.count = int(n)
+
+    @torch.no_grad()
+    def reset(self) -> None:
+        """Fresh moments and count, in place (a captured call starts a stage so)."""
+        for t in self.m + self.v:
+            t.zero_()
+        if torch.is_tensor(self.count):
+            self.count.zero_()
+        else:
+            self.count = 0
+
+    @torch.no_grad()
+    def load(self, other: "_Adam") -> None:
+        """Copy `other`'s moments and count into this optimizer's tensors."""
+        torch._foreach_copy_(self.m + self.v, other.m + other.v)
+        if torch.is_tensor(other.count):
+            self.count.copy_(other.count)
+        else:
+            self.count.fill_(float(other.count))
 
     @torch.no_grad()
     def step(self, params: List[torch.Tensor], grads: List[torch.Tensor]) -> None:
@@ -121,9 +146,10 @@ _graphs_off = _GraphsOff()
 
 @contextlib.contextmanager
 def disable_graphs():
-    """Run `refine_batch`'s steps eagerly on the card too: the counterpart
-    of `jax.disable_jit()`, for holding a captured run against an eager one.
-    Nests; applies to the calling thread; inert on the CPU, which always
+    """Run `refine_batch`'s steps and the outer-step program eagerly on the
+    card too: the counterpart of `jax.disable_jit()`, for holding a
+    captured run against an eager one. Nests; applies to the calling
+    thread and to what is built inside it; inert on the CPU, which always
     runs eagerly."""
     _graphs_off.depth += 1
     try:
@@ -132,27 +158,55 @@ def disable_graphs():
         _graphs_off.depth -= 1
 
 
-class _Steps:
-    """Runs each kind of step: on CUDA tensors its first step runs eagerly
-    (on a side stream, as a real step of the refinement) and is then
-    captured into a CUDA graph, which every later step of that kind
-    replays; on the CPU, or under `disable_graphs()`, every step runs
-    eagerly. The graphs live as long as this object, one `refine_batch`
-    call (the first graph of a device is kept, never replayed, to hold
-    the memory pool all graphs share: `profiling._graph_pool`). A failed
-    capture raises."""
+def _kind_name(kind) -> str:
+    return kind if isinstance(kind, str) else "_".join(map(str, kind))
 
-    def __init__(self, device: torch.device):
+
+class _Steps:
+    """Runs each kind of closure: on CUDA tensors its first call runs
+    eagerly (on a side stream, as a real call) and is then captured into a
+    CUDA graph, which every later call of that kind replays; on the CPU, or
+    when built under `disable_graphs()`, every call runs eagerly. The
+    graphs live as long as this object (the first graph of a device is
+    kept, never replayed, to hold the memory pool all graphs share:
+    `profiling._graph_pool`). A failed capture raises.
+
+    With `times` (a dict) each graph's `log_compile_time` split is recorded
+    there once, under `prefix` + its kind: `lower_s` and `compile_s` at
+    its capture, `first_run_s` at its first replay."""
+
+    def __init__(self, device: torch.device, times=None, prefix: str = ""):
+        self.device = device
         self.capture = device.type == "cuda" and _graphs_off.depth == 0
         self.graphs = {}
+        self.times, self.prefix = times, prefix
 
     def __call__(self, kind, fn, *args) -> None:
         if not self.capture:
             fn(*args)
-        elif kind in self.graphs:
-            self.graphs[kind].replay()
+            return
+        call = self.graphs.get(kind)
+        timing = None if self.times is None else self.times.setdefault(
+            self.prefix + _kind_name(kind), {})
+        if call is None:
+            self.graphs[kind] = profiling.capture(fn, *args, device=self.device, times=timing)
+        elif timing is not None and "first_run_s" not in timing:
+            profiling.timed_replay(call, self.device, timing)
         else:
-            self.graphs[kind] = profiling.capture(fn, *args)
+            call.replay()
+
+
+class _Static(dict):
+    """Named buffers that captured closures write their results into: the
+    first (eager) call keeps a copy of each value, every later call copies
+    into it, so a replay writes where the first call's value lies."""
+
+    def put(self, name: str, value: torch.Tensor) -> torch.Tensor:
+        if name in self:
+            self[name].copy_(value)
+        else:
+            self[name] = value.detach().clone()
+        return self[name]
 
 
 def _record(buf: torch.Tensor, positions: torch.Tensor, step: torch.Tensor, value) -> None:
@@ -175,22 +229,54 @@ def _copy_bins(static, new):
         dst.copy_(src)
 
 
+@torch.no_grad()
+def _load_inputs(dst, src) -> None:
+    """Copy the tensors of `src` (tensors, NamedTuples of tensors or None,
+    modules) into the same structure's tensors in `dst`, in one foreach copy."""
+    pairs = []
+
+    def walk(d, s):
+        if d is None or s is None or d is s:
+            return
+        if torch.is_tensor(d):
+            pairs.append((d, s))
+        elif isinstance(d, torch.nn.Module):
+            pairs.extend(zip(d.parameters(), s.parameters()))
+        else:
+            for a, b in zip(d, s):
+                walk(a, b)
+
+    walk(dst, src)
+    if pairs:
+        torch._foreach_copy_([d for d, _ in pairs], [s.detach() for _, s in pairs])
+
+
 class Refinement:
     """One single-resolution `refine_batch` call: its state and its step
-    closures.
+    closures, reusable from batch to batch of one shape.
 
-    Every tensor a step reads or writes is allocated before the loop: the
-    leaves, the Adam moments and device-side counts, `joints3d_fixed`,
-    `j_reg_norm`, the batch, the bins (copied into after each rebin), the
-    loss buffers and their device-side step indices. So a step is a
-    closure over static buffers, which a CUDA graph can replay:
-    `stage_a_step(cam_t)` and, per kind of stage-B step (`stage_b_kind`),
-    `stage_b_step(kind)(*leaves)`. `run()` drives them through `_Steps`."""
+    Every tensor a closure reads or writes is allocated before the
+    closures run: the static inputs (`j_reg_raw`, `init`, `data` and the
+    discriminators, read where they lie; `load` copies a new batch into
+    them), the leaves, the Adam moments and device-side counts, the loss
+    buffers and their device-side step indices, the bins (copied into at
+    each rebin), the rebin chunks' counters and the closures' outputs
+    (`_Static`). So every closure can be replayed from a CUDA graph: the
+    prologue (`start`: mask pooling, `j_reg_norm`, `joints3d_fixed`, stage
+    A's camera and fresh Adam state), `stage_a_step(cam_t)`,
+    `start_stage_b`, `rebin`, per kind of stage-B step (`stage_b_kind`)
+    `stage_b_step(kind)(*leaves)`, and `finish` (the final forward and the
+    worst chunk's counters). `run()` drives them through `_Steps`, whose
+    graphs live as long as this object.
+
+    `mask_factor` > 1 mean-pools `data.mask` by that factor in the
+    prologue (the coarse phase of coarse-to-fine)."""
 
     def __init__(self, model, j_reg_raw, init: FrameParams, data: FrameBatch, cfg: RefinerConfig,
                  pose_disc=None, shape_disc=None, jreg_mask: Optional[torch.Tensor] = None,
-                 freeze_hand_feet: bool = False, batch_share: float = 1.0):
-        self.model, self.data, self.cfg = model, data, cfg
+                 freeze_hand_feet: bool = False, batch_share: float = 1.0, mask_factor: int = 1,
+                 times=None, name: str = ""):
+        self.model, self.cfg = model, cfg
         self.pose_disc, self.shape_disc = pose_disc, shape_disc
         self.freeze_hand_feet, self.batch_share = freeze_hand_feet, batch_share
         sil = cfg.silhouette
@@ -232,26 +318,59 @@ class Refinement:
             )
 
         dev = init.cam_t.device
-        self.j_reg_norm = jreg_lib.normalize_jreg(j_reg_raw, jreg_mask)
-        with torch.no_grad():
-            self.joints3d_fixed = losses.joints_from_verts(
-                self.j_reg_norm, losses.forward_frame(model, init).vertices
-            )
-        self.init = init
+        self.j_reg_raw, self.init, self.source = j_reg_raw, init, data
+        self.jreg_mask, self.mask_factor = jreg_mask, mask_factor
+        # The prologue's outputs (`data` gains the pooled mask there).
+        self.out = _Static()
+        self.data = data
         self.cam_t = init.cam_t.detach().clone().requires_grad_(True)
         self.opt_a = _Adam([self.cam_t], cfg.stage_a_lr, device_count=True)
         self.loss_a = init.cam_t.new_zeros((cfg.stage_a_steps,))
         self.pos_a = torch.arange(cfg.stage_a_steps, device=dev)
         self.index_a = torch.zeros((), dtype=torch.int64, device=dev)
-        # Stage B starts from stage A's camera: its leaves are made after it.
-        self.leaves: List[torch.Tensor] = []
-        self.opt_b: Optional[_Adam] = None
+        # Stage B starts from stage A's camera (`start_stage_b` copies it in).
+        self.leaves = [x.detach().clone().requires_grad_(True) for x in init]
+        self.opt_b = _Adam(self.leaves, cfg.stage_b_lr, device_count=True)
         self.terms_b = init.cam_t.new_zeros((len(LossTerms._fields), cfg.stage_b_steps))
         self.pos_b = torch.arange(cfg.stage_b_steps, device=dev)
         self.index_b = torch.zeros((), dtype=torch.int64, device=dev)
         self.hand_feet = torch.tensor(constants.HAND_FEET_ROT_INDICES, device=dev)
         self.bins = None  # the static bins the stage-B steps read
-        self.chunk_stats: List[sf.BinStats] = []
+        # The fused rebins' capacity counters, one column per chunk.
+        chunks = cfg.stage_b_steps // inner if self.skip_path else 0
+        self.chunk_buf = (torch.zeros((len(sf.BinStats._fields), chunks), dtype=torch.int64,
+                                      device=dev) if chunks else None)
+        self.pos_c = torch.arange(chunks, device=dev)
+        self.index_c = torch.zeros((), dtype=torch.int64, device=dev)
+        # No attribute may refer back to this object (a closure over it, a
+        # bound method): a reference cycle would leave its graphs to the
+        # garbage collector, which may destroy them during a later capture.
+        self.steps = _Steps(dev, times, name)
+
+    @torch.no_grad()
+    def load(self, j_reg_raw, init: FrameParams, data: FrameBatch, pose_disc=None,
+             shape_disc=None) -> None:
+        """Copy a new batch (and regressor, and discriminator weights) into
+        the static inputs; the prologue of the next `run` starts from them."""
+        _load_inputs((self.j_reg_raw, self.init, self.source, self.pose_disc, self.shape_disc),
+                     (j_reg_raw, init, data, pose_disc, shape_disc))
+
+    @torch.no_grad()
+    def start(self) -> None:
+        """The prologue: pooled mask, normalized regressor, stage A's fixed
+        joints; stage A's camera and Adam state and every device-side index
+        reset."""
+        if self.mask_factor > 1:
+            pooled = _pool_mask(self.source.mask, self.mask_factor)
+            self.data = self.source._replace(mask=self.out.put("mask", pooled))
+        j_reg_norm = jreg_lib.normalize_jreg(self.j_reg_raw, self.jreg_mask)
+        self.j_reg_norm = self.out.put("j_reg_norm", j_reg_norm)
+        self.joints3d_fixed = self.out.put("joints3d_fixed", losses.joints_from_verts(
+            self.j_reg_norm, losses.forward_frame(self.model, self.init).vertices))
+        self.cam_t.copy_(self.init.cam_t)
+        self.opt_a.reset()
+        for index in (self.index_a, self.index_b, self.index_c):
+            index.zero_()
 
     def stage_a_step(self, cam_t: torch.Tensor) -> None:
         """One camera-only Adam step on the 2D reprojection loss."""
@@ -263,11 +382,12 @@ class Refinement:
         self.opt_a.step([cam_t], [g])
         _record(self.loss_a, self.pos_a, self.index_a, loss.detach())
 
+    @torch.no_grad()
     def start_stage_b(self) -> None:
         """Stage B's leaves (from stage A's camera) and fresh Adam state."""
-        params = self.init._replace(cam_t=self.cam_t.detach())
-        self.leaves = [x.detach().clone().requires_grad_(True) for x in params]
-        self.opt_b = _Adam(self.leaves, self.cfg.stage_b_lr, device_count=True)
+        for leaf, x in zip(self.leaves, self.init._replace(cam_t=self.cam_t)):
+            leaf.copy_(x)
+        self.opt_b.reset()
 
     def stage_b_kind(self, step_idx: int):
         """(sil_active, sil_scale) of stage-B step `step_idx`: the variants
@@ -301,8 +421,9 @@ class Refinement:
 
     @torch.no_grad()
     def rebin(self) -> None:
-        """Bin at the current leaves (eagerly) and copy the bins into the
-        static ones the steps read (the first rebin's bins become them)."""
+        """Bin at the current leaves and copy the bins into the static ones
+        the steps read (the first call's bins become them); the fused bins'
+        counters go into the chunk's column."""
         model, spec = self.model, self.spec
         p_now = FrameParams(*(x.detach() for x in self.leaves))
         verts_now = losses.forward_frame(model, p_now).vertices
@@ -313,7 +434,7 @@ class Refinement:
             if self.cfg.silhouette.lane_pack:
                 # After the skip, so pairs form on the tiles left occupied.
                 bins = sf.pack_bins(bins, model.num_verts)
-            self.chunk_stats.append(bins.stats)
+            _record(self.chunk_buf, self.pos_c, self.index_c, torch.stack(tuple(bins.stats)))
         else:  # round-1 bins carry no capacity counters (jrr_tpu :302-306)
             bins = sil_lib.compute_bins(verts_now, model.faces, p_now.cam_t, spec)
         if self.bins is None:
@@ -321,40 +442,118 @@ class Refinement:
         else:
             _copy_bins(self.bins, bins)
 
+    @torch.no_grad()
+    def finish(self) -> None:
+        """The final vertices and joints, and the worst chunk's counters."""
+        params = FrameParams(*(x.detach() for x in self.leaves))
+        vertices = self.out.put("vertices", losses.forward_frame(self.model, params).vertices)
+        self.out.put("joints3d", losses.joints_from_verts(self.j_reg_norm, vertices))
+        if self.chunk_buf is not None:
+            # Worst chunk is the representative per-batch figure.
+            self.out.put("bin_stats", self.chunk_buf.amax(dim=1))
+
     def run(self) -> RefineResult:
-        cfg = self.cfg
-        steps = _Steps(self.cam_t.device)
+        """One call; the result's tensors are this object's buffers, which
+        the next `run` overwrites."""
+        cfg, steps = self.cfg, self.steps
+        steps("start", self.start)
         for _ in range(cfg.stage_a_steps):
             steps("a", self.stage_a_step, self.cam_t)
-        self.start_stage_b()
+        steps("start_b", self.start_stage_b)
         closures = {}
         for s in range(cfg.stage_b_steps):
             if self.use_bins and s % self.inner == 0:
-                self.rebin()
+                steps("rebin", self.rebin)
             kind = self.stage_b_kind(s)
             if kind not in closures:
                 closures[kind] = self.stage_b_step(kind)
             steps(("b",) + kind, closures[kind], *self.leaves)
+        steps("finish", self.finish)
+        return self.result()
 
-        params = FrameParams(*(x.detach() for x in self.leaves))
-        with torch.no_grad():
-            out = losses.forward_frame(self.model, params)
-            joints3d = losses.joints_from_verts(self.j_reg_norm, out.vertices)
-        chunk_stats = self.chunk_stats
+    def result(self) -> RefineResult:
+        stats = self.chunk_buf is not None
         return RefineResult(
-            params=params,
+            params=FrameParams(*(x.detach() for x in self.leaves)),
             stage_a_loss=self.loss_a,
             stage_b_terms=LossTerms(*self.terms_b.unbind(0)),
-            joints3d=joints3d,
-            vertices=out.vertices,
-            # Worst chunk is the representative per-batch figure.
-            bin_stats=(
-                sf.BinStats(*(torch.stack(col).amax() for col in zip(*chunk_stats)))
-                if chunk_stats else None
-            ),
-            chunk_stats=sf.BinStats(*(torch.stack(col) for col in zip(*chunk_stats)))
-            if chunk_stats else None,
+            joints3d=self.out["joints3d"],
+            vertices=self.out["vertices"],
+            bin_stats=sf.BinStats(*self.out["bin_stats"].unbind(0)) if stats else None,
+            chunk_stats=sf.BinStats(*self.chunk_buf.unbind(0)) if stats else None,
         )
+
+
+class CoarseToFine:
+    """Stage B's first `coarse_steps` at image_size/coarse_factor (tile and
+    bin margin divided alike, mask mean-pooled, focal auto-scaled), the rest
+    at full resolution; Adam is fresh per phase. Each phase is its own
+    `Refinement` with its own graphs (their shapes differ); the fine phase
+    reads the coarse phase's leaves as its start, and a captured `merge`
+    joins the two phases' curves and counters. `load` and `run` as
+    `Refinement`'s."""
+
+    def __init__(self, model, j_reg_raw, init, data, cfg, coarse_steps, pose_disc=None,
+                 shape_disc=None, jreg_mask=None, freeze_hand_feet=False, batch_share=1.0,
+                 times=None):
+        cfg_coarse, cfg_fine = coarse_to_fine_configs(cfg, coarse_steps)
+        shared = dict(pose_disc=pose_disc, shape_disc=shape_disc, jreg_mask=jreg_mask,
+                      freeze_hand_feet=freeze_hand_feet, batch_share=batch_share, times=times)
+        self.coarse = Refinement(model, j_reg_raw, init, data, cfg_coarse,
+                                 mask_factor=cfg.silhouette.coarse_factor, name="coarse_", **shared)
+        start = FrameParams(*(x.detach() for x in self.coarse.leaves))
+        self.fine = Refinement(model, j_reg_raw, start, data, cfg_fine, name="fine_", **shared)
+        self.out = _Static()
+        self.steps = _Steps(init.cam_t.device, times)
+
+    def load(self, *args, **kwargs) -> None:
+        self.coarse.load(*args, **kwargs)  # the fine phase reads the same inputs
+
+    @torch.no_grad()
+    def merge(self) -> None:
+        res1, res2 = self.coarse.result(), self.fine.result()
+        self.out.put("terms", torch.cat([self.coarse.terms_b, self.fine.terms_b], dim=1))
+        if res1.bin_stats is not None and res2.bin_stats is not None:
+            self.out.put("bin_stats", torch.maximum(self.coarse.out["bin_stats"],
+                                                    self.fine.out["bin_stats"]))
+        chunks = [r.chunk_buf for r in (self.coarse, self.fine) if r.chunk_buf is not None]
+        if chunks:
+            self.out.put("chunks", torch.cat(chunks, dim=1))
+
+    def run(self) -> RefineResult:
+        res1 = self.coarse.run()
+        res2 = self.fine.run()
+        self.steps("merge", self.merge)
+        if "bin_stats" in self.out:
+            stats = sf.BinStats(*self.out["bin_stats"].unbind(0))
+        else:
+            stats = res1.bin_stats if res2.bin_stats is None else res2.bin_stats
+        chunks = self.out.get("chunks")
+        return res2._replace(
+            stage_a_loss=res1.stage_a_loss, stage_b_terms=LossTerms(*self.out["terms"].unbind(0)),
+            bin_stats=stats, chunk_stats=None if chunks is None else sf.BinStats(*chunks.unbind(0)),
+        )
+
+
+def refiner(model, j_reg_raw, init: FrameParams, data: FrameBatch, cfg: RefinerConfig,
+            pose_disc=None, shape_disc=None, jreg_mask: Optional[torch.Tensor] = None,
+            freeze_hand_feet: bool = False, batch_share: float = 1.0, times=None):
+    """The `Refinement` (or `CoarseToFine`) that runs `refine_batch`'s call,
+    reading the given tensors and discriminators as its static inputs."""
+    sil = cfg.silhouette
+    coarse_steps = int(sil.coarse_frac * cfg.stage_b_steps)
+    shared = dict(pose_disc=pose_disc, shape_disc=shape_disc, jreg_mask=jreg_mask,
+                  freeze_hand_feet=freeze_hand_feet, batch_share=batch_share, times=times)
+    if (
+        cfg.use_silhouette
+        and data.mask is not None
+        and sil.coarse_frac > 0.0
+        and coarse_steps > 0
+        # Quality floor: below coarse_min_image coarse supervision hurts.
+        and sil.image_size // sil.coarse_factor >= sil.coarse_min_image
+    ):
+        return CoarseToFine(model, j_reg_raw, init, data, cfg, coarse_steps, **shared)
+    return Refinement(model, j_reg_raw, init, data, cfg, **shared)
 
 
 @precision.float32_products()
@@ -383,23 +582,13 @@ def refine_batch(
     one the global batch's mean gives, and the returned loss curves are
     this process's parts of the global means (their sum over the
     processes). At 1.0 nothing is scaled.
+
+    Each call builds its own `refiner`, whose graphs live for the call; the
+    outer-step program (`trainer.compile_outer_step`) keeps one across
+    batches.
     """
-    sil = cfg.silhouette
-    coarse_steps = int(sil.coarse_frac * cfg.stage_b_steps)
-    if (
-        cfg.use_silhouette
-        and data.mask is not None
-        and sil.coarse_frac > 0.0
-        and coarse_steps > 0
-        # Quality floor: below coarse_min_image coarse supervision hurts.
-        and sil.image_size // sil.coarse_factor >= sil.coarse_min_image
-    ):
-        return _refine_coarse_to_fine(
-            model, j_reg_raw, init, data, cfg, coarse_steps, pose_disc, shape_disc,
-            jreg_mask, freeze_hand_feet, batch_share,
-        )
-    return Refinement(model, j_reg_raw, init, data, cfg, pose_disc, shape_disc, jreg_mask,
-                      freeze_hand_feet, batch_share).run()
+    return refiner(model, j_reg_raw, init, data, cfg, pose_disc, shape_disc, jreg_mask,
+                   freeze_hand_feet, batch_share).run()
 
 
 def coarse_to_fine_configs(cfg: RefinerConfig, coarse_steps: int):
@@ -432,37 +621,6 @@ def coarse_to_fine_configs(cfg: RefinerConfig, coarse_steps: int):
         silhouette=dataclasses.replace(sil, coarse_frac=0.0),
     )
     return cfg_coarse, cfg_fine
-
-
-def _refine_coarse_to_fine(
-    model, j_reg_raw, init, data, cfg, coarse_steps, pose_disc, shape_disc,
-    jreg_mask, freeze_hand_feet, batch_share,
-) -> RefineResult:
-    """Stage B's first `coarse_steps` at image_size/coarse_factor (tile and
-    bin margin divided alike, mask mean-pooled, focal auto-scaled), the rest
-    at full resolution; Adam is fresh per phase. Each phase is its own
-    single-resolution call with its own graphs (their shapes differ)."""
-    factor = cfg.silhouette.coarse_factor
-    cfg_coarse, cfg_fine = coarse_to_fine_configs(cfg, coarse_steps)
-    res1 = refine_batch(
-        model, j_reg_raw, init, data._replace(mask=_pool_mask(data.mask, factor)),
-        cfg_coarse, pose_disc, shape_disc, jreg_mask, freeze_hand_feet, batch_share,
-    )
-    res2 = refine_batch(
-        model, j_reg_raw, res1.params, data, cfg_fine, pose_disc, shape_disc,
-        jreg_mask, freeze_hand_feet, batch_share,
-    )
-    terms = LossTerms(*(
-        torch.cat([a, b]) for a, b in zip(res1.stage_b_terms, res2.stage_b_terms)
-    ))
-    if res1.bin_stats is None or res2.bin_stats is None:
-        stats = res1.bin_stats if res2.bin_stats is None else res2.bin_stats
-    else:
-        stats = sf.BinStats(*(torch.maximum(a, b) for a, b in zip(res1.bin_stats, res2.bin_stats)))
-    chunks = [r.chunk_stats for r in (res1, res2) if r.chunk_stats is not None]
-    chunks = sf.BinStats(*(torch.cat(col) for col in zip(*chunks))) if chunks else None
-    return res2._replace(stage_a_loss=res1.stage_a_loss, stage_b_terms=terms, bin_stats=stats,
-                         chunk_stats=chunks)
 
 
 def spin_prediction_to_params(

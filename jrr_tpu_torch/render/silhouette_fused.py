@@ -460,7 +460,9 @@ def _pack_bins_frames(pages, idx, origin, core_count, *, dump: int, k_half: int)
     # the dump slot stays the dump slot.
     eq = pages[..., None].long() == pair_list[:, :, None, :]  # (b, G², P̂, P̂−1)
     remap = torch.where(eq.any(dim=3), torch.argmax(eq.to(torch.uint8), dim=3), usable)
-    remap[:, :, p_hat - 1] = usable
+    # fill_, not item assignment, which copies the host's value: a CUDA
+    # graph capture refuses that copy.
+    remap[:, :, p_hat - 1].fill_(usable)
     idx_re = torch.gather(remap, 2, (idx >> 7).long().reshape(b, g2, -1)).reshape(idx.shape)
     idx_re = idx_re * _LANES + (idx & 127)
 

@@ -51,7 +51,7 @@ def _flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
     if isinstance(tree, nn.Module):
         return {key(k): v.detach().cpu().numpy() for k, v in tree.state_dict().items()}
     if isinstance(tree, engine._Adam):
-        out = {key("count"): np.asarray(tree.count)}
+        out = {key("count"): np.asarray(int(tree.count))}
         out.update(_flatten(tree.m, key("m")))
         out.update(_flatten(tree.v, key("v")))
         return out
@@ -82,7 +82,7 @@ def _restore(tree: Any, data: Dict[str, np.ndarray], prefix: str = "") -> Any:
         return module
     if isinstance(tree, engine._Adam):
         opt = copy.copy(tree)
-        opt.count = int(data[key("count")])
+        opt.set_count(int(data[key("count")]))
         opt.m = _restore(tree.m, data, key("m"))
         opt.v = _restore(tree.v, data, key("v"))
         return opt

@@ -7,15 +7,20 @@
 - `StepTimer`: wall-clock rates; each tick synchronizes the card first, so
   the clock reads after the step's device work;
 - `capture(fn, *args)`: `fn` run once and captured into a CUDA graph, the
-  port's ahead-of-call step (the refinement engine replays its steps so);
+  port's ahead-of-call step (the refinement engine and the outer-step
+  program replay their closures so);
 - `log_compile_time(fn, *args)`: that step's costs split as jrr_tpu splits
   a jitted callable's: `lower_s` the eager warm-up call, `compile_s` the
-  capture and instantiation, `first_run_s` the first replay.
+  capture and instantiation, `first_run_s` the first replay. The program
+  (`trainer.compile_outer_step`) records the same split for each of its
+  graphs once, at its capture and first replay (`capture(times=...)`,
+  `timed_replay`).
 """
 
 from __future__ import annotations
 
 import contextlib
+import gc
 import os
 import time
 from typing import Dict, Optional
@@ -123,10 +128,12 @@ def _graph_pool(dev: torch.device):
     return None if owner is None else owner.pool()
 
 
-def capture(fn, *args, times: Optional[Dict[str, float]] = None) -> CapturedCall:
+def capture(fn, *args, times: Optional[Dict[str, float]] = None,
+            device: Optional[torch.device] = None) -> CapturedCall:
     """Call `fn(*args)` once eagerly on the device's side stream
     (`_side_stream`), then capture the same call into a CUDA graph on that
-    stream; the device is that of the first CUDA tensor among `args`.
+    stream; the device is `device`, else that of the first CUDA tensor
+    among `args`, else the current one.
 
     The eager call is a real call (its effects stay): it initializes what
     capture cannot (cuBLAS workspaces, autograd's state, the kernel
@@ -136,12 +143,14 @@ def capture(fn, *args, times: Optional[Dict[str, float]] = None) -> CapturedCall
     `_graph_pool`), and the graphs must replay on one stream.
     The capture is `torch.cuda.graph`'s without its synchronize, garbage
     collection and cache release, which the engine's captures in the
-    middle of a call do not need; it runs in thread-local mode, so the
+    middle of a call do not need (the collector is off during the capture
+    instead); it runs in thread-local mode, so the
     product loop's prefetch and writer threads may copy meanwhile. A failed
     capture raises. With `times`, the device is synchronized after each
     phase and `lower_s`, `compile_s` are recorded."""
     tensors = [a for a in args if torch.is_tensor(a)]
-    dev = tensors[0].device if tensors else torch.device("cuda", torch.cuda.current_device())
+    dev = device if device is not None else (
+        tensors[0].device if tensors else torch.device("cuda", torch.cuda.current_device()))
     current = torch.cuda.current_stream(dev)
     side = _side_stream(dev)
     t0 = time.perf_counter()
@@ -155,18 +164,37 @@ def capture(fn, *args, times: Optional[Dict[str, float]] = None) -> CapturedCall
     t0 = time.perf_counter()
     graph = torch.cuda.CUDAGraph()
     side.wait_stream(current)
-    with kernels.captured_launches() as launches, torch.cuda.stream(side):
-        graph.capture_begin(pool=_graph_pool(dev), capture_error_mode="thread_local")
-        try:
-            fn(*args)
-        finally:
-            graph.capture_end()
+    # The garbage collector stays off during the capture: a graph it
+    # destroyed there (one held in an unreachable cycle) would invalidate
+    # the capture.
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with kernels.captured_launches() as launches, torch.cuda.stream(side):
+            graph.capture_begin(pool=_graph_pool(dev), capture_error_mode="thread_local")
+            try:
+                fn(*args)
+            finally:
+                graph.capture_end()
+    finally:
+        if collecting:
+            gc.enable()
     _pool_owners.setdefault(dev, graph)
     current.wait_stream(side)
     if times is not None:
         torch.cuda.synchronize(dev)
         times["compile_s"] = time.perf_counter() - t0
     return CapturedCall(graph, launches)
+
+
+def timed_replay(call: CapturedCall, device: torch.device, times: Dict[str, float]) -> None:
+    """Replay `call` between two synchronizations of `device`, and record
+    its seconds as `times["first_run_s"]`."""
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    call.replay()
+    torch.cuda.synchronize(device)
+    times["first_run_s"] = time.perf_counter() - t0
 
 
 def log_compile_time(fn, *args) -> Dict[str, float]:
@@ -180,9 +208,5 @@ def log_compile_time(fn, *args) -> Dict[str, float]:
     if not devices or any(d.type != "cuda" for d in devices):
         raise ValueError(f"log_compile_time needs CUDA tensors, got devices {sorted(map(str, devices))}")
     times: Dict[str, float] = {}
-    call = capture(fn, *args, times=times)
-    t0 = time.perf_counter()
-    call.replay()
-    torch.cuda.synchronize(next(iter(devices)))
-    times["first_run_s"] = time.perf_counter() - t0
+    timed_replay(capture(fn, *args, times=times), next(iter(devices)), times)
     return times

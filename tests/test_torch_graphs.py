@@ -18,8 +18,9 @@
   joints3d, 1e-4 on the stage-B curve, as tests/test_torch_refine.py, plus
   1e-5 relative on the curve, whose warm steps scale the silhouette ×4);
 - (f) the same call with the step runner in capture mode and a stand-in
-  for the capture whose "graph" calls the closure again: each kind of step
-  is captured once after its first step and replayed for the rest, and the
+  for the capture whose "graph" calls the closure again: each kind of
+  closure (the prologue, each kind of step, the rebin, the final forward)
+  is captured once after its first call and replayed for the rest, and the
   result equals the eager run's bit for bit.
 """
 
@@ -239,18 +240,23 @@ def test_captured_schedule_replays_each_kind(warm_runs, monkeypatch):
             self.replays += 1
             self.fn(*self.args)
 
-    def fake_capture(fn, *fn_args):
+    def fake_capture(fn, *fn_args, **options):
         fn(*fn_args)  # the eager first step; the capture itself runs nothing
         captured.append(_Replay(fn, fn_args))
         return captured[-1]
 
-    monkeypatch.setattr(tengine._Steps, "__init__",
-                        lambda self, device: (setattr(self, "capture", True),
-                                              setattr(self, "graphs", {}))[-1])
+    init = tengine._Steps.__init__
+
+    def capturing(self, device, times=None, prefix=""):
+        init(self, device, times, prefix)
+        self.capture = True
+
+    monkeypatch.setattr(tengine._Steps, "__init__", capturing)
     monkeypatch.setattr(profiling, "capture", fake_capture)
     got = tengine.refine_batch(*args, freeze_hand_feet=True)
-    # Stage A, then stage B's warm active, warm inactive, active, inactive.
-    assert [r.replays for r in captured] == [19, 2, 6, 4, 4]
+    # The prologue, stage A, stage B's start, the rebin (four chunks), stage
+    # B's warm active, warm inactive, active, inactive, the final forward.
+    assert [r.replays for r in captured] == [0, 19, 0, 3, 2, 6, 4, 4, 0]
     for a, b in zip(got.params + (got.stage_a_loss,) + tuple(got.stage_b_terms),
                     eager.params + (eager.stage_a_loss,) + tuple(eager.stage_b_terms)):
         assert torch.equal(a, b)

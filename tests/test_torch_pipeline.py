@@ -243,6 +243,12 @@ def _no_outer_step(*args, **kwargs):
     raise AssertionError("a resumed shard ran outer_step")
 
 
+def _no_outer_program(*args, **kwargs):
+    """`trainer.compile_outer_step` for a run whose every shard is resumed:
+    its program must never be called."""
+    return _no_outer_step
+
+
 @pytest.mark.parametrize("via", ["replay", "acc_checkpoint"])
 def test_resume_skips_completed_shards(tmp_path, monkeypatch, port_root, via):
     """The second run refines nothing and gives the same regressors and evals,
@@ -257,7 +263,7 @@ def test_resume_skips_completed_shards(tmp_path, monkeypatch, port_root, via):
     if via == "acc_checkpoint":
         with np.load(os.path.join(out, "jreg_acc_ckpt.npz")) as f:
             assert int(f["upto"]) == 1 and float(f["count"]) == 8
-    monkeypatch.setattr(trainer, "outer_step", _no_outer_step)
+    monkeypatch.setattr(trainer, "compile_outer_step", _no_outer_program)
     second = _port_run(_port_cfg(), port_root, out)
     np.testing.assert_array_equal(second.j_reg_lstsq, first.j_reg_lstsq)
     np.testing.assert_array_equal(second.j_reg_final, first.j_reg_final)
@@ -310,7 +316,7 @@ def test_resume_with_spin_repeats_bit_for_bit(runs, monkeypatch, consumer_files,
     step, no SPIN on a resumed shard) and repeats the regressors and every
     eval, the consumer evals included."""
     _, first, _ = runs("spin_vibe")
-    monkeypatch.setattr(trainer, "outer_step", _no_outer_step)
+    monkeypatch.setattr(trainer, "compile_outer_step", _no_outer_program)
     cfg = convert.pipeline_config(_jax_cfg(False, 15))
     second = pipeline.run_pipeline(cfg, data_root=data_root, out_dir=first.out_dir, demo=True,
                                    device="cpu", consumer_seqlen=2, **consumer_files)

@@ -6,7 +6,8 @@ their final paths: jrr_tpu/pipeline.py:272,395).
 A run of four shards (the demo fixtures at batch 2, snapshots every second
 shard) is interrupted in one of four ways and then resumed with the same
 arguments:
-- `outer_step`: the third outer step raises (no accumulator checkpoint yet);
+- `outer_step`: the third outer step raises (no accumulator checkpoint yet;
+  the run's program, `trainer.compile_outer_step`, is wrapped);
 - `acc_checkpoint`: the same with an accumulator checkpoint after every
   shard, so the resume restores it and skips the shards it holds;
 - `snapshot_write`: the writer dies inside the regressor snapshot of shard
@@ -142,15 +143,20 @@ def test_a_crashed_run_resumes_bit_for_bit(setup, uninterrupted, tmp_path, monke
         monkeypatch.setattr(pipeline, "ACC_CKPT_EVERY", 1)
     with monkeypatch.context() as crash:
         if case in ("outer_step", "acc_checkpoint"):
-            step, calls = trainer.outer_step, []
+            compile_step, calls = trainer.compile_outer_step, []
 
-            def crashing_step(*args, **kwargs):
-                calls.append(1)
-                if len(calls) == 3:
-                    raise RuntimeError("crash in the third outer step")
-                return step(*args, **kwargs)
+            def compile_crashing(*args, **kwargs):
+                step = compile_step(*args, **kwargs)
 
-            crash.setattr(trainer, "outer_step", crashing_step)
+                def crashing_step(*args, **kwargs):
+                    calls.append(1)
+                    if len(calls) == 3:
+                        raise RuntimeError("crash in the third outer step")
+                    return step(*args, **kwargs)
+
+                return crashing_step
+
+            crash.setattr(trainer, "compile_outer_step", compile_crashing)
             match = "third outer step"
         else:
             _crash_in_write(crash, "snap_00001.npz" if case == "snapshot_write"
@@ -182,7 +188,7 @@ def test_a_crashed_run_resumes_bit_for_bit(setup, uninterrupted, tmp_path, monke
             raise RuntimeError("crash in the first outer step")
 
         with monkeypatch.context() as crash:
-            crash.setattr(trainer, "outer_step", dead_step)
+            crash.setattr(trainer, "compile_outer_step", lambda *args, **kwargs: dead_step)
             with pytest.raises(RuntimeError, match="first outer step"):
                 _run(setup, out)
         assert os.listdir(snaps) == []
@@ -201,7 +207,7 @@ def test_a_state_saved_at_the_end_of_a_run_resumes_as_jrr_tpu_does(setup, tmp_pa
     def no_outer_step(*args, **kwargs):
         raise AssertionError("a shard the state includes ran outer_step")
 
-    monkeypatch.setattr(trainer, "outer_step", no_outer_step)
+    monkeypatch.setattr(trainer, "compile_outer_step", lambda *args, **kwargs: no_outer_step)
     state, acc, _ = _run(setup, out)
     assert state.step == SHARDS
     for g, w in zip(acc, acc_first):

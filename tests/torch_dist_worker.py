@@ -158,24 +158,30 @@ def main(in_dir: str, out_dir: str) -> None:
               **{f"acc.{k}": v.numpy() for k, v in acc._asdict().items()})
         for case in RESUME_CASES:
             name = f"resume_{case}"
-            every, outer_step, calls = pipeline.ACC_CKPT_EVERY, trainer.outer_step, []
+            every, compile_step, calls = (pipeline.ACC_CKPT_EVERY, trainer.compile_outer_step,
+                                          [])
             if case == "acc_checkpoint":
                 pipeline.ACC_CKPT_EVERY = 1
 
-            def crashing_step(*args, **kwargs):
-                calls.append(1)
-                if len(calls) == 3:
-                    raise RuntimeError("crash in the third outer step")
-                return outer_step(*args, **kwargs)
+            def compile_crashing(*args, **kwargs):
+                step = compile_step(*args, **kwargs)
 
-            trainer.outer_step = crashing_step
+                def crashing_step(*args, **kwargs):
+                    calls.append(1)
+                    if len(calls) == 3:
+                        raise RuntimeError("crash in the third outer step")
+                    return step(*args, **kwargs)
+
+                return crashing_step
+
+            trainer.compile_outer_step = compile_crashing
             try:
                 run(name)
                 raise AssertionError("the crash did not stop the run")
             except RuntimeError as e:
                 assert "third outer step" in str(e), e
             finally:
-                trainer.outer_step = outer_step
+                trainer.compile_outer_step = compile_step
             mesh_lib.barrier(mesh)  # both ranks crashed before either resumes
             s, acc, _ = run(name)
             pipeline.ACC_CKPT_EVERY = every
