@@ -27,7 +27,14 @@
 3. drives the main path once: `refine_batch` at batch 256, 1000 + 100
    steps, shipped defaults, live discriminators (one warm-up, then three
    timed runs, the median reported), with every kernel's launch count set to
-   0 just before each timed run and read just after; the calls run as
+   0 just before each timed run and read just after; then the refine
+   program (`refine_program`: `engine.compile_refine`, the counterpart of
+   jrr_tpu's `jax.jit(refine_batch)`, timed as bench.py:67-92 times it:
+   built once, a warm-up call bit for bit the main path's result, three
+   calls on init + 1e-7·(k+1), the median, the first bit for bit one
+   standalone `refine_batch`, 38 + 2 launches each; a warm call profiled:
+   graph replays, host launches, device-busy seconds, idle share; peak
+   allocated beside a standalone call's); the calls run as
    captured CUDA graphs (the default on the card), and `graphs` holds
    them against the same calls under `engine.disable_graphs()`: on the
    fused, lane-packed and round-1 routes the two agree bit for bit (params,
@@ -1127,39 +1134,112 @@ def run_main_path(problem, pose_disc, shape_disc):
         stage_a_loss_first_last=[float(res.stage_a_loss[0]), float(res.stage_a_loss[-1])],
         stage_b_total_first_last=[first, last], params_finite=finite,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, card=_card(),
-    ), launches
+    ), launches, res
 
 
-def _profile_warm_refiner(filename, problem, cfg, pose_disc, shape_disc):
-    """The refinement as the outer-step program runs it from its second
-    batch on: a refiner (`engine.refiner`) run once, which captures its
-    graphs, then timed over one run of replays and profiled over another
-    (chiprun_out/`filename`): the profile sees replays only."""
+def _profile_warm_program(filename, problem, cfg, pose_disc, shape_disc):
+    """The refinement as a caller that reuses it runs it from its second
+    call on: a refine program (`engine.compile_refine`) called once, which
+    captures its graphs, then timed over one call of replays and profiled
+    over another (chiprun_out/`filename`): the profile sees replays only."""
     import torch
 
     from jrr_tpu_torch.refine import engine
-    from jrr_tpu_torch.utils import precision
 
     model, j_reg, _, init, data = problem
-    r = engine.refiner(model, j_reg, init, data, cfg, pose_disc, shape_disc)
+    program = engine.compile_refine(cfg)
 
-    def run():
-        with precision.float32_products():
-            r.run()
+    def call():
+        program(model, j_reg, init, data, pose_disc, shape_disc)
 
-    run()
+    call()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    run()
+    call()
     torch.cuda.synchronize()
-    return _profile(filename, time.perf_counter() - t0, run)
+    return _profile(filename, time.perf_counter() - t0, call)
 
 
-def profile_main_path(problem, pose_disc, shape_disc):
-    """A warm refiner of the main path under torch.profiler
-    (chiprun_out/profile.txt)."""
-    cfg = dataclasses.replace(problem[2], stage_a_steps=1000, stage_b_steps=100)
-    return _profile_warm_refiner("profile.txt", problem, cfg, pose_disc, shape_disc)
+def _differing(got, want):
+    """The names of `_bits` entries in which two RefineResults differ."""
+    import torch
+
+    got, want = _bits(got), _bits(want)
+    return sorted(k for k in want.keys() | got.keys()
+                  if k not in got or k not in want or not torch.equal(got[k], want[k]))
+
+
+def run_refine_program(problem, pose_disc, shape_disc, main_res):
+    """The refine program (`engine.compile_refine`, the counterpart of
+    jrr_tpu's `jax.jit(refine_batch)`) as bench.py:67-92 times it, at the
+    main path's problem (batch 256, full width, 1000 + 100 steps, shipped
+    defaults): built once, a warm-up call (which captures), then MAIN_RUNS
+    calls on init + 1e-7·(k+1), the median reported; each call with the
+    launch counts set to 0 just before it and read just after (38 + 2).
+    The warm-up must equal the main path's `refine_batch` on the same init
+    bit for bit, and the k = 0 call one standalone `refine_batch` on its
+    input, made after a warm call under the profiler (chiprun_out/
+    profile.txt: graph replays, host launches, device-busy seconds, idle
+    share against the median) and after the program is dropped. Peak
+    allocated of the program's calls and of the standalone call."""
+    import torch
+
+    from jrr_tpu_torch import kernels
+    from jrr_tpu_torch.refine import engine
+
+    model, j_reg, cfg, init, data = problem
+    cfg = dataclasses.replace(cfg, stage_a_steps=1000, stage_b_steps=100)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    program = engine.compile_refine(cfg)
+
+    def call(init_k):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        res = program(model, j_reg, init_k, data, pose_disc, shape_disc)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = _read_launches()
+        _check(launches == _launches(fused_lossgrad=38, fused_alpha_fwd=2),
+               f"refine program launches {launches}, expected 38 fused_lossgrad + "
+               "2 fused_alpha_fwd")
+        return res, seconds
+
+    warm, warm_s = call(init)
+    differ = _differing(warm, main_res)
+    _check(not differ, f"the program's first call differs from refine_batch in {differ}")
+    inits = [type(init)(*(x + 1e-7 * (k + 1) for x in init)) for k in range(MAIN_RUNS)]
+    runs = [call(init_k) for init_k in inits]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    _check(len(program.entries) == 1, f"{len(program.entries)} program entries for one shape")
+    seconds = [s for _, s in runs]
+    median = sorted(seconds)[len(seconds) // 2]
+    prof = _profile("profile.txt", median,
+                    lambda: program(model, j_reg, inits[1], data, pose_disc, shape_disc))
+    del program  # the standalone call's peak without the program's buffers
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    alone = engine.refine_batch(model, j_reg, inits[0], data, cfg, pose_disc, shape_disc)
+    torch.cuda.synchronize()
+    alone_s = time.perf_counter() - t0
+    alone_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    differ = _differing(runs[0][0], alone)
+    _check(not differ, f"the program's call k = 0 differs from refine_batch in {differ}")
+    res = runs[-1][0]
+    _check(all(bool(torch.isfinite(p).all()) for p in res.params)
+           and res.vertices.shape == (BATCH, 6890, 3), "refine program: non-finite or misshapen")
+    return dict(
+        batch=BATCH, stage_a_steps=1000, stage_b_steps=100, warm_up_seconds=warm_s,
+        seconds_runs=seconds, seconds=median, frames_per_s=BATCH / median,
+        standalone_seconds=alone_s, launches_per_call={"fused_lossgrad": 38, "fused_alpha_fwd": 2},
+        warm_up_equals_main_path=True, call_equals_refine_batch=True,
+        graph_replays_per_warm_call=prof["graph_replays"],
+        host_launches_per_warm_call=prof["host_launches"],
+        device_busy_s=prof["device_busy_s"], device_idle_share=prof["device_idle_share"],
+        profile_seconds=prof["profiled_wall_s"] + prof["profiler_overhead_s"],
+        peak_mem_gb=peak_gb, standalone_peak_mem_gb=alone_peak_gb, card=_card(),
+    ), prof
 
 
 # The CUDA runtime and driver calls that enqueue work on the card.
@@ -1261,9 +1341,9 @@ def run_graphs(problem, pose_disc, shape_disc, main_path, main_profile):
     the same launch counts, the routes' own. For the fused route, eager:
     the median of MAIN_RUNS calls, stage A alone, a profile (device-busy
     seconds, idle share, host-side launches), peak memory; captured: the
-    main path's warm refiner (its profile must see as many device
-    operations as the eager one's, within the rebins' share: else the
-    profiler drops graph nodes and its idle share means nothing); and
+    refine program's warm call (`refine_program`; its profile must see as
+    many device operations as the eager one's, within the rebins' share:
+    else the profiler drops graph nodes and its idle share means nothing); and
     log_compile_time of the
     stage-A and the fine phase's first stage-B (silhouette active) step."""
     import torch
@@ -1292,10 +1372,8 @@ def run_graphs(problem, pose_disc, shape_disc, main_path, main_profile):
         with engine.disable_graphs():
             eager_runs = [timed(run_cfg) for _ in range(MAIN_RUNS if route == "fused" else 1)]
         eager, _, eager_launches, eager_mem = eager_runs[-1]
-        got, ref = _bits(captured), _bits(eager)
-        differ = sorted(k for k in ref if k not in got or not torch.equal(got[k], ref[k]))
-        _check(got.keys() == ref.keys() and not differ,
-               f"{route}: captured and eager refinements differ in {differ}")
+        differ = _differing(captured, eager)
+        _check(not differ, f"{route}: captured and eager refinements differ in {differ}")
         _check(captured_launches == eager_launches == _launches(**want),
                f"{route}: launches captured {captured_launches}, eager {eager_launches}, "
                f"expected {want}")
@@ -1549,7 +1627,7 @@ def run_round1_path(problem, pose_disc, shape_disc):
     _check(last < first, f"round-1 stage-B total did not decrease: {first} -> {last}")
     _check(all(bool(torch.isfinite(p).all()) for p in res.params), "round-1: non-finite params")
     _check(res.bin_stats is None, "round-1 bins carry no capacity counters")
-    prof = _profile_warm_refiner("profile_round1.txt", problem, cfg, pose_disc, shape_disc)
+    prof = _profile_warm_program("profile_round1.txt", problem, cfg, pose_disc, shape_disc)
 
     short = short_problem(1)
     k1 = short_refine(short, pose_disc, shape_disc, backend="pallas")
@@ -3731,11 +3809,14 @@ def main() -> int:
     done("packed_kernel_checks")
     tile_checks = check_tile_kernels(problem)
     done("tile_kernel_checks")
-    main_path, launches = run_main_path(problem, pose_disc, shape_disc)
+    main_path, launches, main_res = run_main_path(problem, pose_disc, shape_disc)
     _emit({"main_path": main_path})
-    main_profile = profile_main_path(problem, pose_disc, shape_disc)
-    _emit({"profile": main_profile})
     done("main_path")
+    refine_program, main_profile = run_refine_program(problem, pose_disc, shape_disc, main_res)
+    del main_res
+    _emit({"refine_program": refine_program})
+    _emit({"profile": main_profile})
+    done("refine_program")
     _emit({"graphs": run_graphs(problem, pose_disc, shape_disc, main_path, main_profile)})
     done("graphs")
     refine = compare_kernel_and_plain_refine(pose_disc, shape_disc)

@@ -15,18 +15,20 @@ floor. Quality is scored on the fixed blur-0 spec at the full image.
 
 `--sweep` runs (frac, factor) = (0.5, 2), (0.7, 2), (0.5, 4), then a
 three-level chain: 35% of stage B at image/4, 35% at image/2, the rest at
-the full image, each phase one single-resolution `refine_batch` call from
-the previous call's params on the mask pooled by the factor, its tile size
-and margin divided by it.
+the full image, each phase one single-resolution refinement from the
+previous call's params on the mask pooled by the factor, its tile size and
+margin divided by it.
 
-One JSON line per run with the tool's keys: the scores, the rasterizer's
-capacity counters (`truncated_tiles`, `span_clipped`, `dropped_slots`,
-`max_faces_per_tile`, the worst rebin), `seconds` of the first call and
-`exec_seconds` of a second, identical one (the chain: the sum of its three
-first calls), each read after the device has finished. The port compiles
-nothing at run time except, on the card, the kernel library on its first
-load (cached under `jrr_tpu_torch/_build/` by the sources' hash): that
-build or load falls in the first call's `seconds`. Runs on the card unless
+Each configuration is one refine program (`engine.compile_refine`, the
+counterpart of the tool's `jax.jit`). One JSON line per run with the tool's
+keys: the scores, the rasterizer's capacity counters (`truncated_tiles`,
+`span_clipped`, `dropped_slots`, `max_faces_per_tile`, the worst rebin),
+`seconds` of the program's first call, which captures its CUDA graphs, and
+`exec_seconds` of a second, identical call, which replays them (the chain:
+the sum of its three programs' first calls), each read after the device
+has finished. On the card the kernel library's build or load on first use
+(cached under `jrr_tpu_torch/_build/` by the sources' hash) also falls in
+the first call's `seconds`. Runs on the card unless
 `--device cpu` is given (a missing card raises).
 """
 
@@ -84,17 +86,20 @@ def record(problem: quality.QualityProblem, name: str, res, seconds: float, extr
 
 
 def measure(problem: quality.QualityProblem, name: str, cfg: RefinerConfig) -> Tuple[Dict, object]:
-    """(line, RefineResult) of `cfg`: two identical `refine_batch` calls,
-    the first's seconds and the second's `exec_seconds`, the second's
+    """(line, RefineResult) of `cfg`: one program (`engine.compile_refine`)
+    called twice on the same inputs, the first call's seconds (its capture
+    included) and the second's `exec_seconds` (a replay), the second's
     result scored."""
-    _, first = quality.refine(problem, cfg)
-    res, again = quality.refine(problem, cfg)
+    program = engine.compile_refine(cfg)
+    _, first = quality.refine(problem, cfg, program=program)
+    res, again = quality.refine(problem, cfg, program=program)
     return record(problem, name, res, first, {**stats_dict(res), "exec_seconds": again}), res
 
 
 def three_level(problem: quality.QualityProblem, image: int) -> Tuple[Dict, object]:
     """(line, RefineResult) of the three-level chain (`CHAIN`) over
-    problem.cfg's stage counts; `seconds` sums the three calls."""
+    problem.cfg's stage counts, each phase one program called once;
+    `seconds` sums the three calls."""
     base, sil = problem.cfg, problem.cfg.silhouette
     steps = [int(share * base.stage_b_steps) for share, _ in CHAIN]
     steps.append(base.stage_b_steps - sum(steps))

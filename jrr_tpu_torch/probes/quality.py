@@ -133,14 +133,17 @@ def rounded(line: Dict, digits: Dict[str, int]) -> Dict:
     return {k: round(v, digits[k]) if k in digits else v for k, v in line.items()}
 
 
-def refine(problem: QualityProblem, cfg: RefinerConfig, init=None):
-    """(RefineResult, seconds) of one `engine.refine_batch` call from
-    `init` (the problem's start by default) under `cfg`; the seconds end
-    after the device has finished."""
+def refine(problem: QualityProblem, cfg: RefinerConfig, init=None, program=None):
+    """(RefineResult, seconds) of one call of `program` from `init` (the
+    problem's start by default); `program` is `engine.compile_refine(cfg)`,
+    a new one unless given, as jrr_tpu's tools jit each configuration. The
+    seconds end after the device has finished: a program's first call
+    includes its capture."""
+    if program is None:
+        program = engine.compile_refine(cfg)
     t0 = time.perf_counter()
-    res = engine.refine_batch(problem.model, problem.j_reg,
-                              problem.init if init is None else init, problem.data, cfg,
-                              problem.pose_disc, problem.shape_disc)
+    res = program(problem.model, problem.j_reg, problem.init if init is None else init,
+                  problem.data, problem.pose_disc, problem.shape_disc)
     if res.params.cam_t.is_cuda:
         torch.cuda.synchronize()
     return res, time.perf_counter() - t0

@@ -18,8 +18,10 @@ Prints an init line, one JSON line per (regime, config) and one summary line
 per regime with a no_sil row, with the tool's keys and rounding.
 `--thin-appendage-radius` > 0 builds the thin-structure body (finger-scale
 tubes on hands and feet) and adds `vert_mm_thin`, the error over those
-vertices. Each `seconds` is one `refine_batch` call's wall time, read after
-the device has finished. Runs on the card unless `--device cpu` is given
+vertices. Each configuration is one refine program (`engine.compile_refine`,
+the counterpart of the tool's `jax.jit`); each `seconds` is its first
+call's wall time, its capture included as the tool's include the compile,
+read after the device has finished. Runs on the card unless `--device cpu` is given
 (a missing card raises).
 """
 
@@ -121,9 +123,10 @@ def init_row(problem: quality.QualityProblem) -> Dict:
 def sweep(problem: quality.QualityProblem, configs: Optional[Iterable[str]] = None,
           regimes: Optional[Iterable[str]] = None, results: Optional[Dict] = None,
           log=None) -> List[Dict]:
-    """One row per (regime, config), regimes outer, each from one
-    `refine_batch` call under `config(problem.cfg, ...)` and scored on its
-    final vertices (unrounded). `results`, when given, receives each
+    """One row per (regime, config), regimes outer, each from the first
+    call of its own refine program (`quality.refine`) under
+    `config(problem.cfg, ...)`, dropped after it, and scored on its final
+    vertices (unrounded). `results`, when given, receives each
     call's RefineResult under (regime, config); `log` each row."""
     rows = []
     for regime, j3d_w in _select(REGIMES, regimes):

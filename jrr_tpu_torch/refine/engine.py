@@ -35,11 +35,18 @@ lane-packed, round-1 and "xla" bins, and the per-step binning of
 CPU, and on the card under `disable_graphs()` (the counterpart of
 `jax.disable_jit()`), the same closures run eagerly, bit for bit the
 captured run.
+
+`refine_batch` is jrr_tpu's un-jitted call: each call builds its own
+`refiner`, whose graphs live for the call. `compile_refine` is the
+counterpart of `jax.jit(refine_batch)`: a program that keeps one refiner
+per input shape and replays its graphs from call to call, bit for bit
+`refine_batch`'s result.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import threading
 from typing import List, NamedTuple, Optional
@@ -146,11 +153,12 @@ _graphs_off = _GraphsOff()
 
 @contextlib.contextmanager
 def disable_graphs():
-    """Run `refine_batch`'s steps and the outer-step program eagerly on the
-    card too: the counterpart of `jax.disable_jit()`, for holding a
-    captured run against an eager one. Nests; applies to the calling
-    thread and to what is built inside it; inert on the CPU, which always
-    runs eagerly."""
+    """Run `refine_batch`'s steps, the refine program and the outer-step
+    program eagerly on the card too: the counterpart of
+    `jax.disable_jit()`, for holding a captured run against an eager one.
+    Nests; applies to the calling thread and to what is built inside it (a
+    program's entries run as they were built); inert on the CPU, which
+    always runs eagerly."""
     _graphs_off.depth += 1
     try:
         yield
@@ -584,11 +592,116 @@ def refine_batch(
     processes). At 1.0 nothing is scaled.
 
     Each call builds its own `refiner`, whose graphs live for the call; the
-    outer-step program (`trainer.compile_outer_step`) keeps one across
-    batches.
+    refine program (`compile_refine`) and the outer-step program
+    (`trainer.compile_outer_step`) keep one from call to call.
     """
     return refiner(model, j_reg_raw, init, data, cfg, pose_disc, shape_disc, jreg_mask,
                    freeze_hand_feet, batch_share).run()
+
+
+# ---------------------------------------------------------------------------
+# The refine program (the counterpart of jax.jit(refine_batch))
+# ---------------------------------------------------------------------------
+
+
+def _fresh(tree):
+    """A copy of a tree of NamedTuples and tuples whose tensors are clones
+    (None stays)."""
+    if tree is None:
+        return None
+    if torch.is_tensor(tree):
+        return tree.detach().clone()
+    items = [_fresh(x) for x in tree]
+    return type(tree)(*items) if hasattr(tree, "_fields") else type(tree)(items)
+
+
+def _shape_key(*trees):
+    """What a jit would retrace on: each tensor's shape, dtype and device
+    (None for an absent one), and the TF32 flags the products are captured
+    under."""
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    leaves = []
+    for tree in trees:
+        for x in tree:
+            leaves.append(None if x is None else (tuple(x.shape), x.dtype, x.device))
+    return tuple(leaves) + flags
+
+
+class _RefineSpec(NamedTuple):
+    """What a refine program is compiled for: `refine_batch`'s static
+    arguments."""
+
+    cfg: RefinerConfig
+    jreg_mask: Optional[torch.Tensor]
+    freeze_hand_feet: bool
+    batch_share: float
+
+
+class _RefineEntry:
+    """The refine program for one key: its own copies of the regressor,
+    the batch and the discriminators, and one `refiner` built over them.
+    A call copies the caller's tensors in (`load`), runs the refiner (on
+    the card its first call captures, later calls replay) and returns the
+    refiner's buffers (`run`), or clones of them, which no later call
+    overwrites (`__call__`)."""
+
+    def __init__(self, spec: _RefineSpec, model, j_reg_raw, init, data, pose_disc, shape_disc,
+                 times=None):
+        # No reference to the program: an entry that referred back to it
+        # would hold its graphs in a reference cycle.
+        self.j_reg = j_reg_raw.detach().clone()
+        self.init, self.data = _fresh(init), _fresh(data)
+        self.pose_disc, self.shape_disc = copy.deepcopy(pose_disc), copy.deepcopy(shape_disc)
+        self.refiner = refiner(model, self.j_reg, self.init, self.data, spec.cfg, self.pose_disc,
+                               self.shape_disc, spec.jreg_mask, spec.freeze_hand_feet,
+                               spec.batch_share, times)
+
+    def run(self, j_reg_raw, init, data, pose_disc, shape_disc) -> RefineResult:
+        self.refiner.load(j_reg_raw, init, data, pose_disc, shape_disc)
+        with precision.float32_products():
+            return self.refiner.run()
+
+    def __call__(self, j_reg_raw, init, data, pose_disc, shape_disc) -> RefineResult:
+        return _fresh(self.run(j_reg_raw, init, data, pose_disc, shape_disc))
+
+
+class RefineProgram:
+    """`refine_batch` compiled for its static arguments: fn(model,
+    j_reg_raw, init, data, pose_disc=None, shape_disc=None) → RefineResult,
+    equal to `refine_batch(model, j_reg_raw, init, data, cfg, pose_disc,
+    shape_disc, jreg_mask, freeze_hand_feet, batch_share)` bit for bit and,
+    like a jitted function, functional: the caller's tensors are read,
+    never written, the discriminators' weights are read at each call, and
+    nothing returned is a buffer a later call overwrites. Each key (the
+    model, each input's shape, dtype and device, which discriminators are
+    given, the TF32 flags) gets its own `_RefineEntry`; on CUDA tensors it
+    captures its graphs at its first call and replays them at every later
+    one. On the CPU, or for an entry built under `disable_graphs()`, the
+    same closures run eagerly. Dropping the program frees its graphs."""
+
+    def __init__(self, cfg: RefinerConfig, jreg_mask: Optional[torch.Tensor] = None,
+                 freeze_hand_feet: bool = False, batch_share: float = 1.0):
+        self.spec = _RefineSpec(cfg, jreg_mask, freeze_hand_feet, batch_share)
+        self.entries = {}
+
+    def __call__(self, model, j_reg_raw: torch.Tensor, init: FrameParams, data: FrameBatch,
+                 pose_disc=None, shape_disc=None) -> RefineResult:
+        key = ((id(model), pose_disc is not None, shape_disc is not None)
+               + _shape_key((j_reg_raw,), init, data))
+        entry = self.entries.get(key)
+        if entry is None:
+            entry = self.entries[key] = _RefineEntry(self.spec, model, j_reg_raw, init, data,
+                                                     pose_disc, shape_disc)
+        return entry(j_reg_raw, init, data, pose_disc, shape_disc)
+
+
+def compile_refine(cfg: RefinerConfig, jreg_mask: Optional[torch.Tensor] = None,
+                   freeze_hand_feet: bool = False, batch_share: float = 1.0) -> RefineProgram:
+    """The counterpart of `jax.jit(lambda mdl, jr, i, d, pd, sd:
+    refine_batch(mdl, jr, i, d, cfg, pd, sd))` (bench.py:67-92,
+    tools/c2f_probe.py:117-147): a program that standalone callers build
+    once and call again and again."""
+    return RefineProgram(cfg, jreg_mask, freeze_hand_feet, batch_share)
 
 
 def coarse_to_fine_configs(cfg: RefinerConfig, coarse_steps: int):

@@ -49,9 +49,9 @@ from jrr_tpu_torch.models import discriminator as disc_lib
 from jrr_tpu_torch.ops import jreg as jreg_lib
 from jrr_tpu_torch.parallel import mesh as mesh_lib
 from jrr_tpu_torch.refine import engine, losses
+from jrr_tpu_torch.refine.engine import _fresh, _shape_key
 from jrr_tpu_torch.refine.losses import FrameBatch, FrameParams
 from jrr_tpu_torch.render import silhouette_fused as sf
-from jrr_tpu_torch.utils import precision
 
 
 class TrainState(NamedTuple):
@@ -307,17 +307,6 @@ def outer_step(
 # ---------------------------------------------------------------------------
 
 
-def _fresh(tree):
-    """A copy of a tree of NamedTuples and tuples whose tensors are clones
-    (None stays)."""
-    if tree is None:
-        return None
-    if torch.is_tensor(tree):
-        return tree.detach().clone()
-    items = [_fresh(x) for x in tree]
-    return type(tree)(*items) if hasattr(tree, "_fields") else type(tree)(items)
-
-
 def _static_opt(opt: engine._Adam) -> engine._Adam:
     """A copy of `opt` whose count lives on the device (a capture replays it)."""
     out = copy.deepcopy(opt)
@@ -326,22 +315,12 @@ def _static_opt(opt: engine._Adam) -> engine._Adam:
     return out
 
 
-def _shape_key(*trees):
-    """What a jit would retrace on: each tensor's shape, dtype and device, and
-    the TF32 flags the products are captured under."""
-    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    leaves = []
-    for tree in trees:
-        for x in tree:
-            leaves.append(None if x is None else (tuple(x.shape), x.dtype, x.device))
-    return tuple(leaves) + flags
-
-
-class _OuterEntry:
-    """The program for one batch shape: its own copies of the regressor,
-    both discriminators and the three Adam states (updated in place), the
-    batch, the refinement (`engine.refiner`, reused) and the outer
-    segments' graphs.
+class _OuterEntry(engine._RefineEntry):
+    """The program for one batch shape: a refine program's entry (its own
+    copies of the regressor, both discriminators and the batch, and the
+    refinement, `engine.refiner`, reused), the three Adam states, and the
+    outer segments' graphs; the regressor, discriminators and Adam states
+    are updated in place.
 
     A call copies the caller's state and batch in, runs the refinement's
     graphs, then the outer segment: both LSGAN gradients and Adam steps,
@@ -354,22 +333,16 @@ class _OuterEntry:
     out of the buffers."""
 
     def __init__(self, program: "_Spec", times, state: TrainState, model, spin_init, data):
+        super().__init__(
+            engine._RefineSpec(program.cfg.refiner, program.jreg_mask, False, program.share),
+            model, state.j_reg_raw, spin_init, data, state.pose_disc, state.shape_disc, times)
         # The program's settings, not the program: an entry that referred
         # back to it would hold its graphs in a reference cycle.
         self.program, self.model = program, model
-        dev = state.j_reg_raw.device
-        self.j_reg = state.j_reg_raw.detach().clone()
         self.jreg_opt = _static_opt(state.jreg_opt)
-        self.pose_disc = copy.deepcopy(state.pose_disc)
         self.pose_disc_opt = _static_opt(state.pose_disc_opt)
-        self.shape_disc = copy.deepcopy(state.shape_disc)
         self.shape_disc_opt = _static_opt(state.shape_disc_opt)
-        self.init = _fresh(spin_init)
-        self.data = _fresh(data)
-        self.refiner = engine.refiner(
-            model, self.j_reg, self.init, self.data, program.cfg.refiner, self.pose_disc,
-            self.shape_disc, jreg_mask=program.jreg_mask, batch_share=program.share, times=times)
-        self.steps = engine._Steps(dev, times)
+        self.steps = engine._Steps(state.j_reg_raw.device, times)
         self.out = engine._Static()
         self.fin = engine._Static()
 
@@ -404,13 +377,11 @@ class _OuterEntry:
 
     def __call__(self, state: TrainState, spin_init, data):
         p = self.program
-        # The refiner reads this entry's regressor, discriminators and batch.
-        self.refiner.load(state.j_reg_raw, spin_init, data, state.pose_disc, state.shape_disc)
         for mine, theirs in ((self.jreg_opt, state.jreg_opt), (self.pose_disc_opt,
                              state.pose_disc_opt), (self.shape_disc_opt, state.shape_disc_opt)):
             mine.load(theirs)
-        with precision.float32_products():
-            self.result = self.refiner.run()
+        self.result = self.run(state.j_reg_raw, spin_init, data, state.pose_disc,
+                               state.shape_disc)
         if not p.distributed:
             self.steps("outer", self.outer)
         else:
