@@ -377,14 +377,6 @@ def run_optimize(
             # resume never counts a shard twice.
             put(("acc_ckpt", shard_id, acc))
 
-    # JRR_PHASE_TIMING=1 splits each batch's wall time at device barriers
-    # (a diagnostic mode: the barriers change the overlap).
-    phase_timing = os.environ.get("JRR_PHASE_TIMING") == "1"
-
-    def barrier():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-
     def stage(batch):
         rows = None if mesh is None else mesh_lib.local_rows(mesh, len(batch["gt_j3d"]))
         local = _local_rows(batch, rows)
@@ -403,23 +395,10 @@ def run_optimize(
                     maybe_ckpt_acc(shard_id, acc)
                 continue
             t0 = time.time()
-            phases = {}
             if spin_fn is not None:
                 init = _spin_init(spin_fn, init)
-            if phase_timing:
-                barrier()
-                phases["prep"] = time.time() - t0
-            t1 = time.time()
             state, m, result = step_fn(state, model, init, data)
-            if phase_timing:
-                barrier()
-                phases["step"] = time.time() - t1
-            t1 = time.time()
             acc = accumulate(acc, result.vertices, data.gt_j3d, result.joints3d[:, :1])
-            if phase_timing:
-                barrier()
-                phases["acc"] = time.time() - t1
-            t1 = time.time()
             refined = {
                 "pose6d": result.params.pose6d,
                 "orient6d": result.params.orient6d,
@@ -431,24 +410,15 @@ def run_optimize(
                 refined = mesh_lib.gather_rows(mesh, refined)
             # Frame identity for the resume-time pairing check.
             put(("shard", shard_id, dict(refined, gt_j3d=np.asarray(batch["gt_j3d"]))))
-            if phase_timing:
-                phases["write_enqueue"] = time.time() - t1
-            t1 = time.time()
             snap_every = cfg.jreg.snapshot_interval
             if snap_every and shard_id % snap_every == snap_every - 1:
                 put(("jreg_snap", shard_id, state.j_reg_raw))
             put(("state", shard_id, state))
             maybe_ckpt_acc(shard_id, acc)
             if logger is not None and lead:
-                if phase_timing:
-                    phases["ckpt"] = time.time() - t1
-                t1 = time.time()
                 # One copy for every metric (waits for the step).
                 values = torch.stack([v.to(torch.float64) for v in m]).cpu().tolist()
                 rec = outer_metrics_record(type(m)(*values))
-                if phase_timing:
-                    phases["log_pull"] = time.time() - t1
-                    rec.update({f"phase_{k}_s": round(v, 4) for k, v in phases.items()})
                 rec["shard"] = shard_id
                 rec["batch_seconds"] = time.time() - t0
                 rec["loader_wait_s"] = loader_wait

@@ -275,7 +275,10 @@ class Refinement:
     `start_stage_b`, `rebin`, per kind of stage-B step (`stage_b_kind`)
     `stage_b_step(kind)(*leaves)`, and `finish` (the final forward and the
     worst chunk's counters). `run()` drives them through `_Steps`, whose
-    graphs live as long as this object.
+    graphs live as long as this object; stage A's steps and stage B's
+    (`start_stage_b` and the rebins with them) are the spans
+    `refine.stage_a` and `refine.stage_b`, each rebin `refine.rebin`
+    (`profiling.span`).
 
     `mask_factor` > 1 mean-pools `data.mask` by that factor in the
     prologue (the coarse phase of coarse-to-fine)."""
@@ -465,17 +468,20 @@ class Refinement:
         the next `run` overwrites."""
         cfg, steps = self.cfg, self.steps
         steps("start", self.start)
-        for _ in range(cfg.stage_a_steps):
-            steps("a", self.stage_a_step, self.cam_t)
-        steps("start_b", self.start_stage_b)
-        closures = {}
-        for s in range(cfg.stage_b_steps):
-            if self.use_bins and s % self.inner == 0:
-                steps("rebin", self.rebin)
-            kind = self.stage_b_kind(s)
-            if kind not in closures:
-                closures[kind] = self.stage_b_step(kind)
-            steps(("b",) + kind, closures[kind], *self.leaves)
+        with profiling.span("refine.stage_a"):
+            for _ in range(cfg.stage_a_steps):
+                steps("a", self.stage_a_step, self.cam_t)
+        with profiling.span("refine.stage_b"):
+            steps("start_b", self.start_stage_b)
+            closures = {}
+            for s in range(cfg.stage_b_steps):
+                if self.use_bins and s % self.inner == 0:
+                    with profiling.span("refine.rebin"):
+                        steps("rebin", self.rebin)
+                kind = self.stage_b_kind(s)
+                if kind not in closures:
+                    closures[kind] = self.stage_b_step(kind)
+                steps(("b",) + kind, closures[kind], *self.leaves)
         steps("finish", self.finish)
         return self.result()
 
@@ -499,7 +505,8 @@ class CoarseToFine:
     `Refinement` with its own graphs (their shapes differ); the fine phase
     reads the coarse phase's leaves as its start, and a captured `merge`
     joins the two phases' curves and counters. `load` and `run` as
-    `Refinement`'s."""
+    `Refinement`'s; the phases are the spans `refine.coarse` and
+    `refine.fine`."""
 
     def __init__(self, model, j_reg_raw, init, data, cfg, coarse_steps, pose_disc=None,
                  shape_disc=None, jreg_mask=None, freeze_hand_feet=False, batch_share=1.0,
@@ -529,8 +536,10 @@ class CoarseToFine:
             self.out.put("chunks", torch.cat(chunks, dim=1))
 
     def run(self) -> RefineResult:
-        res1 = self.coarse.run()
-        res2 = self.fine.run()
+        with profiling.span("refine.coarse"):
+            res1 = self.coarse.run()
+        with profiling.span("refine.fine"):
+            res2 = self.fine.run()
         self.steps("merge", self.merge)
         if "bin_stats" in self.out:
             stats = sf.BinStats(*self.out["bin_stats"].unbind(0))
@@ -643,7 +652,7 @@ class _RefineEntry:
     A call copies the caller's tensors in (`load`), runs the refiner (on
     the card its first call captures, later calls replay) and returns the
     refiner's buffers (`run`), or clones of them, which no later call
-    overwrites (`__call__`)."""
+    overwrites (`__call__`). The refiner's run is the span `refine`."""
 
     def __init__(self, spec: _RefineSpec, model, j_reg_raw, init, data, pose_disc, shape_disc,
                  times=None):
@@ -656,10 +665,14 @@ class _RefineEntry:
                                self.shape_disc, spec.jreg_mask, spec.freeze_hand_feet,
                                spec.batch_share, times)
 
+    def refine(self) -> RefineResult:
+        """The refiner's run on the inputs copied in last."""
+        with precision.float32_products(), profiling.span("refine"):
+            return self.refiner.run()
+
     def run(self, j_reg_raw, init, data, pose_disc, shape_disc) -> RefineResult:
         self.refiner.load(j_reg_raw, init, data, pose_disc, shape_disc)
-        with precision.float32_products():
-            return self.refiner.run()
+        return self.refine()
 
     def __call__(self, j_reg_raw, init, data, pose_disc, shape_disc) -> RefineResult:
         return _fresh(self.run(j_reg_raw, init, data, pose_disc, shape_disc))

@@ -52,6 +52,7 @@ from jrr_tpu_torch.refine import engine, losses
 from jrr_tpu_torch.refine.engine import _fresh, _shape_key
 from jrr_tpu_torch.refine.losses import FrameBatch, FrameParams
 from jrr_tpu_torch.render import silhouette_fused as sf
+from jrr_tpu_torch.utils import profiling
 
 
 class TrainState(NamedTuple):
@@ -330,7 +331,12 @@ class _OuterEntry(engine._RefineEntry):
     `update`, and after the evaluations and the metrics' reduction (eager)
     `finish`. The three evaluations run eagerly between the graphs: their
     Procrustes SVD synchronizes with the host. What it returns is cloned
-    out of the buffers."""
+    out of the buffers.
+
+    A call is the span `outer.step` (`profiling.span`), its phases the
+    spans `outer.load` (the copies in), `refine` (the refinement's,
+    `engine._RefineEntry.refine`), `outer.segment`, `outer.evaluate` and
+    `outer.copy_out` (the state's copies, the result's clones)."""
 
     def __init__(self, program: "_Spec", times, state: TrainState, model, spin_init, data):
         super().__init__(
@@ -377,42 +383,53 @@ class _OuterEntry(engine._RefineEntry):
 
     def __call__(self, state: TrainState, spin_init, data):
         p = self.program
-        for mine, theirs in ((self.jreg_opt, state.jreg_opt), (self.pose_disc_opt,
-                             state.pose_disc_opt), (self.shape_disc_opt, state.shape_disc_opt)):
-            mine.load(theirs)
-        self.result = self.run(state.j_reg_raw, spin_init, data, state.pose_disc,
-                               state.shape_disc)
-        if not p.distributed:
-            self.steps("outer", self.outer)
-        else:
-            self.steps("grads", self.grads)
-            engine._load_inputs(self.grad_tree, mesh_lib.sum_over_ranks(p.mesh, self.grad_tree))
-            self.steps("update", self.update)
-        verts = self.result.vertices
-        evals = (
-            _evaluate(state.j_reg_raw, verts, data.gt_j3d, p.jreg_mask, p.share),
-            _evaluate(self.j_reg, verts, data.gt_j3d, p.jreg_mask, p.share),
-            _evaluate(state.j_reg_raw, self.out["init_vertices"], data.gt_j3d, p.jreg_mask,
-                      p.share),
-        )
-        new_state = TrainState(
-            j_reg_raw=self.j_reg.clone(), jreg_opt=copy.deepcopy(self.jreg_opt),
-            pose_disc=copy.deepcopy(self.pose_disc), pose_disc_opt=copy.deepcopy(self.pose_disc_opt),
-            shape_disc=copy.deepcopy(self.shape_disc),
-            shape_disc_opt=copy.deepcopy(self.shape_disc_opt), step=state.step + 1,
-        )
-        result = _fresh(self.result)
-        losses_ = [self.out[k].clone() for k in ("pd_loss", "sd_loss", "jr_loss")]
-        if p.distributed:
-            *losses_, evals, result = _sum_over_processes(p.mesh, *losses_, evals, result)
-            put = self.fin.put
-            terms = type(result.stage_b_terms)(*(put(f"term{i}", t)
-                                                 for i, t in enumerate(result.stage_b_terms)))
-            stats = None if result.bin_stats is None else sf.BinStats(*(
-                put(f"stat{i}", s) for i, s in enumerate(result.bin_stats)))
-            self.steps("finish", self.finish, terms, stats)
-        final = [self.out[f"final{i}"].clone() for i in range(6)]
-        return new_state, _metrics(final, *losses_, *evals), result
+        with profiling.span("outer.step"):
+            with profiling.span("outer.load"):
+                for mine, theirs in ((self.jreg_opt, state.jreg_opt),
+                                     (self.pose_disc_opt, state.pose_disc_opt),
+                                     (self.shape_disc_opt, state.shape_disc_opt)):
+                    mine.load(theirs)
+                self.refiner.load(state.j_reg_raw, spin_init, data, state.pose_disc,
+                                  state.shape_disc)
+            self.result = self.refine()
+            with profiling.span("outer.segment"):
+                if not p.distributed:
+                    self.steps("outer", self.outer)
+                else:
+                    self.steps("grads", self.grads)
+                    engine._load_inputs(self.grad_tree,
+                                        mesh_lib.sum_over_ranks(p.mesh, self.grad_tree))
+                    self.steps("update", self.update)
+            verts = self.result.vertices
+            with profiling.span("outer.evaluate"):
+                evals = (
+                    _evaluate(state.j_reg_raw, verts, data.gt_j3d, p.jreg_mask, p.share),
+                    _evaluate(self.j_reg, verts, data.gt_j3d, p.jreg_mask, p.share),
+                    _evaluate(state.j_reg_raw, self.out["init_vertices"], data.gt_j3d,
+                              p.jreg_mask, p.share),
+                )
+            with profiling.span("outer.copy_out"):
+                new_state = TrainState(
+                    j_reg_raw=self.j_reg.clone(), jreg_opt=copy.deepcopy(self.jreg_opt),
+                    pose_disc=copy.deepcopy(self.pose_disc),
+                    pose_disc_opt=copy.deepcopy(self.pose_disc_opt),
+                    shape_disc=copy.deepcopy(self.shape_disc),
+                    shape_disc_opt=copy.deepcopy(self.shape_disc_opt), step=state.step + 1,
+                )
+                result = _fresh(self.result)
+                losses_ = [self.out[k].clone() for k in ("pd_loss", "sd_loss", "jr_loss")]
+            if p.distributed:
+                with profiling.span("outer.segment"):
+                    *losses_, evals, result = _sum_over_processes(p.mesh, *losses_, evals,
+                                                                  result)
+                    put = self.fin.put
+                    terms = type(result.stage_b_terms)(*(
+                        put(f"term{i}", t) for i, t in enumerate(result.stage_b_terms)))
+                    stats = None if result.bin_stats is None else sf.BinStats(*(
+                        put(f"stat{i}", s) for i, s in enumerate(result.bin_stats)))
+                    self.steps("finish", self.finish, terms, stats)
+            final = [self.out[f"final{i}"].clone() for i in range(6)]
+            return new_state, _metrics(final, *losses_, *evals), result
 
 
 class _Spec(NamedTuple):

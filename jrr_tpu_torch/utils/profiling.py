@@ -2,10 +2,12 @@
 
 - `trace(dir)`: `torch.profiler` (CPU and, with a card, CUDA activity) around
   a block; the Chrome trace lands in dir/trace.json;
-- `annotate(name)`: `torch.profiler.record_function`, a named range inside a
-  step;
-- `StepTimer`: wall-clock rates; each tick synchronizes the card first, so
-  the clock reads after the step's device work;
+- `span(name)`: a named range of the program (the outer step's phases),
+  recorded only while a `torch.profiler` session is open (`trace`, or any
+  other) and a shared no-op otherwise; `spans()` returns what was
+  recorded: host times on the profiler's clock, the enclosing span, the
+  call it belongs to and, on the card, the device time between two CUDA
+  events on the current stream;
 - `capture(fn, *args)`: `fn` run once and captured into a CUDA graph, the
   port's ahead-of-call step (the refinement engine and the outer-step
   program replay their closures so);
@@ -19,11 +21,13 @@
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import gc
 import os
+import threading
 import time
-from typing import Dict, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import torch
 
@@ -47,43 +51,143 @@ def trace(log_dir: str):
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
-def annotate(name: str):
-    return torch.profiler.record_function(name)
+# The most spans `spans()` keeps; the oldest go first.
+SPAN_CAPACITY = 50_000
 
 
-class StepTimer:
-    """Throughput with device fencing.
+class Span(NamedTuple):
+    """One recorded span. `index` counts the spans opened in the process;
+    `parent` is the index of the span open around it on its thread (None
+    for a span opened at the top); `step` numbers the top-level spans, and
+    a span inside one shares its number: the call (an outer step) it
+    belongs to. `start_ns` and `end_ns` are Unix nanoseconds
+    (`time.time_ns`), the clock of the profiler's events; `device_ms` is
+    the time between the CUDA events recorded on the current stream at
+    its open and close, None on the CPU or where a capture was open."""
 
-    >>> timer = StepTimer(frames_per_step=256)
-    >>> for _ in range(n):
-    ...     out = step(...)
-    ...     timer.tick()
-    >>> timer.rates()  # {'steps_per_sec': ..., 'frames_per_sec': ..., 'seconds_per_step': ...}
-    """
+    index: int
+    name: str
+    start_ns: int
+    end_ns: int
+    parent: Optional[int]
+    step: int
+    device_ms: Optional[float]
 
-    def __init__(self, frames_per_step: int = 1, warmup: int = 1):
-        self.frames_per_step = frames_per_step
-        self.warmup = warmup
-        self._count = 0
-        self._t0: Optional[float] = None
 
-    def tick(self) -> None:
-        _sync()
-        self._count += 1
-        if self._count == self.warmup:
-            self._t0 = time.perf_counter()
+def _device_event() -> Optional["torch.cuda.Event"]:
+    """A timing event recorded on the current stream; None without a card
+    in use or while the stream captures (an event in a graph would time
+    its replays, not this span)."""
+    if not torch.cuda.is_initialized() or torch.cuda.is_current_stream_capturing():
+        return None
+    event = torch.cuda.Event(enable_timing=True)
+    event.record()
+    return event
 
-    def rates(self) -> Dict[str, float]:
-        timed = self._count - self.warmup
-        if self._t0 is None or timed <= 0:
-            return {"steps_per_sec": 0.0, "frames_per_sec": 0.0}
-        dt = time.perf_counter() - self._t0
-        return {
-            "steps_per_sec": timed / dt,
-            "frames_per_sec": timed * self.frames_per_step / dt,
-            "seconds_per_step": dt / timed,
-        }
 
+class _Record:
+    """A span while it is open, and until `spans()` resolves its events."""
+
+    __slots__ = ("index", "name", "start_ns", "end_ns", "parent", "step", "events", "device_ms")
+
+    def __init__(self, index, name, parent, step):
+        self.index, self.name, self.parent, self.step = index, name, parent, step
+        self.end_ns = self.events = self.device_ms = None
+        self.start_ns = time.time_ns()
+
+
+class _SpanRecorder:
+    """The spans of the process, in a ring of `capacity`, and each
+    thread's stack of open spans."""
+
+    def __init__(self, capacity: int = SPAN_CAPACITY):
+        self._lock = threading.Lock()
+        self._records = collections.deque(maxlen=capacity)
+        self._local = threading.local()
+        self._opened = 0
+        self._steps = 0
+
+    def _stack(self) -> list:
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
+
+    def open(self, name: str) -> _Record:
+        stack = self._stack()
+        with self._lock:
+            index = self._opened
+            self._opened += 1
+            if stack:
+                parent, step = stack[-1].index, stack[-1].step
+            else:
+                parent, step = None, self._steps
+                self._steps += 1
+            record = _Record(index, name, parent, step)
+            self._records.append(record)
+        stack.append(record)
+        record.events = _device_event()
+        return record
+
+    def close(self, record: _Record) -> None:
+        if record.events is not None:
+            end = _device_event()
+            record.events = None if end is None else (record.events, end)
+        record.end_ns = time.time_ns()
+        self._stack().pop()
+
+    def spans(self) -> List[Span]:
+        """The closed spans, oldest first; reading the device times waits
+        for their events."""
+        with self._lock:
+            records = [r for r in self._records if r.end_ns is not None]
+        out = []
+        for r in records:
+            if r.events is not None:
+                start, end = r.events
+                end.synchronize()
+                r.device_ms, r.events = start.elapsed_time(end), None
+            out.append(Span(r.index, r.name, r.start_ns, r.end_ns, r.parent, r.step, r.device_ms))
+        return out
+
+
+class _Span:
+    """One open `span`: a `record_function` range and a record."""
+
+    __slots__ = ("name", "range", "record")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self) -> None:
+        self.range = torch.profiler.record_function(self.name)
+        self.range.__enter__()
+        self.record = _recorder.open(self.name)
+
+    def __exit__(self, *exc) -> None:
+        _recorder.close(self.record)
+        self.range.__exit__(*exc)
+
+
+_recorder = _SpanRecorder()
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context that records the block as span `name` while a
+    `torch.profiler` session is open (`trace`, the benchmark's traced
+    window), and that session's Chrome trace shows it as a
+    `record_function` range; with no session open, a shared no-op that
+    reads no clock and records no event."""
+    if not torch.autograd.profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return _Span(name)
+
+
+def spans() -> List[Span]:
+    """Every span recorded in the process and closed, oldest first (at
+    most `SPAN_CAPACITY`); the buffer is kept."""
+    return _recorder.spans()
 
 class CapturedCall:
     """A CUDA graph of one call, with the kernel launches it holds
