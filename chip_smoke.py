@@ -27,7 +27,9 @@
 3. drives the main path once: `refine_batch` at batch 256, 1000 + 100
    steps, shipped defaults, live discriminators (one warm-up, then three
    timed runs, the median reported), with every kernel's launch count set to
-   0 just before each timed run and read just after; then the refine
+   0 just before each timed run and read just after (here and in every later
+   phase the skinning kernels' too, each count worked out from the SMPL
+   forwards and backwards the phase makes: `_skin`); then the refine
    program (`refine_program`: `engine.compile_refine`, the counterpart of
    jrr_tpu's `jax.jit(refine_batch)`, timed as bench.py:67-92 times it:
    built once, a warm-up call bit for bit the main path's result, three
@@ -67,7 +69,7 @@
    `refine_batch(backend="xla")` at the shipped defaults equal to step 7's
    round-1 run bit for bit with the same launches, and a
    `rebin_interval=1` refinement at batch 16 through the tile loop (finite,
-   falling, no kernel launched);
+   falling, no kernel launched but the skinning's);
 9. holds the gradient of Σ w·`silhouette_tiles_fused` (the α VJP kernel)
    against the plain version at batch 256, both geometries;
 10. drives the lane-packed configuration (`silhouette.lane_pack=True`):
@@ -80,7 +82,10 @@
    PyTorch call for the same function (the RMW probe's int64 sums equal its
    fixed-point plain version's exactly; the lane gather also on indices
    outside [0, 128), modulo 128 for take_along_axis and 0 for the one-hot
-   product's function, as their plain versions);
+   product's function, as their plain versions); then the skinning kernels
+   (`skin_kernels`, row 11: `probes.skin_probe` at 256 and 512 frames of
+   6890 vertices, within 2e-6 of the float64 plain version's largest entry,
+   two calls bit for bit, timed beside the plain version);
 12. builds the host runtime (jrr_tpu_torch/runtime/jrr_runtime.cc) with
    g++ on this host and decodes the committed JPEGs of tests/data/jpeg
    (`jpeg_check`): each within 1 level of its committed imageio decode (the
@@ -101,7 +106,7 @@
    shards of 256, shipped defaults, temporary directories), which must read
    the v2 pack, with rows 1, 2 and 5 launched 76, 4 and at least 1 times
    and finite evals, then the same call again, which must resume both
-   shards, launch no kernel, give the same regressors and evals bit for
+   shards, launch no rasterizer kernel, give the same regressors and evals bit for
    bit and save the train state it restored, in jrr_tpu's layout, equal;
    restores the committed jrr_tpu-written train state of tests/data
    (V = 96) equal to its file; then loads the loop's first batch through the python loader, the
@@ -284,8 +289,12 @@ QUALITY_CONFIGS = ("no_sil", "ref_exact_full", "r4_shipped_c4")
 # (ref_exact_full 100, r4_shipped_c4 13 coarse + 25 fine, the control's
 # two calls 50 each at stride 2); row 2 at five scores (init, three rows,
 # the control) and the interior skip's rebins (r4_shipped_c4 one a phase,
-# the control two a call); row 5 once, the problem's mask.
-QUALITY_LAUNCHES = dict(fused_lossgrad=238, fused_alpha_fwd=11, tiles_alpha_fwd=1)
+# the control two a call); row 5 once, the problem's mask; the skinning's
+# forward for the problem's vertices, the start's score and each
+# refinement's (`_skin`: ref_exact_full 107, no_sil 102, r4_shipped_c4 106,
+# the control's two calls 104 each), its backward on every stage-B step.
+QUALITY_LAUNCHES = dict(fused_lossgrad=238, fused_alpha_fwd=11, tiles_alpha_fwd=1,
+                        lbs_skin_fwd=2 + 107 + 102 + 106 + 2 * 104, lbs_skin_bwd=5 * 100)
 # The routes the graphs phase holds captured against eager: (silhouette
 # backend, lane_pack, the launches of one call).
 GRAPH_ROUTES = {
@@ -1053,6 +1062,39 @@ def _launches(**counts):
     return {w.__name__: counts.get(w.__name__, 0) for w in kernels.WRAPPERS}
 
 
+def _skin(cfg=None, refinements=1, masked=True, forwards=0):
+    """The skinning kernels' launches, as keyword counts for `_launches`:
+    `refinements` refine_batch calls of the RefinerConfig `cfg` on frames
+    with a mask (or without) and `forwards` more SMPL forwards. Per phase of
+    a refinement (`engine.refiner`: one, or coarse and fine) one forward in
+    `start`, one per stage-B step with its backward, one per rebin and one
+    in `finish`; nothing else differentiates the body model. The phases are
+    read off a refiner built on the CPU over two zero frames."""
+    import torch
+
+    from jrr_tpu_torch.refine import engine, losses
+
+    steps = calls = 0
+    if cfg is not None and refinements:
+        z = lambda *shape: torch.zeros((2,) + shape)  # noqa: E731
+        init = losses.FrameParams(z(23, 6), z(1, 6), z(10), z(3))
+        data = losses.FrameBatch(z(17, 2), z(17, 3), z(1, 1) if masked else None)
+        r = engine.refiner(None, None, init, data, cfg)
+        phases = (r.coarse, r.fine) if isinstance(r, engine.CoarseToFine) else (r,)
+        steps = sum(p.cfg.stage_b_steps for p in phases)
+        calls = 2 * len(phases) + steps + sum(p.cfg.stage_b_steps // p.inner
+                                              for p in phases if p.use_bins)
+    return dict(lbs_skin_fwd=refinements * calls + forwards, lbs_skin_bwd=refinements * steps)
+
+
+def _pipeline_skin(cfg, shards, forwards=0):
+    """`_skin` of `run_pipeline` under the PipelineConfig `cfg` refining
+    `shards` shards, each an outer step (its refinement and the initial
+    vertices' forward), and `forwards` more SMPL forwards: a fixture write's
+    one, a replayed shard's one, one per evaluation batch."""
+    return _skin(cfg.refiner, refinements=shards, forwards=shards + forwards)
+
+
 def _ptxas(kernel: str):
     """Registers, spills and static shared memory that `ptxas -v` reported
     for the entry function `kernel` in this process's build (None when the
@@ -1089,8 +1131,9 @@ def _card() -> str:
 
 def run_main_path(problem, pose_disc, shape_disc):
     """refine_batch at full width: warm-up, then MAIN_RUNS timed runs, each
-    with the launch counts set to 0 just before it and read just after. The
-    call is host-bound, so its wall time spreads: the median is reported."""
+    with the launch counts set to 0 just before it and read just after (the
+    skinning kernels' with them: `_skin`). The call is host-bound, so its
+    wall time spreads: the median is reported."""
     import torch
 
     from jrr_tpu_torch import kernels
@@ -1098,6 +1141,7 @@ def run_main_path(problem, pose_disc, shape_disc):
 
     model, j_reg, cfg, init, data = problem
     cfg = dataclasses.replace(cfg, stage_a_steps=1000, stage_b_steps=100)
+    want = _launches(fused_lossgrad=38, fused_alpha_fwd=2, **_skin(cfg))
     engine.refine_batch(model, j_reg, init, data, cfg, pose_disc, shape_disc)
     torch.cuda.synchronize()
 
@@ -1109,8 +1153,7 @@ def run_main_path(problem, pose_disc, shape_disc):
         torch.cuda.synchronize()
         runs.append(time.perf_counter() - t0)
         launches = _read_launches()
-        _check(launches == _launches(fused_lossgrad=38, fused_alpha_fwd=2),
-               f"main path launches {launches}, expected 38 fused_lossgrad + 2 fused_alpha_fwd")
+        _check(launches == want, f"main path launches {launches}, expected {want}")
     seconds = sorted(runs)[len(runs) // 2]
 
     # Stage A alone (no stage-B steps): the rest of the call is stage B.
@@ -1192,6 +1235,7 @@ def run_refine_program(problem, pose_disc, shape_disc, main_res):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     program = engine.compile_refine(cfg)
+    want = _launches(fused_lossgrad=38, fused_alpha_fwd=2, **_skin(cfg))
 
     def call(init_k):
         kernels.reset_launches()
@@ -1200,9 +1244,7 @@ def run_refine_program(problem, pose_disc, shape_disc, main_res):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = _read_launches()
-        _check(launches == _launches(fused_lossgrad=38, fused_alpha_fwd=2),
-               f"refine program launches {launches}, expected 38 fused_lossgrad + "
-               "2 fused_alpha_fwd")
+        _check(launches == want, f"refine program launches {launches}, expected {want}")
         return res, seconds
 
     warm, warm_s = call(init)
@@ -1232,7 +1274,7 @@ def run_refine_program(problem, pose_disc, shape_disc, main_res):
     return dict(
         batch=BATCH, stage_a_steps=1000, stage_b_steps=100, warm_up_seconds=warm_s,
         seconds_runs=seconds, seconds=median, frames_per_s=BATCH / median,
-        standalone_seconds=alone_s, launches_per_call={"fused_lossgrad": 38, "fused_alpha_fwd": 2},
+        standalone_seconds=alone_s, launches_per_call={k: v for k, v in want.items() if v},
         warm_up_equals_main_path=True, call_equals_refine_batch=True,
         graph_replays_per_warm_call=prof["graph_replays"],
         host_launches_per_warm_call=prof["host_launches"],
@@ -1368,6 +1410,7 @@ def run_graphs(problem, pose_disc, shape_disc, main_path, main_profile):
     routes = {}
     for route, (backend, lane_pack, want) in GRAPH_ROUTES.items():
         run_cfg = _with_backend(cfg, backend, lane_pack)
+        want = dict(want, **_skin(run_cfg))
         captured, captured_s, captured_launches, captured_mem = timed(run_cfg)
         with engine.disable_graphs():
             eager_runs = [timed(run_cfg) for _ in range(MAIN_RUNS if route == "fused" else 1)]
@@ -1435,7 +1478,8 @@ def run_graphs(problem, pose_disc, shape_disc, main_path, main_profile):
 def _plain_versions():
     """Route the rasterizers' kernel wrappers to their plain versions on any
     device, for the reference runs only (the wrappers themselves never fall
-    back)."""
+    back). The skinning stays on its kernels, so both runs see the same
+    vertices."""
     from jrr_tpu_torch.render import silhouette_fused as sf
     from jrr_tpu_torch.render import silhouette_pallas as sp
 
@@ -1448,6 +1492,20 @@ def _plain_versions():
         yield
     finally:
         sf.fused_tiles_alpha, sf.fused_lossgrad, sf.fused_lossgrad_packed, sp.tiles_alpha = saved
+
+
+@contextlib.contextmanager
+def _plain_skinning():
+    """Route `smpl_forward`'s skinning to its plain version, for the float64
+    reference runs (the skinning kernels take float32 only)."""
+    from jrr_tpu_torch.models import smpl
+
+    saved = smpl.lbs_skin
+    smpl.lbs_skin = smpl.lbs_skin_plain
+    try:
+        yield
+    finally:
+        smpl.lbs_skin = saved
 
 
 def _with_backend(cfg, backend, lane_pack=False):
@@ -1502,7 +1560,7 @@ def short_refine(problem, pose_disc, shape_disc, plain=False, float64=False, bac
         return engine.refine_batch(model, j_reg, init, data, cfg, pose_disc, shape_disc)
     torch.use_deterministic_algorithms(True)
     try:
-        with _plain_versions():
+        with _plain_versions(), (_plain_skinning() if float64 else contextlib.nullcontext()):
             return engine.refine_batch(model, j_reg, init, data, cfg, pose_disc, shape_disc)
     finally:
         torch.use_deterministic_algorithms(False)
@@ -1514,22 +1572,31 @@ def compare_kernel_and_plain_refine(pose_disc, shape_disc, seed=1):
     and once through the plain versions in float64. The Adam steps amplify
     any last-bit difference into the parameters, so the float64 run says how
     far float32 rounding alone moves them: kernel and plain float32 should
-    each lie that far from it."""
+    each lie that far from it. The skinning runs on its kernels but in the
+    float64 run: the plain float32 runs launch its kernels and nothing else,
+    the float64 run no kernel."""
     from jrr_tpu_torch import kernels
 
     problem = short_problem(seed)
-    before = sum(w.launches for w in kernels.WRAPPERS)
+    skin = _skin(dataclasses.replace(problem[2], stage_a_steps=20, stage_b_steps=10),
+                 refinements=2)
+    kernels.reset_launches()
     k1 = short_refine(problem, pose_disc, shape_disc)
     k2 = short_refine(problem, pose_disc, shape_disc)
-    launched = sum(w.launches for w in kernels.WRAPPERS)
-    _check(launched > before, "the kernel refinement launched no kernel")
+    launched = _read_launches()
+    _check(any(n for k, n in launched.items() if k not in skin)
+           and all(launched[k] == n for k, n in skin.items()),
+           f"the kernel refinements launched {launched}; the skinning's expected {skin}")
     repeat = _max_param_diff(k1, k2)
     _check(repeat == 0.0, f"two kernel refinements differ by {repeat}")
+    kernels.reset_launches()
     p1 = short_refine(problem, pose_disc, shape_disc, plain=True)
     p2 = short_refine(problem, pose_disc, shape_disc, plain=True)
     p64 = short_refine(problem, pose_disc, shape_disc, plain=True, float64=True)
-    _check(sum(w.launches for w in kernels.WRAPPERS) == launched,
-           "the plain reference refinements launched a kernel")
+    plain_launches = _read_launches()
+    _check(plain_launches == _launches(**skin),
+           f"the plain reference refinements launched {plain_launches}: expected only the "
+           f"float32 runs' skinning, {skin}")
     sil_active = int((k1.stage_b_terms.silhouette != 0).sum())
     _check(sil_active > 0, "the short refinement never ran the silhouette term")
     return dict(
@@ -1620,8 +1687,8 @@ def run_round1_path(problem, pose_disc, shape_disc):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = _read_launches()
-    _check(launches == _launches(tiles_alpha_fwd=38, tiles_alpha_bwd=38),
-           f"round-1 path launches {launches}, expected 38 tiles_alpha_fwd + 38 tiles_alpha_bwd")
+    want = _launches(tiles_alpha_fwd=38, tiles_alpha_bwd=38, **_skin(cfg))
+    _check(launches == want, f"round-1 path launches {launches}, expected {want}")
     total = res.stage_b_terms.total
     first, last = float(total[0]), float(total[-1])
     _check(last < first, f"round-1 stage-B total did not decrease: {first} -> {last}")
@@ -1659,7 +1726,7 @@ def run_xla_path(problem, pose_disc, shape_disc, round1_res, round1_launches):
       the same row 5 and 6 launches;
     - a rebin_interval=1 refinement at batch XLA_REFINE_BATCH, 1000 + 100
       steps, every active step through the tile loop: seconds, no kernel
-      launched, finite parameters, a falling stage-B loss."""
+      launched but the skinning's, finite parameters, a falling stage-B loss."""
     import torch
 
     from jrr_tpu_torch import kernels
@@ -1738,7 +1805,9 @@ def run_xla_path(problem, pose_disc, shape_disc, round1_res, round1_launches):
     res = engine.refine_batch(model, j_reg, *small, loop, pose_disc, shape_disc)
     torch.cuda.synchronize()
     loop_s = time.perf_counter() - t0
-    _check(_read_launches() == _launches(), "xla_path: the tile loop launched a kernel")
+    launches = _read_launches()
+    _check(launches == _launches(**_skin(loop)),
+           f"xla_path: the tile loop launched {launches}, expected only the skinning's")
     total = res.stage_b_terms.total
     first, last = float(total[0]), float(total[-1])
     _check(all(bool(torch.isfinite(p).all()) for p in res.params) and last < first,
@@ -1790,8 +1859,9 @@ def run_lane_pack_path(problem, pose_disc, shape_disc, packed_checks, fused_chec
     engine.refine_batch(model, j_reg, init, data, packed_cfg, pose_disc, shape_disc)
     torch.cuda.synchronize()
     seconds = {"lane_pack": [], "unpacked": []}
-    runs = {"lane_pack": (packed_cfg, _launches(fused_lossgrad_packed=active, fused_alpha_fwd=2)),
-            "unpacked": (cfg, _launches(fused_lossgrad=active, fused_alpha_fwd=2))}
+    runs = {"lane_pack": (packed_cfg, _launches(fused_lossgrad_packed=active, fused_alpha_fwd=2,
+                                                **_skin(packed_cfg))),
+            "unpacked": (cfg, _launches(fused_lossgrad=active, fused_alpha_fwd=2, **_skin(cfg)))}
     for pair in range(LANE_PACK_PAIRS):
         order = ("lane_pack", "unpacked") if pair % 2 == 0 else ("unpacked", "lane_pack")
         for name in order:
@@ -1876,6 +1946,21 @@ def run_probes():
     return [r for r in records if "name" in r], [r for r in records if "name" not in r]
 
 
+def check_skin_kernels():
+    """Row 11: the skinning kernels (`probes.skin_probe.measure`) at the
+    benchmark's batches, 256 and 512 frames of the 6890-vertex body: the
+    vertices and both gradients within `skin_probe.REL_TOL` of the largest
+    entry of the plain version in float64 (the probe raises past it), two
+    calls bit for bit; their ms, bound, and the plain version's ms, which is
+    the library yardstick too."""
+    from jrr_tpu_torch.probes import skin_probe
+
+    records = skin_probe.measure()
+    _check(len(records) == 4 and all(r["repeat_equal"] for r in records),
+           f"skinning kernels: two calls differ in {[r['name'] for r in records]}")
+    return records
+
+
 def _perturbed_regressor(j_reg, seed=0):
     """The true regressor perturbed as the pipeline's demo does
     (jrr_tpu/pipeline.py:540-546): sparse |N(0, 0.15)| on 5% of its zeros,
@@ -1942,11 +2027,14 @@ def run_training():
     )
     torch.cuda.synchronize()
     problem_launches = _read_launches()
-    _check(problem_launches == _launches(tiles_alpha_fwd=1),
-           f"problem mask launches {problem_launches}, expected 1 tiles_alpha_fwd")
+    _check(problem_launches == _launches(tiles_alpha_fwd=1, **_skin(forwards=1)),
+           f"problem launches {problem_launches}, expected 1 tiles_alpha_fwd (the mask) and "
+           "1 lbs_skin_fwd (its vertices)")
     pcfg = config.PipelineConfig(
         refiner=dataclasses.replace(cfg, stage_a_steps=1000, stage_b_steps=100)
     )
+    # An outer step: its refinement and the initial vertices' forward.
+    want = _launches(fused_lossgrad=38, fused_alpha_fwd=2, **_skin(pcfg.refiner, forwards=1))
     j_init = torch.as_tensor(_perturbed_regressor(j_true), device="cuda")
     state0 = trainer.init_train_state(j_init, pcfg, seed=7)
     state, steps, kept, batches, outputs = state0, [], [], [], []
@@ -1968,8 +2056,7 @@ def run_training():
                                                      for k in before),
                f"outer step {i} changed the state passed in")
         launches = _read_launches()
-        _check(launches == _launches(fused_lossgrad=38, fused_alpha_fwd=2),
-               f"outer step {i} launches {launches}, expected 38 fused_lossgrad + 2 fused_alpha_fwd")
+        _check(launches == want, f"outer step {i} launches {launches}, expected {want}")
         values = {k: float(v) for k, v in m._asdict().items()}
         _check(all(math.isfinite(v) for v in values.values()), f"outer step {i}: non-finite metrics")
         steps.append(dict(seconds=seconds, frames_per_s=BATCH / seconds, launches=launches,
@@ -2021,7 +2108,7 @@ def run_outer_program(training):
     before it and read just after. The first call captures the graphs, the
     later ones replay them. Every step must equal the eager
     `trainer.outer_step`'s (`run_training`) bit for bit: state, metrics,
-    refinement result, and 38 + 2 launches. Then the last step again from
+    refinement result, and 38 + 2 launches (and the skinning's). Then the last step again from
     its input state under the profiler (chiprun_out/profile_outer_step.txt:
     host launches and graph replays of a warm step), each graph's
     `log_compile_time` split and the peak allocated beside the eager
@@ -2032,6 +2119,8 @@ def run_outer_program(training):
     from jrr_tpu_torch.refine import trainer
 
     model, pcfg = training["model"], training["cfg"]
+    want_launches = _launches(fused_lossgrad=38, fused_alpha_fwd=2,
+                              **_skin(pcfg.refiner, forwards=1))
     program = trainer.compile_outer_step(pcfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2044,9 +2133,8 @@ def run_outer_program(training):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = _read_launches()
-        _check(launches == _launches(fused_lossgrad=38, fused_alpha_fwd=2),
-               f"program step {i} launches {launches}, expected 38 fused_lossgrad + "
-               "2 fused_alpha_fwd")
+        _check(launches == want_launches,
+               f"program step {i} launches {launches}, expected {want_launches}")
         got = _step_bits(state, m, res)
         differ = sorted(k for k in want if k not in got or not torch.equal(got[k], want[k]))
         _check(got.keys() == want.keys() and not differ,
@@ -2440,8 +2528,9 @@ def check_h5():
         run_s = time.perf_counter() - t0
         launches = _read_launches()
     _check(arts.loader == "python", f"h5_check: run_pipeline read {arts.loader}")
-    _check(launches == _launches(fused_lossgrad=38, fused_alpha_fwd=2),
-           f"h5_check run launches {launches}, expected 38 fused_lossgrad + 2 fused_alpha_fwd")
+    # One shard of H5_FRAMES frames, evaluated in one batch.
+    want = _launches(fused_lossgrad=38, fused_alpha_fwd=2, **_pipeline_skin(cfg, 1, forwards=1))
+    _check(launches == want, f"h5_check run launches {launches}, expected {want}")
     evals = {"initial": arts.eval_before_after.before, "adam_final": arts.eval_before_after.after,
              "lstsq": arts.eval_lstsq}
     _check(all(math.isfinite(getattr(e, k)) for e in evals.values() for k in ("mpjpe", "pa_mpjpe")),
@@ -2559,13 +2648,18 @@ def run_product_path(data_root, tmp):
     _check(first["arts"].loader == resumed["arts"].loader == "pack2",
            f"product path read {first['arts'].loader}, {resumed['arts'].loader}: not the v2 pack")
     _check(first["shards"] == [0, 1], f"product path: manifest shards {first['shards']}")
+    # The fixture write's forward, two shards, the evaluation's batches.
+    evals_skin = PRODUCT_FRAMES // BATCH
     want = _launches(fused_lossgrad=76, fused_alpha_fwd=4,
-                     tiles_alpha_fwd=first["launches"]["tiles_alpha_fwd"])
+                     tiles_alpha_fwd=first["launches"]["tiles_alpha_fwd"],
+                     **_pipeline_skin(cfg, 2, forwards=1 + evals_skin))
     _check(first["launches"] == want and first["launches"]["tiles_alpha_fwd"] >= 1,
-           f"product path launches {first['launches']}, expected 76 fused_lossgrad + "
-           "4 fused_alpha_fwd + at least 1 tiles_alpha_fwd")
-    _check(resumed["launches"] == _launches(),
-           f"resumed product path launched kernels: {resumed['launches']}")
+           f"product path launches {first['launches']}, expected {want} with at least 1 "
+           "tiles_alpha_fwd")
+    # Resumed: no refinement; the two shards' vertices replayed, the evaluation.
+    want = _launches(**_skin(forwards=2 + evals_skin))
+    _check(resumed["launches"] == want,
+           f"resumed product path launched {resumed['launches']}, expected {want}")
     _check(len(first["records"]) == 2 and not resumed["records"],
            "product path: one metrics record per refined shard")
     values = [v for r in first["records"] for v in r.values() if isinstance(v, float)]
@@ -2677,8 +2771,10 @@ def run_killed_and_resumed(cfg, data_root, out_dir, model, first, first_refined)
     torch.cuda.synchronize()
     resume_s = time.perf_counter() - t0
     launches = _read_launches()
-    _check(launches == _launches(fused_lossgrad=38, fused_alpha_fwd=2),
-           f"resumed killed run launched {launches}, not one shard's refinement")
+    # Shard 0's vertices replayed, shard 1 refined, the evaluation's batches.
+    want = _launches(fused_lossgrad=38, fused_alpha_fwd=2,
+                     **_pipeline_skin(cfg, 1, forwards=1 + PRODUCT_FRAMES // BATCH))
+    _check(launches == want, f"resumed killed run launched {launches}, expected {want}")
     a = first["arts"]
     _check(np.array_equal(arts.j_reg_final, a.j_reg_final)
            and np.array_equal(arts.j_reg_lstsq, a.j_reg_lstsq),
@@ -2994,7 +3090,8 @@ def run_consumer_path(data_root, model):
     (`data_root`: no second fixture write), full width, batch 256, shipped
     defaults, consumer seqlen 16, its own temporary out dir. The launch
     counts are set to 0 just before the call and read just after: rows 1
-    and 2 as in the product path (76 and 4), row 5 none. "auto" must read
+    and 2 as in the product path (76 and 4), row 5 none, the skinning's
+    from the forwards the run makes (`_pipeline_skin`). "auto" must read
     the product path's v2 pack. Then SPIN and both
     consumers are held against the port's CPU runs, and rows 1 and 2 on the
     first SPIN-initialized batch's bins."""
@@ -3031,8 +3128,12 @@ def run_consumer_path(data_root, model):
                                          (arts.j_reg_initial, arts.j_reg_final))
         bins = check_product_bins(model, cfg, data_root, where="spin",
                                   spin_fn=make_spin_fn(paths["spin"], paths["mean"]))
-    _check(launches == _launches(fused_lossgrad=76, fused_alpha_fwd=4),
-           f"consumer path launches {launches}, expected 76 fused_lossgrad + 4 fused_alpha_fwd")
+    # Two shards; per evaluation batch one forward for protocol 2 and one for
+    # each of the two consumers in each of its two passes (frames, sequences).
+    batches = PRODUCT_FRAMES // BATCH
+    want = _launches(fused_lossgrad=76, fused_alpha_fwd=4,
+                     **_pipeline_skin(cfg, 2, forwards=batches * (1 + 2 * 2)))
+    _check(launches == want, f"consumer path launches {launches}, expected {want}")
     _check(arts.loader == "pack2", f"consumer path read {arts.loader}, not the v2 pack")
     _check(sorted(arts.consumer_evals) == ["meva", "meva (sequence)", "vibe", "vibe (sequence)"],
            f"consumer evals {sorted(arts.consumer_evals)}")
@@ -3272,11 +3373,17 @@ def run_multi_gpu(data_root, ref, tmp, world=None, backend="nccl"):
         with open(os.path.join(out, f"rank{r}.json")) as f:
             recs.append(json.load(f))
     lead = recs[0]
-    # Each process refines its rows of both shards: the one-process run's launches.
-    want = _launches(fused_lossgrad=ref["launches"]["fused_lossgrad"],
-                     fused_alpha_fwd=ref["launches"]["fused_alpha_fwd"])
-    _check(all(r["launches"] == want for r in recs),
-           f"multi_gpu launches {[r['launches'] for r in recs]}, expected {want} per process")
+    # Each process refines its rows of both shards: the one-process run's
+    # launches, less the fixture write's forward; rank 0 evaluates.
+    from jrr_tpu_torch import config
+
+    want = [_launches(fused_lossgrad=ref["launches"]["fused_lossgrad"],
+                      fused_alpha_fwd=ref["launches"]["fused_alpha_fwd"],
+                      **_pipeline_skin(config.PipelineConfig(), 2,
+                                       forwards=PRODUCT_FRAMES // BATCH if r == 0 else 0))
+            for r in range(world)]
+    _check([r["launches"] for r in recs] == want,
+           f"multi_gpu launches {[r['launches'] for r in recs]}, expected {want}")
     _check(all(r["loader"] == "pack2" for r in recs), "multi_gpu: not the v2 pack")
     got_files = _npz_files(os.path.join(out, "run"))
     want_files = _npz_files(ref["out_dir"])
@@ -3467,7 +3574,8 @@ def run_recovery(data_root, tmp, model, product_ref):
     torch.cuda.synchronize()
     heldout_s = time.perf_counter() - t0
     heldout_launches = _read_launches()
-    _check(heldout_launches == _launches(tiles_alpha_fwd=heldout_launches["tiles_alpha_fwd"])
+    _check(heldout_launches == _launches(tiles_alpha_fwd=heldout_launches["tiles_alpha_fwd"],
+                                         **_skin(forwards=1))
            and heldout_launches["tiles_alpha_fwd"] >= 1,
            f"recovery: held-out fixtures launched {heldout_launches}")
     run_dir = os.path.join(tmp, "product_killed")
@@ -3479,7 +3587,11 @@ def run_recovery(data_root, tmp, model, product_ref):
         reports[dev], fits[dev] = recovery.analyze(run_dir, j_true, j_init, splits, body,
                                                    batch=BATCH, exact=True, log=None)
         seconds[dev] = time.perf_counter() - t0
-    _check(_read_launches() == _launches(), "recovery: the analysis launched a kernel")
+    # On the card: the two shards' vertices replayed, one forward per evaluation batch of
+    # each split (held-out, train); on the CPU no kernel.
+    launches = _read_launches()
+    want = _launches(**_skin(forwards=2 + RECOVERY_HELDOUT // BATCH + PRODUCT_FRAMES // BATCH))
+    _check(launches == want, f"recovery: the analysis launched {launches}, expected {want}")
     card, cpu = reports["cuda"], reports["cpu"]
     _check(card["n_shards"] == cpu["n_shards"] == 2, f"recovery: {card['n_shards']} shards")
     gaps, lstsq = {}, {}
@@ -3592,7 +3704,8 @@ def check_graft_entry():
             _, plain = fn(*args)
             plain_ms = _time_ms(lambda: fn(*args), 3)
         ms = _time_ms(lambda: fn(*args), 3)
-    _check(launches == _launches(fused_lossgrad=1), f"graft_entry: launches {launches}")
+    _check(launches == _launches(fused_lossgrad=1, **_skin(forwards=1)),
+           f"graft_entry: launches {launches}")
     got, want = ({k: float(getattr(t, k)) for k in t._fields} for t in (terms, plain))
     rel = {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-30) for k in got}
     _check(all(math.isfinite(v) for v in got.values()) and float(total) == got["total"],
@@ -3641,7 +3754,7 @@ def check_aux_modules(model, j_true):
                                               depth_range=PRODUCT_DEPTH)
     torch.cuda.synchronize()
     launches = _read_launches()
-    _check(launches == _launches(tiles_alpha_fwd=launches["tiles_alpha_fwd"])
+    _check(launches == _launches(tiles_alpha_fwd=launches["tiles_alpha_fwd"], **_skin(forwards=1))
            and launches["tiles_alpha_fwd"] >= 1, f"aux_modules: thin render launched {launches}")
     report, _ = _hold_tile_render(thin, gt, data.mask, "thin appendages")
     out["thin_appendages"] = dict(report, radius_m=THIN_APPENDAGE_RADIUS,
@@ -3848,6 +3961,9 @@ def main() -> int:
     probe_records, probe_summary = run_probes()
     _emit({"probes": probe_records + probe_summary})
     done("probes")
+    skin_records = check_skin_kernels()
+    _emit({"skin_kernels": skin_records})
+    done("skin_kernels")
     _emit({"jpeg_check": check_jpeg()})
     done("jpeg_check")
     _emit({"h5_check": check_h5()})
@@ -3963,6 +4079,19 @@ def main() -> int:
                      coarse_rebin_ms=checks["coarse"]["fwd_rebin_ms"],
                      skip_flips=checks["fine"]["skip_flips"],
                      coarse_skip_flips=checks["coarse"]["skip_flips"])
+
+    def skin_row(name):
+        """Row 11's kernel: launches of a main-path call, the probe's figures
+        at batch 256 and, prefixed b512_, at 512."""
+        rec = {b: next(r for r in skin_records if r["name"] == f"{name}.b{b}") for b in (256, 512)}
+        row = {k: rec[256][k] for k in ("route", "source", "replaces", "kernel", "ms", "plain_ms",
+                                        "bound_ms", "bound_by", "library_ms")}
+        row.update({f"b512_{k}": rec[512][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")})
+        return dict(row, name=name, launches=launches[name],
+                    product_launches=product["launches"][name],
+                    max_rel_err=max(r["rel_err"] for r in rec.values()),
+                    tolerance=rec[256]["tolerance"] + "; two calls bit for bit")
+
     kernels_line = [
         lossgrad,
         alpha_fwd,
@@ -3989,7 +4118,8 @@ def main() -> int:
             "coarse_packed_over_unpacked": packed_checks["coarse"]["packed_over_unpacked"],
             "coarse_bound_ms": packed_checks["coarse"]["bound_ms"],
         },
-    ] + [dict(r, launches=0, note="probe") for r in probe_records]
+    ] + [skin_row(name) for name in ("lbs_skin_fwd", "lbs_skin_bwd")] + [
+        dict(r, launches=0, note="probe") for r in probe_records]
     for row in kernels_line:
         row["ptxas"] = _ptxas(row.get("kernel", row["name"] + "_kernel"))
     _emit({"kernels": kernels_line})

@@ -10,7 +10,7 @@ reported an error, and counts its launches in a plain integer attribute
 `launches`: the kernels executed, for a CUDA graph's capture takes its
 calls off the counts and each replay adds them back (`captured_launches`,
 `add_launches`). Wrappers take CUDA tensors only: the plain versions live beside
-their callers in render/ and probes/.
+their callers in render/, probes/ and models/smpl.py.
 """
 
 from __future__ import annotations
@@ -42,6 +42,10 @@ _LANES = 128
 _MAX_PAGES = 32  # kMaxPages in silhouette_fused.cu
 _MAX_T2 = 256  # kMaxT2 in coverage.cuh
 _FIXED_SCALE = 2.0**32  # kFixedScale: the fused gradient kernels' int64 sums
+_SKIN_JOINTS = 24  # kJoints in lbs_skin.cu: the most joints a skinning call takes
+_SKIN_AFFINE = 12  # kAffine: entries of a joint's affine transform
+_SKIN_FRAMES = 8  # kFrames: frames per CTA
+_SKIN_CHUNK = 256  # kChunk: vertices per CTA
 
 _lib = None
 build_info: dict = {}  # seconds and ptxas report of this process's build
@@ -122,6 +126,8 @@ def _load():
             ("jrr_rmw_rows", [p] * 4 + [i, i, i, f, p]),
             ("jrr_elementwise", [p, p, ll, p]),
             ("jrr_fma_chain", [p, p, ll, i, i, p]),
+            ("jrr_lbs_skin_fwd", [p] * 4 + [i] * 3 + [p]),
+            ("jrr_lbs_skin_bwd", [p] * 8 + [i] * 3 + [p]),
         ):
             getattr(lib, name).argtypes = argtypes
             getattr(lib, name).restype = i
@@ -399,6 +405,87 @@ tiles_alpha_bwd.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# Linear-blend skinning (csrc/lbs_skin.cu): the last step of the SMPL forward;
+# the plain version is models/smpl.py::lbs_skin_plain.
+# ---------------------------------------------------------------------------
+
+
+def _check_skin(weights, a, v_posed):
+    """Validate the skinning tensors; returns (B, V, J)."""
+    f32 = torch.float32
+    _check_cuda(v_posed.device, weights=(weights, f32), a=(a, f32), v_posed=(v_posed, f32))
+    if weights.dim() != 2:
+        raise ValueError(f"weights must be (V, J), got {tuple(weights.shape)}")
+    v, j = weights.shape
+    b = a.shape[0]
+    if a.shape != (b, j, _SKIN_AFFINE) or v_posed.shape != (b, v, 3):
+        raise ValueError(f"need a (B, J, {_SKIN_AFFINE}) and v_posed (B, V, 3) for weights (V, J) = "
+                         f"{(v, j)}; got {tuple(a.shape)}, {tuple(v_posed.shape)}")
+    if not 1 <= j <= _SKIN_JOINTS:
+        raise ValueError(f"the skinning kernels take 1 to {_SKIN_JOINTS} joints, got {j}")
+    if b > 65535 or v >= 2**31:
+        raise ValueError("at most 65535 frames and 2³¹ − 1 vertices per launch")
+    return b, v, j
+
+
+def lbs_skin_fwd(weights, a, v_posed):
+    """verts (B, V, 3): per frame b and vertex v, T = Σ_j weights[v, j]·a[b, j]
+    and verts = T[:9] (3×3, row-major)·v_posed[b, v] + T[9:] — replaces the
+    einsum pair at the end of smpl_forward (no TPU kernel: jrr_tpu's SMPL is
+    plain jnp)."""
+    b, v, j = _check_skin(weights, a, v_posed)
+    out = torch.empty(b, v, 3, device=v_posed.device, dtype=torch.float32)
+    if b * v == 0:
+        return out
+    lib = _load()
+    with torch.cuda.device(v_posed.device):
+        rc = lib.jrr_lbs_skin_fwd(
+            weights.data_ptr(), a.data_ptr(), v_posed.data_ptr(), out.data_ptr(), b, v, j,
+            torch.cuda.current_stream(v_posed.device).cuda_stream,
+        )
+        lbs_skin_fwd.launches += 1
+    _raise_on(rc, "lbs_skin_fwd")
+    return out
+
+
+lbs_skin_fwd.launches = 0
+
+
+def lbs_skin_bwd(weights, a, v_posed, g):
+    """(da (B, J, 12), dv_posed (B, V, 3)), the VJP of `lbs_skin_fwd` for
+    g = dL/dverts (B, V, 3): dv_posed = T[:9]ᵀ·g and
+    da[b, j] = Σ_v weights[v, j]·[g ⊗ v_posed, g], summed in a fixed order
+    (per-CTA partials over 256 vertices, then in chunk order), so two calls
+    agree bit for bit."""
+    b, v, j = _check_skin(weights, a, v_posed)
+    _check_cuda(v_posed.device, g=(g, torch.float32))
+    if g.shape != v_posed.shape:
+        raise ValueError(f"g must be (B, V, 3) = {tuple(v_posed.shape)}, got {tuple(g.shape)}")
+    dev = v_posed.device
+    dvp = torch.empty(b, v, 3, device=dev, dtype=torch.float32)
+    if b * v == 0:
+        return torch.zeros(b, j, _SKIN_AFFINE, device=dev, dtype=torch.float32), dvp
+    groups, chunks = -(-b // _SKIN_FRAMES), -(-v // _SKIN_CHUNK)
+    da = torch.empty(b, j, _SKIN_AFFINE, device=dev, dtype=torch.float32)
+    partial = torch.empty(groups, chunks, _SKIN_FRAMES, _SKIN_JOINTS * _SKIN_AFFINE, device=dev,
+                          dtype=torch.float32)
+    count = torch.zeros(groups, device=dev, dtype=torch.int32)
+    lib = _load()
+    with torch.cuda.device(dev):
+        rc = lib.jrr_lbs_skin_bwd(
+            weights.data_ptr(), a.data_ptr(), v_posed.data_ptr(), g.data_ptr(), dvp.data_ptr(),
+            da.data_ptr(), partial.data_ptr(), count.data_ptr(), b, v, j,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+        lbs_skin_bwd.launches += 1
+    _raise_on(rc, "lbs_skin_bwd")
+    return da, dvp
+
+
+lbs_skin_bwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # Probe kernels (csrc/probes.cu): the rasterizer's primitives one at a time,
 # on N tile blocks of (8, 128); their plain versions are in probes/.
 # ---------------------------------------------------------------------------
@@ -611,9 +698,11 @@ PROBES = (paged_gather_rmw, take_along_axis, dyn_slice, onehot_gather, select_re
 for _w in PROBES:
     _w.launches = 0
 
+SKIN = (lbs_skin_fwd, lbs_skin_bwd)
+
 # The wrappers whose launches a run can count, in the order they are reported.
 WRAPPERS = (fused_lossgrad, fused_alpha_fwd, fused_alpha_bwd, tiles_alpha_fwd, tiles_alpha_bwd,
-            fused_lossgrad_packed) + PROBES
+            fused_lossgrad_packed) + PROBES + SKIN
 
 
 def reset_launches() -> None:

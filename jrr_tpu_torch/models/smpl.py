@@ -4,7 +4,10 @@
     J_rest   = J_reg_smpl · v_shaped        (rest joints)
     v_posed  = v_shaped + P·vec(R − I)      (pose blendshapes)
     G_k      = FK over the 24-joint tree    (unrolled chain of 3×3 products)
-    verts    = LBS(W, A, v_posed)           ((V,24)@(24,12) product + affine)
+    verts    = LBS(W, A, v_posed)           (Σ_j W[v,j]·A_j, then the affine map)
+
+`lbs_skin` runs the last line: on the card through the CUDA kernel pair
+(csrc/lbs_skin.cu), on the CPU through the plain version `lbs_skin_plain`.
 
 `synthetic_smpl_model` is the same numpy generator as the JAX package's, so
 one seed gives the same arrays in both packages. `convert_smpl_pickle`
@@ -22,7 +25,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from jrr_tpu_torch import constants, resolve_device
+from jrr_tpu_torch import constants, kernels, resolve_device
 
 SMPL_PARENTS: Tuple[int, ...] = (
     -1, 0, 0, 0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 9, 9, 12, 13, 14, 16, 17, 18, 19, 20, 21
@@ -114,6 +117,42 @@ def _fk(
     return torch.stack(rs, dim=1), torch.stack(ts, dim=1)
 
 
+def lbs_skin_plain(weights: torch.Tensor, a_flat: torch.Tensor, v_posed: torch.Tensor) -> torch.Tensor:
+    """Linear-blend skinning: weights (V, J), a_flat (B, J, 12) the joints'
+    affine transforms [R (row-major) | t], v_posed (B, V, 3) → verts (B, V, 3)
+    = T_rot·v_posed + T_t with T = Σ_j weights[:, j]·a_flat[:, j]."""
+    t_vert = torch.einsum("vj,bjd->bvd", weights, a_flat)  # (B, V, 12)
+    rot_v = t_vert[..., :9].reshape(*t_vert.shape[:2], 3, 3)
+    return torch.einsum("bvik,bvk->bvi", rot_v, v_posed) + t_vert[..., 9:]
+
+
+class _LBSSkin(torch.autograd.Function):
+    """`lbs_skin_plain` on CUDA tensors through the kernel pair
+    `kernels.lbs_skin_fwd` / `lbs_skin_bwd`, which raise on what they do not
+    take. The weights take no gradient."""
+
+    @staticmethod
+    def forward(ctx, weights, a_flat, v_posed):
+        weights, a_flat, v_posed = weights.contiguous(), a_flat.contiguous(), v_posed.contiguous()
+        ctx.save_for_backward(weights, a_flat, v_posed)
+        return kernels.lbs_skin_fwd(weights, a_flat, v_posed)
+
+    @staticmethod
+    def backward(ctx, g):
+        da, dv_posed = kernels.lbs_skin_bwd(*ctx.saved_tensors, g.contiguous())
+        return None, da, dv_posed
+
+
+def lbs_skin(weights: torch.Tensor, a_flat: torch.Tensor, v_posed: torch.Tensor) -> torch.Tensor:
+    """`lbs_skin_plain`, differentiable in a_flat and v_posed: the kernel pair
+    on CUDA tensors, the plain version (through autograd) on CPU tensors."""
+    if weights.requires_grad:
+        raise ValueError("lbs_skin takes no gradient in the skinning weights")
+    if not v_posed.is_cuda:
+        return lbs_skin_plain(weights, a_flat, v_posed)
+    return _LBSSkin.apply(weights, a_flat, v_posed)
+
+
 def smpl_forward(
     model: SMPLModel,
     betas: torch.Tensor,
@@ -136,9 +175,7 @@ def smpl_forward(
     # Skinning transforms with rest-pose correction: A_k = [R_k | t_k − R_k·j_rest_k].
     a_t = t_glob - torch.einsum("bjik,bjk->bji", r_glob, j_rest)
     a_flat = torch.cat([r_glob.reshape(b, model.num_joints, 9), a_t], dim=-1)  # (B, J, 12)
-    t_vert = torch.einsum("vj,bjd->bvd", model.lbs_weights, a_flat)  # (B, V, 12)
-    rot_v = t_vert[..., :9].reshape(b, model.num_verts, 3, 3)
-    verts = torch.einsum("bvik,bvk->bvi", rot_v, v_posed) + t_vert[..., 9:]
+    verts = lbs_skin(model.lbs_weights, a_flat, v_posed)
     return SMPLOutput(vertices=verts, joints=t_glob, v_shaped=v_shaped)
 
 
